@@ -6,10 +6,12 @@ substructure mining, encoding and every layout and route planner — is the
 reference package's own NumPy/C++ code, imported as it is; the port holds
 the device half.  This package imports ``torch`` and never ``jax``.
 
-Ported so far: the fused SpMV main path (K1 lane-placed product + G1, T1,
-K2, K3 with the DIA tables, residual adds) for one shard, float32 and
-float64.  Other execution classes raise ``NotImplementedError`` naming
-their ROADMAP.md queue item.
+Ported so far, for one shard in float32 and float64: the fused SpMV main
+path (K1 lane-placed product + G1, T1, K2, K3 with the DIA tables,
+residual adds) and the blocky path (fused horizontal runs and 2-D blocks
+through K1's lane-placed run styles, the merged route plan with its
+per-instance G1 lane gather, plain run and delta tables).  Other execution
+classes raise ``NotImplementedError`` naming their ROADMAP.md queue item.
 
     import sparsex_tpu_torch as spx
     A = spx.mat_tune(spx.input_load_mmf("matrix.mtx"))       # on cuda:0

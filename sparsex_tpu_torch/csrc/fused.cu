@@ -1,13 +1,15 @@
-// The fused CSX SpMV pipeline for Hopper (sm_90a): K1, T1, K2 and K3.
+// The fused CSX SpMV pipeline for Hopper (sm_90a): K1 (styles lp and
+// rlp{W}), T1, K2 and K3.
 //
 // Each kernel replaces one Pallas TPU kernel of sparsex_tpu/ops/fused.py and
 // reads exactly the plan arrays its counterpart reads (the shared NumPy
-// planners build them).  All four are gathers with little or no reuse, so
+// planners build them).  All are gathers with little or no reuse, so
 // each is bound by device-memory bytes and latency, not by arithmetic; the
 // first versions keep every intermediate either in registers or in one
 // shared-memory stage and read x through L2.
 //
-// Numerics: the only arithmetic is K1's one multiply and K3's sums.  The
+// Numerics: the only arithmetic is K1's one multiply (plus the rlp styles'
+// sliding lane sums) and K3's sums.  The
 // explicit __fmul_rn / __fadd_rn (and double) intrinsics keep nvcc from
 // contracting a multiply and an add into an FMA, so the sums round exactly
 // as the plain PyTorch versions and the Pallas kernels round them, in the
@@ -62,6 +64,56 @@ __global__ void k1_lp_kernel(const int32_t* __restrict__ plo,
     }
   }
   out[e] = r;
+}
+
+// ---------------------------------------------------------------------------
+// K1, styles "rlp2" / "rlp4" / "rlp8" (replaces fused.py:_build_k1, the
+// lane-placed run styles).  Horizontal runs of width W sit in W-aligned
+// mod-128 lane slots of a row; every lane holds the lp product
+//   p[l] = x2[page, low & 7, l] * vals[t, s, l]   (0 where the page is
+//          outside the q8-page window, as in k1_lp_kernel)
+// then log2(W) CIRCULAR roll-right adds, p[l] += p[(l - d) & 127] for
+// d = 1, 2, 4, leave each run's total at its last lane (arcs that wrap
+// lane 127 -> 0 sum correctly because the roll is circular), and the G1
+// wires route the totals: out[l] = g1 < 0 ? 0 : p[g1].
+// One 128-thread group per (tile, sublane) row computes each product once
+// into shared memory, where a per-output gather (k1_lp_kernel's design)
+// would recompute up to W products per lane.  Like the lp kernel it is
+// bound by the bytes of mg, vals and the x window, read through L2; the
+// adds keep the Pallas kernel's order, so the result is bit-equal to it.
+// ---------------------------------------------------------------------------
+constexpr int K1_ROWS = 2;       // (tile, sublane) rows per rlp block
+
+template <typename T>
+__global__ void k1_rlp_kernel(const int32_t* __restrict__ plo,
+                              const int32_t* __restrict__ mg,
+                              const T* __restrict__ vals,
+                              const T* __restrict__ x2,
+                              T* __restrict__ out, int q8, int W) {
+  __shared__ T p[K1_ROWS][L];
+  const int r = threadIdx.x >> 7;
+  const int l = threadIdx.x & (L - 1);
+  const long long row = (long long)blockIdx.x * K1_ROWS + r;   // t * 8 + s
+  const long long e = (row << 7) + l;
+  const int m = mg[e];
+  const int low = m & 0x3FFF;
+  const int pg = low >> 3;
+  T xv = T(0);
+  if (q8 == 1 || pg < q8) {
+    const long long page = (long long)plo[row >> 3] * q8 + (q8 == 1 ? 0 : pg);
+    xv = x2[((page << 3) + (low & 7)) * L + l];
+  }
+  T acc = mul_rn(xv, vals[e]);
+  for (int d = 1; d < W; d <<= 1) {
+    p[r][l] = acc;
+    __syncthreads();
+    acc = add_rn(acc, p[r][(l - d) & (L - 1)]);
+    __syncthreads();
+  }
+  p[r][l] = acc;
+  __syncthreads();
+  const int g1 = (int)(((uint32_t)m) >> 16) - 1;
+  out[e] = g1 >= 0 ? p[r][g1] : T(0);
 }
 
 // ---------------------------------------------------------------------------
@@ -202,6 +254,19 @@ int launch_k1(const void* plo, const void* mg, const void* vals, const void* x2,
 }
 
 template <typename T>
+int launch_k1_rlp(const void* plo, const void* mg, const void* vals,
+                  const void* x2, void* out, long long n_tiles, int q8, int W,
+                  void* stream) {
+  if (W < 2 || W > L || (W & (W - 1))) return (int)cudaErrorInvalidValue;
+  const long long blocks = n_tiles * 8 / K1_ROWS;   // 8 rows per tile
+  if (blocks == 0) return (int)cudaGetLastError();
+  k1_rlp_kernel<T><<<(unsigned)blocks, K1_ROWS * L, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)plo, (const int32_t*)mg, (const T*)vals, (const T*)x2,
+      (T*)out, q8, W);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch_t1(const void* in, void* out, int A2R, void* stream) {
   dim3 grid(L / 32, L / 32, A2R);
   dim3 block(32, 8);
@@ -258,6 +323,12 @@ int launch_k3(const void* const* e1, const void* const* g3, const int* K,
                               const void* vals, const void* x2, void* out,     \
                               long long n_tiles, int q8, void* stream) {       \
     return launch_k1<T>(plo, mg, vals, x2, out, n_tiles, q8, stream);          \
+  }                                                                            \
+  extern "C" int spx_k1_rlp_##SFX(const void* plo, const void* mg,             \
+                                  const void* vals, const void* x2, void* out, \
+                                  long long n_tiles, int q8, int W,            \
+                                  void* stream) {                              \
+    return launch_k1_rlp<T>(plo, mg, vals, x2, out, n_tiles, q8, W, stream);   \
   }                                                                            \
   extern "C" int spx_t1_##SFX(const void* in, void* out, int A2R,              \
                               void* stream) {                                  \

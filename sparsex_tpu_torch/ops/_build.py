@@ -2,7 +2,8 @@
 
 Counterpart of the self-building loader in ``sparsex_tpu/native/__init__.py``
 with one deliberate difference: there is no fallback.  At first use the
-sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared
+sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one ``nvcc``
+process per source, all started together, and linked into one shared
 library with a plain C interface, named by a hash of the sources and flags
 and cached under ``sparsex_tpu_torch/_build/``, then loaded with ``ctypes``.
 A missing ``nvcc`` or a failed build raises :class:`KernelBuildError`
@@ -26,7 +27,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600
 
 _lock = threading.Lock()
@@ -64,7 +65,30 @@ def _lib_path() -> str:
         with open(src, "rb") as fp:
             h.update(os.path.basename(src).encode())
             h.update(fp.read())
-    return os.path.join(BUILD_DIR, f"libspx_fused_{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"libspx_kernels_{h.hexdigest()[:16]}.so")
+
+
+def _run(cmds):
+    """Run the nvcc commands together; raise with the output of the first
+    that fails.  Returns their combined output.  No process outlives it."""
+    procs = []
+    try:
+        for cmd in cmds:
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+        outs = [p.communicate(timeout=BUILD_TIMEOUT_S)[0] for p in procs]
+    except (OSError, subprocess.TimeoutExpired) as e:
+        raise KernelBuildError(f"nvcc did not run to its end: {e}") from e
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise KernelBuildError(
+                f"{' '.join(cmd)} exited {p.returncode}:\n{out}")
+    return "".join(outs)
 
 
 def _compile(out: str) -> None:
@@ -75,21 +99,19 @@ def _compile(out: str) -> None:
     nvcc = nvcc_path()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *srcs]
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in srcs]
     t0 = time.perf_counter()
     try:
-        r = subprocess.run(cmd, capture_output=True, text=True,
-                           timeout=BUILD_TIMEOUT_S)
-    except (OSError, subprocess.TimeoutExpired) as e:
-        raise KernelBuildError(f"{' '.join(cmd)} failed to run: {e}") from e
-    if r.returncode != 0:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise KernelBuildError(
-            f"{' '.join(cmd)} exited {r.returncode}:\n{r.stderr}{r.stdout}")
-    os.replace(tmp, out)   # atomic: a concurrent loader never sees a stub
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                    for src, obj in zip(srcs, objs)])
+        log += _run([[nvcc, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, out)   # atomic: a concurrent loader never sees a stub
+    finally:   # the objects always, the library only if it was not moved
+        for path in (*objs, tmp):
+            if os.path.exists(path):
+                os.unlink(path)
     build_seconds = time.perf_counter() - t0
-    build_log = r.stderr + r.stdout
+    build_log = log
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -97,6 +119,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     for sfx in ("f32", "f64"):
         f = getattr(lib, f"spx_k1_{sfx}")
         f.argtypes = [vp, vp, vp, vp, vp, ll, i, vp]
+        f.restype = i
+        f = getattr(lib, f"spx_k1_rlp_{sfx}")
+        f.argtypes = [vp, vp, vp, vp, vp, ll, i, i, vp]
+        f.restype = i
+        f = getattr(lib, f"spx_lane_gather_{sfx}")
+        f.argtypes = [vp, vp, vp, ll, i, vp]
         f.restype = i
         f = getattr(lib, f"spx_t1_{sfx}")
         f.argtypes = [vp, vp, i, vp]

@@ -45,7 +45,7 @@ class CsxExecutor:
                 "item 4)")
         ref._maybe_build_pages()
         meta = ref._pages_meta
-        check_slice(meta, ref._pages_arrays if meta is not None else {})
+        check_slice(meta)
         dtype = _DTYPES[ref._dtype]
         arrays = plan_to_torch(meta, ref._pages_arrays, device, dtype)
         return cls(meta, arrays, ref.tables.nrows, ref.tables.ncols, dtype,

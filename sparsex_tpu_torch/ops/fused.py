@@ -1,16 +1,19 @@
-"""The fused delta + DIA pipeline on PyTorch: K1, T1, K2, K3 and their glue.
+"""The fused pipeline on PyTorch: K1, T1, K2, K3 and their glue.
 
 Counterpart of the traced half of ``sparsex_tpu/ops/fused.py``.  The plan
-(static metas and arrays) comes unchanged from the shared NumPy planner
-(``sparsex_tpu.ops.fused.build_fused_delta``, ``pad_dias_for_k3``); only
-the device half is ported:
+(static metas and arrays) comes unchanged from the shared NumPy planners
+(``build_fused_delta``, ``build_fused_run``, ``merge_segment_plan``,
+``pad_dias_for_k3``); only the device half is ported:
 
-- four kernel wrappers, ``k1``, ``t1``, ``k2``, ``k3``, each launching a CUDA
-  kernel of ``csrc/fused.cu`` on a CUDA tensor and running its plain
-  PyTorch version (``k1_plain`` ...) only on a CPU tensor;
+- four kernel wrappers, ``k1`` (styles ``lp`` and ``rlp{W}``), ``t1``,
+  ``k2``, ``k3``, each launching a CUDA kernel of ``csrc/fused.cu`` on a
+  CUDA tensor and running its plain PyTorch version (``k1_plain`` ...) only
+  on a CPU tensor;
 - the glue with the reference's names and static-meta tuples:
   ``_to_blocks``, ``_k1_x2``, ``fused_delta_a1``, ``_e1s_from_a1``,
-  ``fused_delta_e1s``, ``k3_combine`` and ``fused_delta_dia_apply``.
+  ``fused_delta_e1s``, ``fused_run_a1``, ``fused_run_e1s``, ``merged_e1s``
+  (each merged instance's G1 is the lane gather of ``ops/route.py``) and
+  ``k3_combine``, plus the residual adds ``add_products`` / ``add_totals``.
 
 Every wrapper adds one to ``launches[name]`` each time it launches its CUDA
 kernel, and nowhere else, so a caller can show which kernels a run used.
@@ -93,10 +96,27 @@ def _d2r(nrows_part: int) -> int:
 # K1: lane-placed page-gather product + G1 lane route
 # ---------------------------------------------------------------------------
 
-def k1_plain(plo, mg, vals, x2, q: int):
-    """``out[t,s,l] = g1 >= 0 ? x2[page, low&7, g1] * vals[t,s,g1] : 0`` with
-    ``g1 = (mg[t,s,l] >> 16) - 1``, ``low = mg[t,s,g1] & 0x3FFF`` and
-    ``page = plo[t]*q8 + (low >> 3)`` (``fused.py:_build_k1``, style lp)."""
+def k1_style(style: str) -> int:
+    """The sliding-sum width W of a ported K1 style: 0 for the lane-placed
+    ``lp``, W for ``rlp{W}`` (W in 2, 4, 8).  The dense-tile styles ``sl``
+    and ``run{W}`` raise ``NotImplementedError``."""
+    if style == "lp":
+        return 0
+    if style.startswith("rlp") and style[3:] in ("2", "4", "8"):
+        return int(style[3:])
+    raise NotImplementedError(
+        f"K1 style {style!r} is not ported yet (the lane-placed 'lp' and "
+        "'rlp2'/'rlp4'/'rlp8' styles are); see ROADMAP.md Queue 2, item 1")
+
+
+def k1_plain(plo, mg, vals, x2, q: int, style: str = "lp"):
+    """``out[t,s,l] = g1 >= 0 ? p[t,s,g1] : 0`` with ``g1 = (mg[t,s,l] >> 16)
+    - 1`` and the lane products ``p[t,s,l] = x2[page, low&7, l] *
+    vals[t,s,l]``, ``low = mg[t,s,l] & 0x3FFF``, ``page = plo[t]*q8 + (low
+    >> 3)`` (``fused.py:_build_k1``, style lp).  Style ``rlp{W}`` first adds
+    ``roll(p, d)`` along the lanes for d = 1, 2, .. < W (circular), leaving
+    each W-lane run's total at its last lane."""
+    W = k1_style(style)
     T = mg.shape[0]
     q8 = _q8(q)
     low = mg & 0x3FFF
@@ -110,14 +130,20 @@ def k1_plain(plo, mg, vals, x2, q: int):
     xv = x2.reshape(-1)[idx]
     zero = torch.zeros((), dtype=vals.dtype, device=vals.device)
     prod = torch.where(ok, xv, zero) * vals
+    d = 1
+    while d < W:
+        prod = prod + torch.roll(prod, d, dims=2)
+        d *= 2
     g1 = ((mg >> 16) & 0xFFFF) - 1
     g = torch.gather(prod, 2, g1.clamp(min=0).to(torch.int64))
     return torch.where(g1 >= 0, g, zero)
 
 
-def k1(plo, mg, vals, x2, q: int):
-    """K1 (style lp) over a (T, 8, 128) tile stream; ``x2`` is the padded
-    page grid (npages, 8, 128), a multiple of the window's q8 pages."""
+def k1(plo, mg, vals, x2, q: int, style: str = "lp"):
+    """K1 (style ``lp`` or ``rlp{W}``) over a (T, 8, 128) tile stream;
+    ``x2`` is the padded page grid (npages, 8, 128), a multiple of the
+    window's q8 pages."""
+    W = k1_style(style)
     _value_dtype("vals", vals)
     T = mg.shape[0]
     dev = vals.device
@@ -130,11 +156,14 @@ def k1(plo, mg, vals, x2, q: int):
         raise ValueError(f"x2: shape {tuple(x2.shape)} is not a grid of "
                          f"q8={q8}-page windows")
     if _route(dev) == "cpu":
-        return k1_plain(plo, mg, vals, x2, q)
+        return k1_plain(plo, mg, vals, x2, q, style)
     out = torch.empty_like(vals)
-    _launch("k1", vals.dtype, plo.data_ptr(), mg.data_ptr(),
-            vals.data_ptr(), x2.data_ptr(), out.data_ptr(), T, q8,
-            _stream(dev))
+    ptrs = (plo.data_ptr(), mg.data_ptr(), vals.data_ptr(), x2.data_ptr(),
+            out.data_ptr(), T, q8)
+    if W:
+        _launch("k1_rlp", vals.dtype, *ptrs, W, _stream(dev))
+    else:
+        _launch("k1", vals.dtype, *ptrs, _stream(dev))
     return out
 
 
@@ -329,22 +358,14 @@ def page_grid(x, ncols: int, npages: int):
 
 
 def _k1_x2(x, ncols: int, q: int, npages: int, x2):
-    """The page grid an ``lp`` K1 part reads; reuses a caller-shared grid
-    when it is large enough and a multiple of this window's q8
-    (``fused.py:1591``)."""
+    """The page grid an ``lp`` or ``rlp`` K1 part reads (both lane-placed,
+    ``fused.py:1598``); reuses a caller-shared grid when it is large enough
+    and a multiple of this window's q8 (``fused.py:1591``)."""
     q8, npages_pad = lp_window(q, npages)
     if (x2 is not None and x2.shape[0] >= npages_pad
             and x2.shape[0] % q8 == 0):
         return x2
     return page_grid(x, ncols, npages_pad)
-
-
-def lp_only(style: str) -> None:
-    """Refuse every K1 style but the lane-placed ``lp``."""
-    if style != "lp":
-        raise NotImplementedError(
-            f"K1 style {style!r} is not ported yet (only the lane-placed "
-            "'lp' style is); see ROADMAP.md Queue 2, item 1")
 
 
 def fused_delta_a1(meta, arrays, x, ncols: int, x2=None):
@@ -355,20 +376,20 @@ def fused_delta_a1(meta, arrays, x, ncols: int, x2=None):
     T, q, npages = meta[:3]
     style = meta[6] if len(meta) > 6 else "sl"
     pm = meta[7] if len(meta) > 7 else None
-    lp_only(style)
+    k1_style(style)
     if x.dim() != 1:
         raise NotImplementedError("k-batched (SpMM) K1 is not ported yet; "
                                   "see ROADMAP.md Queue 2, item 6")
     if pm is None:
         x2 = _k1_x2(x, ncols, q, npages, x2)
-        a1 = k1(arrays["plo"], arrays["mg"], arrays["vals"], x2, q)
+        a1 = k1(arrays["plo"], arrays["mg"], arrays["vals"], x2, q, style)
         return a1.reshape(T * 8, L)
     (T2, q2, npages2, style2), inter = pm
-    lp_only(style2)
+    k1_style(style2)
     # one shared page grid, aligned for the LARGER window
     x2 = _k1_x2(x, ncols, max(q, q2), max(npages, npages2), x2)
-    a1a = k1(arrays["plo"], arrays["mg"], arrays["vals"], x2, q)
-    a1b = k1(arrays["plo2"], arrays["mg2"], arrays["vals2"], x2, q2)
+    a1a = k1(arrays["plo"], arrays["mg"], arrays["vals"], x2, q, style)
+    a1b = k1(arrays["plo2"], arrays["mg2"], arrays["vals2"], x2, q2, style2)
     segs = [(a1a if pid == 0 else a1b)[lo:hi] for pid, lo, hi in inter]
     a1 = torch.cat(segs) if len(segs) > 1 else segs[0]
     return a1.reshape(-1, L)
@@ -399,6 +420,47 @@ def fused_delta_e1s(meta, arrays, x, ncols: int, nrows_part: int, x2=None):
     return _e1s_from_a1(meta[3], arrays, A1, D2R)
 
 
+def fused_run_a1(meta, arrays, x, ncols: int, x2=None):
+    """K1 (run style) only: the run segment's (T*8, L) grid
+    (``fused.py:764``); ``meta = (T, q, npages, inst, n_res, style)``."""
+    T, q, npages = meta[:3]
+    if x.dim() != 1:
+        raise NotImplementedError("k-batched (SpMM) K1 is not ported yet; "
+                                  "see ROADMAP.md Queue 2, item 6")
+    x2 = _k1_x2(x, ncols, q, npages, x2)
+    a1 = k1(arrays["plo"], arrays["mg"], arrays["vals"], x2, q, meta[5])
+    return a1.reshape(T * 8, L)
+
+
+def fused_run_e1s(meta, arrays, x, ncols: int, nrows_part: int, x2=None):
+    """K1 (run style) + T1 + K2 per route instance (``fused.py:804``)."""
+    A1 = fused_run_a1(meta, arrays, x, ncols, x2=x2)
+    return _e1s_from_a1(meta[3], arrays, A1, _d2r(nrows_part))
+
+
+def merged_e1s(inst_meta, arrays, src_global, nrows_part: int):
+    """Per-instance G1 + T1 + K2 over the concatenated RAW source grid
+    (S, L) of every fused segment (``fused.py:882``).  G1 is the lane
+    gather, run per instance: merged instances may overlap in source rows
+    and colour them independently, so their G1 wires are never unioned."""
+    from sparsex_tpu_torch.ops.route import lane_gather
+
+    D2R = _d2r(nrows_part)
+    out = []
+    for i, meta_i in enumerate(inst_meta):
+        S1c, S1p, A2R, _D2Ri, _Dp, K, W2, a0, a1 = meta_i[:9]
+        um = meta_i[9] if len(meta_i) > 9 else 0
+        Si = src_global[a0:a1]
+        if S1p != S1c:
+            Si = F.pad(Si, (0, 0, 0, S1p - S1c))
+        A1 = lane_gather(Si.contiguous(), arrays[f"g1_{i}"][None])
+        A1T = t1(A1, A2R)
+        e1 = k2(A1T, arrays[f"g2a_{i}"], arrays[f"g2b_{i}"],
+                arrays[f"g2c_{i}"], W2, D2R)
+        out.append((e1, arrays[f"g3_{i}"], K, bool(um & 2)))
+    return out
+
+
 def k3_combine(e1_g3, dia_pack, x, nrows_part: int, ncols: int):
     """One K3 over every routed instance + every DIA table: y written once
     (``fused.py:1774``).  More than MAX_INSTANCES instances split into
@@ -424,43 +486,33 @@ def k3_combine(e1_g3, dia_pack, x, nrows_part: int, ncols: int):
     return acc[:nrows_part] if acc.shape[0] != nrows_part else acc
 
 
-def add_products(acc, vals, cols, dest, x, ncols: int):
-    """``acc[dest] += vals * x[cols]`` in place, columns clamped to
-    [0, ncols) and destinations outside [0, len(acc)) dropped — the
-    reference's ``.at[dest].add(..., mode="drop")`` with
-    ``take(mode="clip")``."""
-    prods = vals * x[cols.clamp(0, ncols - 1)]
+def add_totals(acc, totals, dest):
+    """``acc[dest] += totals`` in place, destinations outside [0, len(acc))
+    dropped — the reference's ``.at[dest].add(..., mode="drop")``."""
     n = acc.shape[0]
     ok = (dest >= 0) & (dest < n)
-    prods = torch.where(ok, prods, torch.zeros((), dtype=prods.dtype,
-                                                device=prods.device))
-    return acc.index_add_(0, dest.clamp(0, n - 1), prods)
+    totals = torch.where(ok, totals, torch.zeros((), dtype=totals.dtype,
+                                                  device=totals.device))
+    return acc.index_add_(0, dest.clamp(0, n - 1), totals)
 
 
-def fused_delta_dia_apply(meta, arrays, dia_pack, x, nrows_part: int,
-                          ncols: int, x2=None):
-    """The whole fused pipeline: the dense (nrows_part,) partial of the
-    paged delta elements AND every DIA table, then the residual and
-    unpageable-spill adds (``fused.py:1832``).  ``x2`` is an optional
-    caller-shared page grid of x for K1 (see :func:`_k1_x2`)."""
-    _T, _q, _np, _inst, n_res, n_left = meta[:6]
-    e1_g3 = fused_delta_e1s(meta, arrays, x, ncols, nrows_part, x2=x2)
-    acc = k3_combine(e1_g3, dia_pack, x, nrows_part, ncols)
-    if n_res:
-        acc = add_products(acc, arrays["res_vals"], arrays["res_cols"],
-                           arrays["res_dest"], x, ncols)
-    if n_left:
-        acc = add_products(acc, arrays["left_vals"], arrays["left_cols"],
-                           arrays["left_rows"], x, ncols)
-    return acc
+def add_products(acc, vals, cols, dest, x, ncols: int):
+    """``acc[dest] += vals * x[cols]`` in place, columns clamped to
+    [0, ncols) (the reference's ``take(mode="clip")``)."""
+    return add_totals(acc, vals * x[cols.clamp(0, ncols - 1)], dest)
+
+
+# the CUDA kernels whose launches ``launches`` counts
+KERNELS = ("k1", "k1_rlp", "t1", "k2", "k3", "lane_gather")
 
 
 def launch_counts() -> Dict[str, int]:
-    return {k: int(launches[k]) for k in ("k1", "t1", "k2", "k3")}
+    return {k: int(launches[k]) for k in KERNELS}
 
 
 __all__: List[str] = [
-    "k1", "k1_plain", "t1", "t1_plain", "k2", "k2_plain", "k3", "k3_plain",
-    "k3_combine", "fused_delta_a1", "fused_delta_e1s", "fused_delta_dia_apply",
-    "launches", "launch_counts",
+    "k1", "k1_plain", "k1_style", "t1", "t1_plain", "k2", "k2_plain", "k3",
+    "k3_plain", "k3_combine", "fused_delta_a1", "fused_delta_e1s",
+    "fused_run_a1", "fused_run_e1s", "merged_e1s", "add_products",
+    "add_totals", "launches", "launch_counts", "KERNELS",
 ]

@@ -1,13 +1,14 @@
 """CUDA kernels of sparsex_tpu_torch against their plain PyTorch versions.
 
-These tests need an NVIDIA GPU with nvcc (they build ``csrc/fused.cu``) and
+These tests need an NVIDIA GPU with nvcc (they build ``csrc/*.cu``) and
 skip without one.  This file imports no JAX, so it also runs where JAX is
 not installed; there, skip the JAX-based ``tests/conftest.py``:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-K1, T1 and K2 must equal their plain versions bit for bit; K3 must agree to
-1e-6 of the largest value (both sum in the same order, without FMA).
+K1 (styles lp and rlp{W}), T1, K2 and the lane gather must equal their
+plain versions bit for bit; K3 must agree to 1e-6 of the largest value
+(both sum in the same order, without FMA).
 """
 
 import numpy as np
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from sparsex_tpu_torch.ops import fused as tf
+from sparsex_tpu_torch.ops import route as troute
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -56,6 +58,39 @@ def test_k1_cuda_matches_plain(dev, q8, dtype):
     torch.cuda.synchronize()
     assert tf.launches["k1"] == before + 1
     assert torch.equal(got, tf.k1_plain(*args, q8))
+
+
+@pytest.mark.parametrize("W", [2, 4, 8])
+@pytest.mark.parametrize("q8", [1, 4, 32])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_k1_rlp_cuda_matches_plain(dev, W, q8, dtype):
+    rng = np.random.default_rng(W * 100 + q8)
+    T, npages = 40, 128
+    mg = _pack(rng.integers(0, q8 * 8 + 8, (T, 8, L)),
+               rng.integers(-1, L, (T, 8, L)))
+    plo = rng.integers(0, npages // q8, T).astype(np.int32)
+    vals = rng.standard_normal((T, 8, L)).astype(dtype)
+    x2 = rng.standard_normal((npages, 8, L)).astype(dtype)
+    args = _on(dev, plo, mg, vals, x2)
+    before = tf.launches["k1_rlp"]
+    got = tf.k1(*args, q8, f"rlp{W}")
+    torch.cuda.synchronize()
+    assert tf.launches["k1_rlp"] == before + 1
+    assert torch.equal(got, tf.k1_plain(*args, q8, f"rlp{W}"))
+
+
+@pytest.mark.parametrize("K,R", [(1, 4736), (3, 200)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_lane_gather_cuda_matches_plain(dev, K, R, dtype):
+    rng = np.random.default_rng(K)
+    x = rng.standard_normal((R, L)).astype(dtype)
+    idx = rng.integers(-1, L, (K, R, L)).astype(np.int8)
+    xt, it = _on(dev, x, idx)
+    before = tf.launches["lane_gather"]
+    got = troute.lane_gather(xt, it)
+    torch.cuda.synchronize()
+    assert tf.launches["lane_gather"] == before + 1
+    assert torch.equal(got, troute.lane_gather_plain(xt, it))
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
@@ -113,17 +148,17 @@ def test_k3_cuda_matches_plain(dev, n_inst, um3, dia, anti, dtype):
     assert (got - want).abs().max() <= 1e-6 * want.abs().max()
 
 
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_api_cuda_matches_cpu(dev, dtype):
-    """The whole slice on the card against the same slice on the CPU."""
+def _api_cuda_vs_cpu(build, n, dtype, kernels):
+    """Tune ``build(n)`` on the card and on the CPU, run one SpMV on each and
+    check that every kernel in ``kernels`` launched on the card."""
     import sparsex_tpu_torch as spt
     from sparsex_tpu.config import Config
-    import bench
 
-    n = 1 << 17
-    rows, cols, vals = bench.build_matrix(n)
+    rows, cols, vals = build(n)
     cfg = Config.reset()
     cfg.set("spx.tpu.value_dtype", dtype)
+    cfg.set("spx.preproc.xform", "all")
+    cfg.set("spx.preproc.sampling", "portion")
     rowptr = np.zeros(n + 1, dtype=np.int64)
     rowptr[1:] = np.cumsum(np.bincount(rows, minlength=n))
     inp = spt.input_load_csr(rowptr, cols, vals, n, n)
@@ -134,7 +169,23 @@ def test_api_cuda_matches_cpu(dev, dtype):
     y = spt.matvec_kernel(1.0, A, x, 0.0, None)
     torch.cuda.synchronize()
     after = tf.launch_counts()
-    assert all(after[k] > before[k] for k in after)
+    assert all(after[k] > before[k] for k in kernels), (before, after)
     want = spt.matvec_kernel(1.0, B, x, 0.0, None)
     assert ((y.cpu() - want).abs().max()
             <= 1e-6 * want.abs().max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_api_cuda_matches_cpu(dev, dtype):
+    """The headline slice on the card against the same slice on the CPU."""
+    import bench
+    _api_cuda_vs_cpu(bench.build_matrix, 1 << 17, dtype,
+                     ("k1", "t1", "k2", "k3"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_api_cuda_blocky_matches_cpu(dev, dtype):
+    """The blocky slice (fused runs, merged plan) on the card against the
+    same slice on the CPU."""
+    import bench
+    _api_cuda_vs_cpu(bench.build_blocky_matrix, 1 << 18, dtype, tf.KERNELS)

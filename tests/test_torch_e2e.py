@@ -99,7 +99,7 @@ def _port_apply(meta, arrays, dpack, x, n, ncols, dtype):
                   ("k3dias", tuple(offs), tuple(aoffs)))
     pages_arrays = {"fused": arrays, "dias_fused_dv": dv,
                     "dias_fused_adv": adv}
-    kernels.check_slice(pages_meta, pages_arrays)
+    kernels.check_slice(pages_meta)
     tarr = convert.plan_to_torch(pages_meta, pages_arrays, "cpu", dtype)
     y = kernels.local_contrib(pages_meta, tarr,
                               torch.from_numpy(x).to(dtype), nrows_part=n,

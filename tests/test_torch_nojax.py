@@ -1,8 +1,9 @@
 """sparsex_tpu_torch runs without JAX, and refuses what it does not run.
 
 A subprocess blocks every ``jax`` import with a ``sys.meta_path`` finder,
-tunes the bench's headline matrix at 2^17 rows on the CPU and checks the
-SpMV against the COO oracle; then it checks three refusals: no default
+tunes the bench's headline matrix at 2^17 rows and its blocky matrix at
+2^18 rows (fused runs and a merged plan) on the CPU and checks each SpMV
+against the COO oracle; then it checks three refusals: no default
 device without CUDA, no kernel build without nvcc, and NotImplementedError
 for a plan outside the ported slice.  ``chip_smoke.py`` imports neither JAX
 nor the JAX package itself, and without a CUDA device it exits non-zero
@@ -59,6 +60,21 @@ want = coo_spmv(n, rows, cols, vals.astype(np.float64), x.astype(np.float64))
 out["rel_err"] = bench._mixed_rel_err(y.numpy(), want)
 out["shape"] = list(y.shape)
 
+nb = 1 << 18
+rows, cols, vals = bench.build_blocky_matrix(nb)
+rowptr = np.zeros(nb + 1, dtype=np.int64)
+rowptr[1:] = np.cumsum(np.bincount(rows, minlength=nb))
+B = spx.mat_tune(spx.input_load_csr(rowptr, cols, vals, nb, nb),
+                 device="cpu")
+meta = B.csx.executors[0].meta
+out["blocky_extras"] = sorted(e[0] for e in meta[5:] if e)
+out["blocky_styles"] = sorted(e[5][1][5] for e in meta[2]
+                              if len(e) > 5 and e[5] and e[5][0] == "frun")
+xb = np.random.default_rng(2).standard_normal(nb).astype(np.float32)
+yb = spx.matvec_kernel(1.0, B, xb, 0.0, None, device="cpu")
+want = coo_spmv(nb, rows, cols, vals.astype(np.float64), xb.astype(np.float64))
+out["blocky_rel_err"] = bench._mixed_rel_err(yb.numpy(), want)
+
 torch.cuda.is_available = lambda: False
 try:
     spx.resolve_device()
@@ -102,6 +118,9 @@ def test_port_runs_and_refuses_without_jax():
     assert out["extras"] == ["dfused", "k3dias"]
     assert out["shape"] == [1 << 17]
     assert out["rel_err"] < 2e-4          # bench.CHECK_TOL
+    assert out["blocky_extras"] == ["dfused", "fall"]
+    assert out["blocky_styles"] == ["rlp2", "rlp8"]
+    assert out["blocky_rel_err"] < 2e-4
     assert out["no_cuda"] == "SparsexError"
     assert out["no_nvcc"] == "KernelBuildError"
     assert out["out_of_slice"] == "NotImplementedError"
