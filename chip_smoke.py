@@ -5,7 +5,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``sparsex_tpu_torch/csrc`` (one nvcc per
-source, run together) and drives the port's two paths on the card at full
+source, run together) and drives the port's paths on the card at full
 width, each tuned with ``sparsex_tpu_torch.mat_tune`` and multiplied with
 ``matvec_kernel`` in float32 and float64:
 
@@ -17,7 +17,18 @@ width, each tuned with ``sparsex_tpu_torch.mat_tune`` and multiplied with
   delta pipeline plus two fused run tables (K1 styles rlp8 and rlp2) in
   one merged route plan (per instance: the G1 lane gather, T1, K2), one
   K3; then one untimed float32 check at bench.py's own 2^19, whose merged
-  plan has a masked instance.
+  plan has a masked instance;
+- the non-fused variants, which the fused planners refuse (more than 2^21
+  rows, or nothing to fuse):
+  - HPCG's 27-point stencil on a 128^3 grid (``hpcg_matrix``: 2^21 rows,
+    55.7M nonzeros): the plain-table variant, one DIA kernel launch of 27
+    diagonals;
+  - ``bench.build_matrix(1 << 22)`` (23.1M nonzeros): the legacy paged
+    variant, the delta-pages product with its scatter-add and the DIA
+    kernel on the 5 diagonals;
+  - ``bench.build_blocky_matrix(1 << 22)`` (13.6M nonzeros): the paged
+    delta stream and the unit-page gathers of the paged run and block
+    tables.
 
 Every phase is fatal on failure:
 
@@ -26,10 +37,10 @@ Every phase is fatal on failure:
 3. each kernel of the path against its plain PyTorch version on that
    plan's arrays, at every shape the path gives it (on the blocky path
    every merged instance, the 2^19 check's unmasked-K2 / masked-K3
-   instance included): K1 (lp and rlp), T1, K2 and the lane gather
-   bit-equal, K3 within 1e-6 of the largest value (its sums are ordered
-   as the plain version's, but the bar leaves room for the order to
-   change);
+   instance included): K1 (lp and rlp), T1, K2, the lane gather, the DIA
+   kernel, the delta-pages product and the unit-page gather bit-equal, K3
+   within 1e-6 of the largest value (its sums are ordered as the plain
+   version's, but the bar leaves room for the order to change);
 4. the SpMV end to end against a float64 COO oracle (``bench.CHECK_TOL``
    in float32, 1e-6 in float64) at alpha=1/beta=0 and alpha=2/beta=0.5,
    with the launch counts, derived from the plan, showing that each
@@ -48,8 +59,9 @@ Every phase is fatal on failure:
 The card's name and power limit (nvidia-smi) come two lines before the
 last; the line before the last is a JSON object ``{"kernels": [...]}``
 (per timed path and value type, each kernel that path runs with that
-path's launch counts: K1, T1, K2, K3 on the headline, all six on the
-blocky path); the last
+path's launch counts: K1, T1, K2, K3 on the headline, the six fused-path
+kernels on the blocky path, the DIA kernel, the delta-pages product and
+the unit-page gather on the non-fused paths); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 outside the repository, it exits non-zero and prints no result.
 """
@@ -69,7 +81,12 @@ LOOPS, OUTER = 128, 5
 N = 1 << 20
 N_BLOCKY = 1 << 21
 N_BLOCKY_CHECK = 1 << 19
-SOURCE = {"lane_gather": "sparsex_tpu_torch/csrc/route.cu"}
+N_BIG = 1 << 22         # past the fused planners' 2^21-row cap
+HPCG_NX = 128           # the HPCG stencil's grid edge: 2^21 rows
+SOURCE = {"lane_gather": "sparsex_tpu_torch/csrc/route.cu",
+          "dia": "sparsex_tpu_torch/csrc/dia.cu",
+          "delta_pages": "sparsex_tpu_torch/csrc/pages.cu",
+          "paged_gather": "sparsex_tpu_torch/csrc/pages.cu"}
 FUSED_SOURCE = "sparsex_tpu_torch/csrc/fused.cu"
 REPLACES = {
     "k1": "sparsex_tpu/ops/fused.py:962",
@@ -78,6 +95,9 @@ REPLACES = {
     "k2": "sparsex_tpu/ops/fused.py:1143",
     "k3": "sparsex_tpu/ops/fused.py:1372",
     "lane_gather": "sparsex_tpu/ops/route.py:425",
+    "dia": "sparsex_tpu/ops/pallas_kernels.py:40",
+    "delta_pages": "sparsex_tpu/ops/pallas_kernels.py:233",
+    "paged_gather": "sparsex_tpu/ops/pallas_kernels.py:389",
 }
 
 
@@ -164,11 +184,22 @@ def fused_runs(meta):
             if len(e) > 5 and e[5] and e[5][0] == "frun"]
 
 
+def paged_tables(meta):
+    """(kind, index, entry) of every paged run or block table (a unit-page
+    plan at ``entry[3]``, not fused)."""
+    return [(kind, i, e) for kind, metas in (("runs", meta[2]),
+                                             ("blocks", meta[3]))
+            for i, e in enumerate(metas)
+            if len(e) > 3 and e[3] and not (len(e) > 5 and e[5])]
+
+
 def expected_counts(meta):
     """Kernel launches of one SpMV, derived from the plan: K1 lp once per
     delta part, K1 rlp once per fused run table, per route instance one
     T1 and one K2 (and one lane gather for a merged plan's G1), one K3 per
-    8 instances."""
+    8 instances; one DIA kernel per standalone DIA table, one delta-pages
+    product for the paged delta stream, one unit-page gather per paged
+    table."""
     ex = extras_of(meta)
     dfused, fall = ex.get("dfused"), ex.get("fall")
     n_k1 = 0
@@ -181,9 +212,13 @@ def expected_counts(meta):
     else:
         n_inst = (len(dfused[0][3]) if dfused is not None else 0) + sum(
             len(m[3]) for _, m in runs)
+    n_dia = (0 if "k3dias" in ex
+             else sum(1 for _a, offs, _n in meta[4] if offs))
     return {"k1": n_k1, "k1_rlp": len(runs),
             "t1": n_inst, "k2": n_inst, "k3": -(-n_inst // 8),
-            "lane_gather": n_inst if fall is not None else 0}
+            "lane_gather": n_inst if fall is not None else 0,
+            "dia": n_dia, "delta_pages": int("dpages" in ex),
+            "paged_gather": len(paged_tables(meta))}
 
 
 def cmp(name, label, got, want, exact):
@@ -213,6 +248,30 @@ def tune(spx, rows, cols, vals, n, dtype_name, label):
     say(f"[{label}] mat_tune: {time.perf_counter() - t0:.2f} s, {n}x{n}, "
         f"nnz={mat.nnz}, on {mat.device}")
     return mat
+
+
+def hpcg_matrix(nx):
+    """HPCG's problem matrix: the 27-point stencil on an nx^3 grid, 26 on the
+    diagonal and -1 for each neighbour in the 3x3x3 cube, rows in
+    lexicographic order (x fastest).  Returns (n, rows, cols, vals) sorted
+    by (row, col): a row's neighbours, taken in (dz, dy, dx) order, have
+    increasing columns."""
+    n = nx ** 3
+    r = np.arange(n, dtype=np.int64)
+    i, j, k = r % nx, (r // nx) % nx, r // (nx * nx)
+    cols = np.empty((n, 27), dtype=np.int64)
+    ok = np.empty((n, 27), dtype=bool)
+    t = 0
+    for dk in (-1, 0, 1):
+        for dj in (-1, 0, 1):
+            for di in (-1, 0, 1):
+                ok[:, t] = ((i + di >= 0) & (i + di < nx) & (j + dj >= 0)
+                            & (j + dj < nx) & (k + dk >= 0) & (k + dk < nx))
+                cols[:, t] = r + di + nx * (dj + nx * dk)
+                t += 1
+    rows = np.broadcast_to(r[:, None], (n, 27))[ok]
+    cols = cols[ok]
+    return n, rows, cols, np.where(rows == cols, 26.0, -1.0)
 
 
 def check_plan(mat):
@@ -324,6 +383,24 @@ def check_blocky_plan(mat, label):
     return ex, fmeta, runs, extras["fall"]
 
 
+def check_kernel(res, label, timed, name, fn, plain, args, exact=True):
+    """``fn`` (a kernel wrapper) against ``plain`` on each argument tuple in
+    ``args``; ``res[name]`` = (max abs err, kernel ms, plain ms) summed over
+    the calls, the times None when not ``timed``.  Returns the kernel's
+    outputs."""
+    outs = [fn(*a) for a in args]
+    errs = [cmp(name, label, o, plain(*a), exact)
+            for o, a in zip(outs, args)]
+    if not timed:
+        res[name] = (max(errs), None, None)
+        return outs
+    pairs = [paired_ms(lambda a=a: fn(*a), lambda a=a: plain(*a))
+             for a in args]
+    res[name] = (max(errs), sum(k for k, _ in pairs),
+                 sum(p for _, p in pairs))
+    return outs
+
+
 def blocky_kernel_phase(ex, fmeta, runs, fall, x, label, timed=True):
     """Every kernel of the blocky path against its plain version, on the
     plan's arrays at the main path's shapes: K1 lp on the delta bulk and
@@ -343,17 +420,7 @@ def blocky_kernel_phase(ex, fmeta, runs, fall, x, label, timed=True):
     res = {}
 
     def run(name, fn, plain, args, exact=True):
-        outs = [fn(*a) for a in args]
-        errs = [cmp(name, label, o, plain(*a), exact)
-                for o, a in zip(outs, args)]
-        if not timed:
-            res[name] = (max(errs), None, None)
-            return outs
-        pairs = [paired_ms(lambda a=a: fn(*a), lambda a=a: plain(*a))
-                 for a in args]
-        res[name] = (max(errs), sum(k for k, _ in pairs),
-                     sum(p for _, p in pairs))
-        return outs
+        return check_kernel(res, label, timed, name, fn, plain, args, exact)
 
     far = ex.arrays["fused"]
     parts = [("", fmeta[1], fmeta[2], fmeta[6])]          # bulk (and tail)
@@ -390,6 +457,71 @@ def blocky_kernel_phase(ex, fmeta, runs, fall, x, label, timed=True):
         [(e1s[s:s + step], [fa[f"g3_{i}"] for i in range(s, min(
             s + step, len(inst)))], None, (), None, (), None, None, ncols,
           D2R) for s in range(0, len(inst), step)], exact=False)
+    say_kernels(res, label)
+    return res
+
+
+def check_pages_plan(mat, kind, label):
+    """The plans of the non-fused variants, as the reference planner makes
+    them: ``hpcg`` the plain-table variant, one DIA table of 27 diagonals
+    and nothing else; ``headline`` the paged delta stream (``dpages``, no
+    scatter route) and one standalone DIA table of 5; ``blocky`` the paged
+    delta stream with paged run and block tables."""
+    ex = mat.csx.executors[0]
+    meta = ex.meta
+    extras = extras_of(meta)
+    dias = [(anti, len(offs)) for anti, offs, _n in meta[4]]
+    paged = paged_tables(meta)
+    want = {
+        "hpcg": (ex.variant == "plain" and meta[2:4] == ((), ())
+                 and dias == [(False, 27)] and ex.arrays["delta"] is None),
+        "headline": (ex.variant == "paged" and set(extras) == {"dpages"}
+                     and dias == [(False, 5)]),
+        "blocky": (ex.variant == "paged" and set(extras) == {"dpages"}
+                   and {k for k, _i, _e in paged} == {"runs", "blocks"}),
+    }[kind]
+    delta = ex.arrays["delta"]
+    desc = (f"{ex.variant} variant; extras {extras}; DIA tables {dias}; "
+            f"run tables {[e[:4] for e in meta[2]]}; block tables "
+            f"{[e[:4] for e in meta[3]]}; plain delta "
+            f"{0 if delta is None else delta['cols'].shape[0]}")
+    if not want:
+        fail(f"[{label}] unexpected {kind} plan: {desc}")
+    say(f"[{label}] plan: {desc}")
+    return ex
+
+
+def pages_kernel_phase(ex, x, label, timed=True):
+    """Each kernel of a non-fused path against its plain version, on the
+    plan's arrays at the main path's shapes: the DIA kernel per standalone
+    DIA table (in its zero-padded x frame), the delta-pages product over
+    the shared page grid, the unit-page gather per paged table.  All three
+    must be bit-equal.  Returns {name: (max_abs_err, ms, plain_ms)}."""
+    from sparsex_tpu_torch.ops import kernels as tk
+    from sparsex_tpu_torch.ops import pallas_kernels as tpk
+
+    meta, arrs = ex.meta, ex.arrays
+    nrows, ncols = ex.nrows, ex.ncols
+    extras = extras_of(meta)
+    res = {}
+    if meta[4] and "k3dias" not in extras:
+        args = []
+        for offs, dv, xs in tk.dia_tables(meta[4], arrs["dias"], x, ncols):
+            xp, pad_lo = tpk.dia_frame(offs, xs, nrows, ncols)
+            args.append((dv, xp, offs, pad_lo))
+        check_kernel(res, label, timed, "dia", tpk.dia, tpk.dia_plain, args)
+    x2 = tk.paged_grid(meta, x, ncols)
+    if "dpages" in extras:
+        rep = arrs["delta_pages"]
+        check_kernel(res, label, timed, "delta_pages", tpk.delta_pages,
+                     tpk.delta_pages_plain, [(rep["plo"], rep["sl"],
+                                              rep["vals"], x2,
+                                              extras["dpages"][1])])
+    args = [(arrs[kind][i]["plan"]["plo"], arrs[kind][i]["plan"]["sl"], x2,
+             e[3][1]) for kind, i, e in paged_tables(meta)]
+    if args:
+        check_kernel(res, label, timed, "paged_gather", tpk.gather,
+                     tpk.gather_plain, args)
     say_kernels(res, label)
     return res
 
@@ -452,7 +584,8 @@ def e2e_phase(spx, tf, mat, rows, cols, vals, x, tol, dtype_name,
     return counts, ms, host_ms, graph_time_ms(spmv), errs, spmv
 
 
-_KERNEL_NAME = re.compile(r"\b(k1_lp|k1_rlp|t1|k2|k3|lane_gather)_kernel\b")
+_KERNEL_NAME = re.compile(r"\b(k1_lp|k1_rlp|t1|k2|k3|lane_gather|dia|"
+                          r"delta_pages|paged_gather)_kernel\b")
 
 
 def profile_phase(spmv, reps=50):
@@ -614,6 +747,32 @@ def main():
     blocky_kernel_phase(ex, fmeta, runs, fall, x, label, timed=False)
     e2e_phase(spx, tf, mat, rows, cols, vals, x, bench.CHECK_TOL, label,
               timed=False)
+
+    # --- the non-fused variants: the HPCG stencil (plain tables, one DIA
+    # table) and the two bench matrices past the fused planners' 2^21-row
+    # cap (legacy paged variant: delta pages, DIA, paged gathers) ---
+    for kind, label0, build in (
+            ("hpcg", "hpcg 128^3", lambda: hpcg_matrix(HPCG_NX)),
+            ("headline", "headline 2^22",
+             lambda: (N_BIG,) + tuple(bench.build_matrix(N_BIG))),
+            ("blocky", "blocky 2^22",
+             lambda: (N_BIG,) + tuple(bench.build_blocky_matrix(N_BIG)))):
+        n, rows, cols, vals = build()
+        for dtype_name, tol in tols:
+            label = f"{label0} {dtype_name}"
+            mat = tune(spx, rows, cols, vals, n, dtype_name, label)
+            ex = check_pages_plan(mat, kind, label)
+            x = x_for(mat, n, dtype_name)
+            res = pages_kernel_phase(ex, x, label)
+            timing = e2e_phase(spx, tf, mat, rows, cols, vals, x, tol,
+                               label)
+            profiled = profile_phase(timing[-1])
+            summary[label] = report(label, mat, res, timing, profiled)
+            kernels_out += kernel_entries(res, timing[0], profiled[0],
+                                          label)
+            del mat, ex, x, timing
+            torch.cuda.empty_cache()
+        del rows, cols, vals
 
     say("summary: " + json.dumps(summary))
     say(card)

@@ -8,10 +8,14 @@ the device half.  This package imports ``torch`` and never ``jax``.
 
 Ported so far, for one shard in float32 and float64: the fused SpMV main
 path (K1 lane-placed product + G1, T1, K2, K3 with the DIA tables,
-residual adds) and the blocky path (fused horizontal runs and 2-D blocks
+residual adds), the blocky path (fused horizontal runs and 2-D blocks
 through K1's lane-placed run styles, the merged route plan with its
-per-instance G1 lane gather, plain run and delta tables).  Other execution
-classes raise ``NotImplementedError`` naming their ROADMAP.md queue item.
+per-instance G1 lane gather, plain run and delta tables) and the non-fused
+variants that matrices past 2^21 rows and stencil or banded matrices take
+(the plain tables with the standalone DIA kernel; the legacy paged
+variant: the page-bucketed delta product, the unit-page gathers of paged
+run and block tables).  Other execution classes raise
+``NotImplementedError`` naming their ROADMAP.md queue item.
 
     import sparsex_tpu_torch as spx
     A = spx.mat_tune(spx.input_load_mmf("matrix.mtx"))       # on cuda:0

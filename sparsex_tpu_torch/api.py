@@ -61,8 +61,9 @@ class Matrix:
 
 def mat_tune(input_: Input, *flags: str, device=None) -> Matrix:
     """``spx_mat_tune`` parity: CSX preprocessing and host planning, then
-    the plan uploaded to ``device`` (default ``cuda:0``).  Pass
-    ``OP_REORDER`` to RCM-reorder first."""
+    the plan uploaded to ``device`` (default ``cuda:0``): the fused or
+    legacy paged plan, or the plain tables when the planner made none.
+    Pass ``OP_REORDER`` to RCM-reorder first."""
     cfg = Config.instance()
     if cfg.symmetric:
         raise NotImplementedError(

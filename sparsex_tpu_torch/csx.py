@@ -4,8 +4,9 @@ Counterpart of ``sparsex_tpu/csx.py``.  Encoding is the reference's own
 (``sparsex_tpu.csx.CsxMatrix.from_coo``: partition, mine, encode); each
 shard's reference executor is then wrapped in a
 :class:`~sparsex_tpu_torch.ops.exec.CsxExecutor` that plans on the host and
-holds the plan on the device.  One shard is supported so far
-(``spx.rt.nr_threads`` = 1, the default).
+holds the plan on the device: the paged plan when the planner made one
+(fused or legacy paged), else the plain tables.  One shard is supported so
+far (``spx.rt.nr_threads`` = 1, the default).
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ class CsxMatrix:
                  permutation: Optional[np.ndarray] = None,
                  device=None) -> "CsxMatrix":
         """Tune on the host (the reference encoder and planners) and upload
-        each shard's fused plan to ``device`` (default ``cuda:0``)."""
+        each shard's plan to ``device`` (default ``cuda:0``)."""
         cfg = config or Config.instance()
         if cfg.nr_threads > 1:
             raise NotImplementedError(

@@ -137,6 +137,15 @@ def _bind(lib: ctypes.CDLL) -> None:
                       ctypes.POINTER(i), i, vp, vp, i, vp, vp, i, vp, vp,
                       ll, i, vp, vp]
         f.restype = i
+        f = getattr(lib, f"spx_dia_{sfx}")
+        f.argtypes = [vp, vp, vp, i, ll, vp, vp]
+        f.restype = i
+        f = getattr(lib, f"spx_delta_pages_{sfx}")
+        f.argtypes = [vp, vp, vp, vp, vp, ll, i, vp]
+        f.restype = i
+        f = getattr(lib, f"spx_paged_gather_{sfx}")
+        f.argtypes = [vp, vp, vp, vp, ll, i, i, vp]
+        f.restype = i
     lib.spx_cuda_error_string.argtypes = [i]
     lib.spx_cuda_error_string.restype = ctypes.c_char_p
 

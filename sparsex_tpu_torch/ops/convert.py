@@ -2,10 +2,13 @@
 carried across").
 
 ``plan_to_torch`` takes the paged meta and arrays that
-``sparsex_tpu.ops.exec.CsxExecutor._maybe_build_pages`` builds and returns
-the tensors the executor reads, placed on ``device`` once.  Values take
-the plan's value dtype; int8 wires and the packed K1 metadata stay as they
-are; index streams of the torch gathers and residual adds become int64.
+``sparsex_tpu.ops.exec.CsxExecutor._maybe_build_pages`` builds (or the
+executor's plain-table meta and arrays when it built none) and returns the
+tensors the executor reads, placed on ``device`` once.  Values take the
+plan's value dtype; int8 wires, the packed K1 metadata and the page plans'
+``plo`` / ``sl`` streams stay as they are (the delta stream's ``sl`` int16,
+the unit plans' int32); index streams of the torch gathers, scatter-adds
+and residual adds become int64.
 One array changes form on the way: for unmasked (``um & 1``) route
 instances the planner bakes K2's batched-transpose lane offset into
 ``g2b`` (``fused._g2b_lane_offset``), which the CUDA K2 does not use, so
@@ -116,15 +119,59 @@ def _check_windows(pages_meta, pages_arrays) -> None:
                              f"{npages_pad}-page grid")
 
 
+def _page_windows(pages_meta, pages_arrays):
+    """(name, plo, q, npages) of every legacy paged part of the plan: the
+    ``dpages`` delta stream and each paged run or block table's unit
+    plan."""
+    extras = {e[0]: e[1:] for e in pages_meta[5:] if e}
+    parts = []
+    if "dpages" in extras:
+        _T, q, npages = extras["dpages"]
+        parts.append(("delta_pages plo", pages_arrays["delta_pages"]["plo"],
+                      q, npages))
+    for kind, metas, key in (("run", pages_meta[2], "runs"),
+                             ("block", pages_meta[3], "blocks")):
+        for i, (entry, t) in enumerate(zip(metas, pages_arrays.get(key,
+                                                                   ()))):
+            if len(entry) > 3 and entry[3] and "plan" in t:
+                _T, q, _g, npages = entry[3]
+                parts.append((f"{kind} {i} plan plo", t["plan"]["plo"], q,
+                              npages))
+    return parts
+
+
+def _check_pages(pages_meta, pages_arrays, nrows: int) -> None:
+    """The CUDA paged gathers read ``x2`` unchecked: every tile's q-page
+    window must lie inside the ``max(npages, q)``-page grid that
+    ``pad_x_pages`` gives its part, and every ``dpages`` row inside the
+    ``nrows + 1`` accumulator (the last slot takes the padding slots'
+    sentinel rows)."""
+    for name, plo, q, npages in _page_windows(pages_meta, pages_arrays):
+        plo = np.asarray(plo)
+        if plo.size and (plo.min() < 0 or int(plo.max()) + q
+                         > max(npages, q)):
+            raise ValueError(f"{name}: windows outside the "
+                             f"{max(npages, q)}-page grid")
+    rep = pages_arrays.get("delta_pages")
+    if rep is not None and "rows" in rep:
+        rows = np.asarray(rep["rows"])
+        if rows.size and (rows.min() < 0 or rows.max() > nrows):
+            raise ValueError(f"delta_pages rows outside [0, {nrows}]")
+
+
 def plan_to_torch(pages_meta, pages_arrays, device,
                   dtype: torch.dtype) -> Dict[str, object]:
-    """Device tensors of the plan, with the reference's keys: ``fused``
-    (the delta pipeline), ``runs`` (one dict per run table: ``{"frun":
-    {...}}`` for a fused run table, the table itself for a plain one, ``{}``
-    for a ``cvt`` one), ``fall`` (the merged plan), ``delta`` (plain delta
-    singles, or None) and the K3 DIA grids.  ``g2b_{i}`` holds raw wires."""
+    """Device tensors of the plan, paged (``_pages_meta``) or plain-table
+    (``meta``), with the reference's keys: ``fused`` (the delta pipeline),
+    ``runs`` and ``blocks`` (one dict per table: ``{"frun": {...}}`` for a
+    fused run table, the table itself for a plain one, with its unit-page
+    ``plan`` when paged, ``{}`` for a ``cvt`` one), ``fall`` (the merged
+    plan), ``delta`` (plain delta singles, or None), ``delta_pages`` (the
+    paged delta stream, ``sl`` kept int16), the standalone ``dias`` and the
+    K3 DIA grids.  ``g2b_{i}`` holds raw wires."""
     extras = {e[0]: e[1:] for e in pages_meta[5:] if e}
     _check_windows(pages_meta, pages_arrays)
+    _check_pages(pages_meta, pages_arrays, pages_meta[0])
     out: Dict[str, object] = {}
     if "dfused" in extras:
         out["fused"] = _upload_tree(pages_arrays["fused"], device, dtype,
@@ -138,12 +185,21 @@ def plan_to_torch(pages_meta, pages_arrays, device,
                                       entry[5][1][3])
         runs.append(up)
     out["runs"] = runs
+    out["blocks"] = [_upload_tree(t, device, dtype)
+                     for t in pages_arrays.get("blocks", ())]
     if "fall" in extras:
         out["fall"] = _upload_tree(pages_arrays["fall"], device, dtype,
                                    extras["fall"][1])
+    if "dpages" in extras:
+        out["delta_pages"] = _upload_tree(pages_arrays["delta_pages"],
+                                          device, dtype)
     delta = pages_arrays.get("delta")
     out["delta"] = (None if delta is None
                     else _upload_tree(delta, device, dtype))
+    if pages_meta[4] and "k3dias" not in extras:   # standalone DIA tables
+        out["dias"] = [{"vals": _upload(np.asarray(t["vals"]), device,
+                                        dtype)}
+                       for t in pages_arrays["dias"]]
     for key in ("dias_fused_dv", "dias_fused_adv"):
         if pages_arrays.get(key) is not None:
             out[key] = _upload(np.asarray(pages_arrays[key]), device, dtype)

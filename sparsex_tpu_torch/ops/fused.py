@@ -502,8 +502,10 @@ def add_products(acc, vals, cols, dest, x, ncols: int):
     return add_totals(acc, vals * x[cols.clamp(0, ncols - 1)], dest)
 
 
-# the CUDA kernels whose launches ``launches`` counts
-KERNELS = ("k1", "k1_rlp", "t1", "k2", "k3", "lane_gather")
+# the CUDA kernels whose launches ``launches`` counts (the last three are
+# launched from ``ops/pallas_kernels.py``)
+KERNELS = ("k1", "k1_rlp", "t1", "k2", "k3", "lane_gather", "dia",
+           "delta_pages", "paged_gather")
 
 
 def launch_counts() -> Dict[str, int]:

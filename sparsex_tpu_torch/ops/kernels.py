@@ -1,17 +1,25 @@
 """One partition's SpMV contribution on PyTorch.
 
 Counterpart of ``local_contrib`` (``sparsex_tpu/ops/kernels.py:259-736``),
-ported for the 1-D, non-symmetric paths that the fused and blocky slices
-run, with the reference's own queue (``k3_pending``, ``k3_post``,
-``fall_pieces``) and one shared K3 at the end:
+ported for the 1-D, non-symmetric paths of the paged variant
+(``_pages_meta``) and of the plain-table variant (the executor's ``meta``,
+when the planner made no paged one), with the reference's own queue
+(``k3_pending``, ``k3_post``, ``fall_pieces``) and one shared K3 at the
+end:
 
 - the shared ``x2f`` page grid of every lane-placed K1 (:320-331,
   ``shared_page_grid``);
 - ``dfused``, the fused delta pipeline (:332-350);
+- the standalone DIA tables with static offsets (``dia_contrib``, :352-361,
+  :78-127), through the DIA kernel;
+- the shared ``x2`` page grid of every legacy paged consumer (:392-402,
+  ``paged_grid``) and ``dpages``, the page-bucketed delta product and its
+  scatter-add (:403-422, without ``dscatter``);
 - the plain delta singles (gather + segment sum, :454-459);
-- ``frun`` fused run tables (:541-569) and the plain, non-paged,
-  non-routed run tables (:570-588); ``cvt`` tables are skipped (:536-540,
-  :603-606);
+- ``frun`` fused run tables (:541-569) and the plain or paged, non-routed
+  run tables (:570-588, ``_gather_units`` :471-491); ``cvt`` tables are
+  skipped (:536-540, :603-606);
+- the plain or paged, non-routed block tables (:647-665);
 - the ``fall`` merged plan over the trimmed, concatenated K1 outputs of
   its segments (``merged_source``) with its ``dres`` / ``rres`` residuals
   (:684-716);
@@ -36,6 +44,9 @@ from sparsex_tpu_torch.ops.fused import (add_products, add_totals,
                                          fused_run_a1, fused_run_e1s,
                                          k1_style, k3_combine, merged_e1s,
                                          page_grid)
+from sparsex_tpu_torch.ops.pallas_kernels import (delta_pages_spmv,
+                                                  dia_spmv, pad_x_pages,
+                                                  paged_gather)
 
 # table classes, extras and merged-plan parts of the reference executor ->
 # where their port is queued in ROADMAP.md
@@ -44,9 +55,8 @@ _QUEUED = {
     "fblk": "Queue 1 item 10 (the fblk chain)",
     "blk": "Queue 1 item 10 (the fblk chain)",
     "bres": "Queue 1 item 7 (bres residuals)",
-    "dpages": "Queue 1 item 10 (legacy paged delta)",
     "dpagesT": "Queue 1 item 8 (symmetric per-shard delta)",
-    "dscatter": "Queue 1 item 10 (dscatter)",
+    "dscatter": "Queue 1 item 10 (dscatter, apply_scatter_plan)",
     "dscatterT": "Queue 1 item 8 (symmetric per-shard scatter)",
     "dsfused": "Queue 1 item 13 (stacked sharded fused delta)",
 }
@@ -64,18 +74,30 @@ def _kind(entry):
     return entry[5][0] if len(entry) > 5 and entry[5] else None
 
 
+def _check_unrouted(what: str, entry) -> None:
+    """A plain or paged unit table must scatter through ``index_add_``: a
+    routed one (``fs`` partial segment or legacy scatter plan) is
+    refused."""
+    if len(entry) > 4 and entry[4]:
+        scat = entry[4][0] if isinstance(entry[4][0], str) else "scatter"
+        _refuse(f"a routed {what} table ({scat!r})", _QUEUED.get(
+            scat, "Queue 1 item 3 (legacy routed scatters, "
+                  "apply_scatter_plan)"))
+
+
 def check_slice(meta) -> None:
-    """Raise ``NotImplementedError`` unless the paged ``meta`` holds only
-    what the port runs: fused delta and run segments with lane-placed K1
-    styles, their merged plan, DIA tables riding K3, plain delta singles
-    and plain (non-paged, non-routed) run tables."""
-    if meta is None:
-        _refuse("a matrix without a fused plan (plain-table DIA / delta / "
-                "run / block kernels)", "Queue 1 item 3 (XLA-era classes)")
+    """Raise ``NotImplementedError`` unless ``meta`` holds only what the
+    port runs.  ``meta`` is the executor's paged ``_pages_meta`` or, when
+    the planner made none, its plain-table ``meta``.  Ported: fused delta
+    and run segments with lane-placed K1 styles, their merged plan, DIA
+    tables riding K3 or standalone (static offsets), the legacy paged delta
+    (``dpages``) without its scatter route, plain delta singles, and plain
+    or paged (unit-page gather) run and block tables that are not
+    routed."""
     _nr, _nc, run_meta, block_meta, dia_meta = meta[:5]
     extras = {e[0]: e[1:] for e in meta[5:] if e}
     for key in extras:
-        if key not in ("dfused", "k3dias", "fall"):
+        if key not in ("dfused", "k3dias", "fall", "dpages"):
             _refuse(f"the {key!r} execution class",
                     _QUEUED.get(key, "Queue 1"))
     if "dfused" in extras:
@@ -83,24 +105,16 @@ def check_slice(meta) -> None:
         k1_style(fmeta[6] if len(fmeta) > 6 else "sl")
         if len(fmeta) > 7 and fmeta[7] is not None:
             k1_style(fmeta[7][0][3])
-    n_frun = 0
     for e in run_meta:
         kind = _kind(e)
         if kind == "cvt":
             continue
         if kind == "frun":
             k1_style(e[5][1][5])
-            n_frun += 1
             continue
         if kind is not None:
             _refuse(f"run table class {kind!r}", _QUEUED.get(kind, "Queue 1"))
-        if len(e) > 3 and e[3]:
-            _refuse("a paged run table (unit-page gather)",
-                    "Queue 1 item 10 (paged_gather)")
-        if len(e) > 4 and e[4]:
-            scat = e[4][0] if isinstance(e[4][0], str) else "scatter"
-            _refuse(f"a routed run table ({scat!r})",
-                    _QUEUED.get(scat, "Queue 1 item 10 (apply_scatter_plan)"))
+        _check_unrouted("run", e)
     for e in block_meta:
         kind = _kind(e)
         if kind == "cvt":
@@ -108,9 +122,7 @@ def check_slice(meta) -> None:
         if kind is not None:
             _refuse(f"block table class {kind!r}",
                     _QUEUED.get(kind, "Queue 1"))
-        _refuse("a plain block table", "Queue 1 item 3 (block gathers)")
-    if "dfused" not in extras and not n_frun:
-        _refuse("a paged plan without a fused segment", "Queue 1 item 3")
+        _check_unrouted("block", e)
     if "fall" in extras:
         segs, _inst, _bounds, res_desc = extras["fall"]
         for seg in segs:
@@ -119,8 +131,10 @@ def check_slice(meta) -> None:
         for rd in res_desc:
             if rd[0] not in ("dres", "rres"):
                 _refuse(f"merged-plan residual {rd[0]!r}", _QUEUED[rd[0]])
-    if dia_meta and "k3dias" not in extras:
-        _refuse("plain-table DIA", "Queue 1 item 3 (dia_contrib)")
+    if "k3dias" not in extras and any(offs is None
+                                      for _a, offs, _n in dia_meta):
+        _refuse("a DIA table with per-shard (dynamic) offsets",
+                "Queue 1 item 13 (parallel/shard.py)")
 
 
 @functools.lru_cache(maxsize=64)
@@ -154,6 +168,66 @@ def shared_page_grid(meta, x, ncols: int):
     return page_grid(x, ncols, max(8, -(-npages // 8) * 8))
 
 
+def paged_grid(meta, x, ncols: int):
+    """ONE padded page grid of x shared by every legacy paged consumer (the
+    ``dpages`` delta stream, each paged run or block table's unit plan),
+    sized by their largest q and npages (kernels.py:392-402); None when the
+    plan has none."""
+    extras = {e[0]: e[1:] for e in meta[5:] if e}
+    sigs = [extras["dpages"]] if "dpages" in extras else []
+    sigs += [e[3] for e in (*meta[2], *meta[3]) if len(e) > 3 and e[3]]
+    if not sigs:
+        return None
+    # (T, q, npages) and (T, q, g, npages): q at index 1, npages last
+    return pad_x_pages(x, ncols, max(s[1] for s in sigs),
+                       max(s[-1] for s in sigs))
+
+
+def dia_tables(meta_dias, dias, x, ncols: int):
+    """``(offsets, dv, x)`` of each non-empty standalone DIA table as the DIA
+    kernel takes it: an anti-diagonal table runs as diagonals ``ncols-1-s``
+    over the reversed x (kernels.py:120-123)."""
+    out = []
+    for (anti, offsets, _nd), t in zip(meta_dias, dias):
+        if not offsets:
+            continue
+        if anti:
+            out.append((tuple(ncols - 1 - s for s in offsets), t["vals"],
+                        torch.flip(x[:ncols], (0,))))
+        else:
+            out.append((tuple(offsets), t["vals"], x))
+    return out
+
+
+def dia_contrib(meta_dias, dias, x, nrows_part: int, ncols: int, acc=None):
+    """The standalone DIA tables with static offsets (``_dia_contrib_static``
+    on its Pallas branch, kernels.py:114-127, 1-D, non-symmetric): one DIA
+    kernel per table.  Adds into ``acc`` in place, or returns the first
+    table's output when ``acc`` is None.  Any number of diagonals takes the
+    kernel (the reference hands more than 64 to an XLA window sum)."""
+    for offsets, dv, xs in dia_tables(meta_dias, dias, x, ncols):
+        y = dia_spmv(offsets, dv, xs, nrows_part, ncols)
+        acc = y if acc is None else acc.add_(y)
+    return acc
+
+
+def _gather_units(t, entry, cols_u, steps, x, ncols: int, x2):
+    """(U, width) x values of a run or block table (kernels.py:471-491):
+    through the unit-page gather for the pageable prefix of a paged table
+    (its units reordered by the planner), a clipped take for the rest and
+    for a plain table."""
+    plan_sig = entry[3] if len(entry) > 3 else None
+    if plan_sig is None or "plan" not in t:
+        return x[(cols_u[:, None] + steps).clamp(0, ncols - 1)]
+    T, _q, g, _npages = plan_sig
+    xg = paged_gather(plan_sig, t["plan"], x, ncols, steps.shape[0], x2=x2)
+    U = cols_u.shape[0]
+    if U > T * g:
+        tail = x[(cols_u[T * g:, None] + steps).clamp(0, ncols - 1)]
+        return torch.cat([xg, tail])
+    return xg[:U]
+
+
 def merged_source(meta, arrs, x, ncols: int, x2f):
     """The merged (``fall``) plan's source grid (S, L): each segment's raw
     K1 output (the delta bulk and tail, or a fused run table), trimmed to
@@ -178,8 +252,9 @@ def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int):
     """The dense (nrows_part,) contribution of one partition: every fused
     segment's K1 (the delta bulk and tail, each fused run table), then
     either their per-segment T1 + K2 route instances or the merged plan's
-    (per-instance G1 lane gather + T1 + K2), one K3 with every DIA table,
-    the plain tables' adds and the residual and spill adds."""
+    (per-instance G1 lane gather + T1 + K2); the standalone DIA tables and
+    the paged delta stream; the plain and paged tables' adds; one K3 with
+    the DIA tables that ride it, then the residual and spill adds."""
     if x.dim() != 1:
         _refuse("this call (only the 1-D SpMV is ported)",
                 "Queue 1 item 9 (SpMM)" if x.dim() == 2 else "Queue 1")
@@ -191,6 +266,9 @@ def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int):
     k3_pending = []       # (e1, g3, K, um3) instances for the shared K3
     k3_post = []          # residual adds after it
     acc = None            # the plain tables' adds, made before K3
+
+    def zeros():
+        return torch.zeros(nrows_part, dtype=x.dtype, device=x.device)
 
     x2f = shared_page_grid(meta, x, ncols)
     if fall is not None:  # every fused segment's K1 feeds the merged plan
@@ -209,11 +287,23 @@ def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int):
             k3_post.append(("prod", far["left_vals"], far["left_cols"],
                             far["left_rows"]))
 
+    dpages = extras.get("dpages")
+    if dpages is not None:
+        # one spare slot past the rows takes the padding slots' sentinel
+        # row nrows_part, which the reference drops
+        base = torch.zeros(nrows_part + 1, dtype=x.dtype, device=x.device)
+        acc = base[:nrows_part]
+    if meta[4] and k3dias is None:       # standalone DIA tables
+        acc = dia_contrib(meta[4], arrs["dias"], x, nrows_part, ncols, acc)
+    x2 = paged_grid(meta, x, ncols)      # shared by every paged consumer
+    if dpages is not None:
+        delta_pages_spmv(dpages, arrs["delta_pages"], x, nrows_part, ncols,
+                         base, x2=x2)
+
     d = arrs.get("delta")
     if d is not None and d["cols"].shape[0]:
-        acc = add_products(torch.zeros(nrows_part, dtype=x.dtype,
-                                       device=x.device),
-                           d["vals"], d["cols"], d["row_ids"], x, ncols)
+        acc = add_products(zeros() if acc is None else acc, d["vals"],
+                           d["cols"], d["row_ids"], x, ncols)
 
     for ri, (entry, t) in enumerate(zip(run_meta, arrs["runs"])):
         kind = _kind(entry)
@@ -235,17 +325,32 @@ def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int):
                     t["tail_vals"], t["tail_cols"], steps, x, ncols),
                     t["tail_rows"], None))
             continue
-        # a plain run table: gather, multiply, scatter-add
+        # a plain or paged run table: gather, multiply, scatter-add
         if acc is None:
-            acc = torch.zeros(nrows_part, dtype=x.dtype, device=x.device)
-        contrib = t["vals"] * x[(t["cols"][:, None] + steps).clamp(
-            0, ncols - 1)]
+            acc = zeros()
+        contrib = t["vals"] * _gather_units(t, entry, t["cols"], steps, x,
+                                            ncols, x2)
         if rstep == 0:     # horizontal: one partial per unit
             add_totals(acc, contrib.sum(1), t["rows"])
         else:              # one destination row per element
             ridx = (t["rows"][:, None] + _steps(entry[2], rstep, str(
                 x.device))).clamp(0, nrows_part - 1)
             add_totals(acc, contrib.reshape(-1), ridx.reshape(-1))
+
+    for entry, t in zip(meta[3], arrs["blocks"]):
+        if _kind(entry) == "cvt":  # a pseudo-run table in the run loop
+            continue
+        # a plain or paged block table (kernels.py:647-665, 1-D): gather
+        # (U, bc), the (U, br) row sums, scatter-add into rows + r
+        if acc is None:
+            acc = zeros()
+        _enc, br, bc = entry[:3]
+        xg = _gather_units(t, entry, t["cols"], _steps(bc, 1, str(x.device)),
+                           x, ncols, x2)
+        contrib = (t["vals"] * xg[:, None, :]).sum(2)
+        ridx = (t["rows"][:, None] + _steps(br, 1, str(x.device))).clamp(
+            0, nrows_part - 1)
+        add_totals(acc, contrib.reshape(-1), ridx.reshape(-1))
 
     if fall is not None:  # the merged plan's residuals (its e1s are queued)
         fa = arrs["fall"]
@@ -269,7 +374,7 @@ def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int):
         y3 = k3_combine(k3_pending, pack, x, nrows_part, ncols)
         acc = y3 if acc is None else acc + y3
     elif acc is None:
-        acc = torch.zeros(nrows_part, dtype=x.dtype, device=x.device)
+        acc = zeros()
     for kind, a, b, c in k3_post:
         if kind == "prod":
             add_products(acc, a, b, c, x, ncols)
@@ -278,5 +383,5 @@ def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int):
     return acc
 
 
-__all__ = ["check_slice", "local_contrib", "merged_source",
-           "shared_page_grid"]
+__all__ = ["check_slice", "dia_contrib", "dia_tables", "local_contrib",
+           "merged_source", "paged_grid", "shared_page_grid"]

@@ -6,16 +6,20 @@ not installed; there, skip the JAX-based ``tests/conftest.py``:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-K1 (styles lp and rlp{W}), T1, K2 and the lane gather must equal their
-plain versions bit for bit; K3 must agree to 1e-6 of the largest value
-(both sum in the same order, without FMA).
+K1 (styles lp and rlp{W}), T1, K2, the lane gather, the DIA kernel, the
+delta-pages product and the unit-page gather must equal their plain
+versions bit for bit; K3 must agree to 1e-6 of the largest value (both sum
+in the same order, without FMA).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import sparsex_tpu.ops.pallas_kernels as pk
+from sparsex_tpu.ops import route as route_mod
 from sparsex_tpu_torch.ops import fused as tf
+from sparsex_tpu_torch.ops import pallas_kernels as tpk
 from sparsex_tpu_torch.ops import route as troute
 
 pytestmark = pytest.mark.cuda
@@ -148,7 +152,78 @@ def test_k3_cuda_matches_plain(dev, n_inst, um3, dia, anti, dtype):
     assert (got - want).abs().max() <= 1e-6 * want.abs().max()
 
 
-def _api_cuda_vs_cpu(build, n, dtype, kernels):
+@pytest.mark.parametrize("D", [5, 27, 70])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_dia_cuda_matches_plain(dev, D, dtype):
+    """Offsets a tile and more apart on both sides, ncols != nrows, and
+    D = 70 past the 64 diagonals the Pallas kernel stops at."""
+    rng = np.random.default_rng(D)
+    nrows, ncols = 100000, 90000
+    offsets = tuple(int(o) for o in sorted(rng.choice(
+        np.arange(-50000, 50000), D, replace=False)))
+    dv = rng.standard_normal((D, nrows)).astype(dtype)
+    x = rng.standard_normal(ncols).astype(dtype)
+    dvt, xt = _on(dev, dv, x)
+    xp, pad_lo = tpk.dia_frame(offsets, xt, nrows, ncols)
+    before = tf.launches["dia"]
+    got = tpk.dia(dvt, xp, offsets, pad_lo)
+    torch.cuda.synchronize()
+    assert tf.launches["dia"] == before + 1
+    assert torch.equal(got, tpk.dia_plain(dvt, xp, offsets, pad_lo))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_delta_pages_cuda_matches_plain(dev, dtype):
+    """The product bit-equal; the scatter-add takes the padding slots'
+    sentinel row n into the spare last slot of its n + 1 accumulator."""
+    rng = np.random.default_rng(5)
+    n, m = 1 << 16, 50000
+    rows = rng.integers(0, n, m)
+    cols = np.clip(rows + rng.integers(-5000, 5000, m), 0, n - 1)
+    rep, _left = pk.build_delta_pages(cols, rows,
+                                      rng.standard_normal(m).astype(dtype),
+                                      n, n)
+    q, npages = rep.pop("q"), rep.pop("npages")
+    assert (rep["rows"] == n).any() and rep["sl"].dtype == np.int16
+    x = rng.standard_normal(n).astype(dtype)
+    plo, sl, vals, rws, xt = _on(dev, rep["plo"], rep["sl"], rep["vals"],
+                                 rep["rows"].astype(np.int64), x)
+    x2 = tpk.pad_x_pages(xt, n, q, npages)
+    before = tf.launches["delta_pages"]
+    got = tpk.delta_pages(plo, sl, vals, x2, q)
+    torch.cuda.synchronize()
+    assert tf.launches["delta_pages"] == before + 1
+    assert torch.equal(got, tpk.delta_pages_plain(plo, sl, vals, x2, q))
+    meta = (plo.shape[0], q, npages)
+    trep = {"plo": plo, "sl": sl, "vals": vals, "rows": rws}
+    acc = torch.zeros(n + 1, dtype=vals.dtype, device=dev)
+    tpk.delta_pages_spmv(meta, trep, xt, n, n, acc)
+    want = torch.zeros(n + 1, dtype=vals.dtype)
+    tpk.delta_pages_spmv(meta, {k: v.cpu() for k, v in trep.items()},
+                         xt.cpu(), n, n, want)
+    assert ((acc[:n].cpu() - want[:n]).abs().max()
+            <= 1e-6 * want[:n].abs().max())
+
+
+@pytest.mark.parametrize("T", [64, 61])
+@pytest.mark.parametrize("sl_dtype", [np.int16, np.int32])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_paged_gather_cuda_matches_plain(dev, T, sl_dtype, dtype):
+    """int16 and int32 window offsets, some outside the q-page window."""
+    rng = np.random.default_rng(T)
+    q, npages = 6, 100
+    plo = rng.integers(0, npages - q + 1, T).astype(np.int32)
+    sl = rng.integers(0, q * 1024 + 500, (T, 8, L)).astype(sl_dtype)
+    x2 = rng.standard_normal((npages, 8, L)).astype(dtype)
+    args = _on(dev, plo, sl, x2)
+    before = tf.launches["paged_gather"]
+    got = tpk.gather(*args, q)
+    torch.cuda.synchronize()
+    assert tf.launches["paged_gather"] == before + 1
+    assert torch.equal(got, tpk.gather_plain(*args, q))
+
+
+def _api_cuda_vs_cpu(build, n, dtype, kernels, **options):
     """Tune ``build(n)`` on the card and on the CPU, run one SpMV on each and
     check that every kernel in ``kernels`` launched on the card."""
     import sparsex_tpu_torch as spt
@@ -159,6 +234,8 @@ def _api_cuda_vs_cpu(build, n, dtype, kernels):
     cfg.set("spx.tpu.value_dtype", dtype)
     cfg.set("spx.preproc.xform", "all")
     cfg.set("spx.preproc.sampling", "portion")
+    for key, value in options.items():
+        cfg.set(key, value)
     rowptr = np.zeros(n + 1, dtype=np.int64)
     rowptr[1:] = np.cumsum(np.bincount(rows, minlength=n))
     inp = spt.input_load_csr(rowptr, cols, vals, n, n)
@@ -188,4 +265,28 @@ def test_api_cuda_blocky_matches_cpu(dev, dtype):
     """The blocky slice (fused runs, merged plan) on the card against the
     same slice on the CPU."""
     import bench
-    _api_cuda_vs_cpu(bench.build_blocky_matrix, 1 << 18, dtype, tf.KERNELS)
+    _api_cuda_vs_cpu(bench.build_blocky_matrix, 1 << 18, dtype,
+                     ("k1", "k1_rlp", "t1", "k2", "k3", "lane_gather"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_api_cuda_hpcg_matches_cpu(dev, dtype):
+    """The plain-table variant (the HPCG stencil at 32^3: one DIA table)."""
+    import chip_smoke
+    _api_cuda_vs_cpu(lambda n: chip_smoke.hpcg_matrix(32)[1:], 32 ** 3,
+                     dtype, ("dia",), **{"spx.preproc.sampling": "none"})
+
+
+@pytest.mark.parametrize("build,n,kernels", [
+    ("build_matrix", 1 << 17, ("dia", "delta_pages")),
+    ("build_blocky_matrix", 1 << 18, ("delta_pages", "paged_gather")),
+])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_api_cuda_paged_matches_cpu(dev, monkeypatch, build, n, kernels,
+                                    dtype):
+    """The legacy paged variant without a fused segment: nothing fuses
+    under a raised ``spx.tpu.min_fused_nnz`` and nothing is routed."""
+    import bench
+    monkeypatch.setattr(route_mod, "MIN_ELEMS", 1 << 30)
+    _api_cuda_vs_cpu(getattr(bench, build), n, dtype, kernels,
+                     **{"spx.tpu.min_fused_nnz": str(1 << 30)})

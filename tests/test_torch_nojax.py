@@ -3,11 +3,13 @@
 A subprocess blocks every ``jax`` import with a ``sys.meta_path`` finder,
 tunes the bench's headline matrix at 2^17 rows and its blocky matrix at
 2^18 rows (fused runs and a merged plan) on the CPU and checks each SpMV
-against the COO oracle; then it checks three refusals: no default
-device without CUDA, no kernel build without nvcc, and NotImplementedError
-for a plan outside the ported slice.  ``chip_smoke.py`` imports neither JAX
-nor the JAX package itself, and without a CUDA device it exits non-zero
-and prints no result.
+against the COO oracle; then it checks two refusals, no default device
+without CUDA and no kernel build without nvcc; imports the non-fused
+variants' module and runs a diagonal matrix through the plain-table DIA
+variant; and checks that a plan outside the ported slice (the paged delta
+with its scatter route) raises NotImplementedError.  ``chip_smoke.py``
+imports neither JAX nor the JAX package itself, and without a CUDA device
+it exits non-zero and prints no result.
 """
 
 import ast
@@ -89,14 +91,34 @@ try:
 except _build.KernelBuildError as e:
     out["no_nvcc"] = "KernelBuildError" if "nvcc not found" in str(e) else str(e)
 
+import sparsex_tpu_torch.ops.pallas_kernels  # the non-fused variants' kernels
+
+# a diagonal matrix plans no paged variant: the plain-table DIA kernel
 d = np.arange(4096)
+D = spx.mat_tune(spx.input_load_csr(np.arange(4097), d,
+                                    np.full(4096, 3.0, np.float32), 4096,
+                                    4096), device="cpu")
+out["diag_meta"] = D.csx.executors[0].meta is D.csx.reference.executors[0].meta
+xd = np.random.default_rng(3).standard_normal(4096).astype(np.float32)
+yd = spx.matvec_kernel(1.0, D, xd, 0.0, None, device="cpu").numpy()
+out["diag_err"] = float(np.abs(yd - 3.0 * xd).max())
+
+# singles under the fused gate plan the paged delta with its scatter route
+# (dscatter), which is not ported
+rng = np.random.default_rng(4)
+ns, m = 1 << 15, 40000
+key = np.unique(rng.integers(0, ns * ns, m))
+r, c = key // ns, key % ns
+rowptr = np.zeros(ns + 1, dtype=np.int64)
+rowptr[1:] = np.cumsum(np.bincount(r, minlength=ns))
+cfg.set("spx.tpu.min_fused_nnz", str(1 << 30))
 try:
-    spx.mat_tune(spx.input_load_csr(np.arange(4097), d,
-                                    np.ones(4096, np.float32), 4096, 4096),
-                 device="cpu")
+    spx.mat_tune(spx.input_load_csr(rowptr, c, np.ones(r.size, np.float32),
+                                    ns, ns), device="cpu")
     out["out_of_slice"] = "tuned"
 except NotImplementedError as e:
-    out["out_of_slice"] = "NotImplementedError" if "ROADMAP.md" in str(e) else str(e)
+    out["out_of_slice"] = ("NotImplementedError" if "ROADMAP.md" in str(e)
+                           and "dscatter" in str(e) else str(e))
 
 out["jax_modules"] = sorted(m for m in sys.modules
                             if m == "jax" or m.startswith("jax."))
@@ -123,6 +145,8 @@ def test_port_runs_and_refuses_without_jax():
     assert out["blocky_rel_err"] < 2e-4
     assert out["no_cuda"] == "SparsexError"
     assert out["no_nvcc"] == "KernelBuildError"
+    assert out["diag_meta"] is True
+    assert out["diag_err"] < 1e-6
     assert out["out_of_slice"] == "NotImplementedError"
 
 
