@@ -7,50 +7,66 @@ Run from the repository root with no arguments:
 It builds the CUDA kernels from ``sparsex_tpu_torch/csrc`` (one nvcc per
 source, run together) and drives the port's paths on the card at full
 width, each tuned with ``sparsex_tpu_torch.mat_tune`` and multiplied with
-``matvec_kernel`` in float32 and float64:
+``matvec_kernel`` in float32 and float64.  The matrices are made here from
+seeds (``build_matrix`` and ``build_blocky_matrix`` are bench.py's, copied:
+this script imports nothing of the JAX package or its benchmark):
 
-- the headline bench matrix (``bench.build_matrix(1 << 20)``: 2^20 rows,
-  5.77M nonzeros): the fused delta pipeline (K1 style lp, T1, K2, K3) with
-  the DIA tables riding K3;
-- the blocky bench matrix (``bench.build_blocky_matrix(1 << 21)``: 2^21
-  rows, 6.82M nonzeros of 4x2 blocks, width-8 runs and singles): the
-  delta pipeline plus two fused run tables (K1 styles rlp8 and rlp2) in
-  one merged route plan (per instance: the G1 lane gather, T1, K2), one
-  K3; then one untimed float32 check at bench.py's own 2^19, whose merged
-  plan has a masked instance;
+- the headline matrix (``build_matrix(1 << 20)``: 2^20 rows, 5.77M
+  nonzeros): the fused delta pipeline (K1 style lp, T1, K2, K3) with the
+  DIA tables riding K3;
+- the blocky matrix (``build_blocky_matrix(1 << 21)``: 2^21 rows, 6.82M
+  nonzeros of 4x2 blocks, width-8 runs and singles): the delta pipeline
+  plus two fused run tables (K1 styles rlp8 and rlp2) in one merged route
+  plan (per instance: the G1 lane gather, T1, K2), one K3; then one untimed
+  float32 check at 2^19, whose merged plan has a masked instance;
+- the dense-tile K1 styles, which the planners take where lane placement
+  does not apply:
+  - ``wide_run_matrix(1 << 21, 16)`` (width-16 runs plus singles): a fused
+    run table in K1 style run16, the delta pipeline (lp) and a merged
+    route plan;
+  - ``lane_skew_matrix(1 << 21)`` (singles on a coarse column grid): the
+    delta pipeline in K1 style sl with its own route instances;
+  - one untimed float32 check of ``wide_run_matrix(1 << 19, 128)``, whose
+    run table takes K1 style run128 (seven roll passes) on 8 route
+    instances of its own besides the delta pipeline's, so that K3 runs in
+    two calls (at 2^20 the table would need 16 instances, more than K3's
+    8, and the planner gives it a paged plan with an ``fs`` route, which
+    the port does not run yet);
 - the non-fused variants, which the fused planners refuse (more than 2^21
   rows, or nothing to fuse):
   - HPCG's 27-point stencil on a 128^3 grid (``hpcg_matrix``: 2^21 rows,
     55.7M nonzeros): the plain-table variant, one DIA kernel launch of 27
     diagonals;
-  - ``bench.build_matrix(1 << 22)`` (23.1M nonzeros): the legacy paged
-    variant, the delta-pages product with its scatter-add and the DIA
-    kernel on the 5 diagonals;
-  - ``bench.build_blocky_matrix(1 << 22)`` (13.6M nonzeros): the paged
-    delta stream and the unit-page gathers of the paged run and block
-    tables.
+  - ``build_matrix(1 << 22)`` (23.1M nonzeros): the legacy paged variant,
+    the delta-pages product with its scatter-add and the DIA kernel on the
+    5 diagonals;
+  - ``build_blocky_matrix(1 << 22)`` (13.6M nonzeros): the paged delta
+    stream and the unit-page gathers of the paged run and block tables.
 
 Every phase is fatal on failure:
 
 1. the device, torch / CUDA versions and the kernel build time;
-2. tuning, with the plan checked to hold the expected execution classes;
+2. tuning, with the plan checked to hold the expected execution classes
+   and K1 styles;
 3. each kernel of the path against its plain PyTorch version on that
-   plan's arrays, at every shape the path gives it (on the blocky path
-   every merged instance, the 2^19 check's unmasked-K2 / masked-K3
-   instance included): K1 (lp and rlp), T1, K2, the lane gather, the DIA
+   plan's arrays, at every shape the path gives it, each stage fed what the
+   SpMV feeds it: K1 (every style), T1, K2, the lane gather, the DIA
    kernel, the delta-pages product and the unit-page gather bit-equal, K3
    within 1e-6 of the largest value (its sums are ordered as the plain
    version's, but the bar leaves room for the order to change);
-4. the SpMV end to end against a float64 COO oracle (``bench.CHECK_TOL``
-   in float32, 1e-6 in float64) at alpha=1/beta=0 and alpha=2/beta=0.5,
-   with the launch counts, derived from the plan, showing that each
-   kernel ran on that path;
-5. CUDA-event times, median over 5 runs of 128 calls after a warm-up:
-   the SpMV end to end as a Python caller gets it, the host's time to
-   enqueue one, and the SpMV replayed from a CUDA graph (device time);
-   each kernel and its plain version replayed from CUDA graphs, in the
-   order plain, kernel, kernel, plain (one kernel alone, 128 times in a
-   row: its inputs stay warm in L2); not for the untimed 2^19 check;
+4. the SpMV end to end against a float64 COO oracle (``CHECK_TOL`` in
+   float32, 1e-6 in float64) at alpha=1/beta=0 and alpha=2/beta=0.5, with
+   the launch counts, derived from the plan, showing that each kernel ran
+   on that path;
+5. CUDA-event times, median over 5 runs of 128 calls after a warm-up: the
+   SpMV end to end as a Python caller gets it, the host's time to enqueue
+   one, and the SpMV replayed from a CUDA graph (device time); each kernel
+   and its plain version replayed from CUDA graphs, in the order plain,
+   kernel, kernel, plain (all of one kernel's calls of an SpMV, 128 times in
+   a row: its inputs stay warm in L2), beside its bound (the bytes it must
+   move at 3.35 TB/s, or its operations at the card's peak, whichever is
+   longer) and, where one PyTorch call computes the same function, that
+   call's time; not for the untimed checks;
 6. a torch.profiler trace of 50 SpMVs: each kernel's device time inside
    the real SpMV, the PyTorch glue kernels around them (the four largest
    by name), and the share of the called-from-Python time the device is
@@ -58,12 +74,10 @@ Every phase is fatal on failure:
 
 The card's name and power limit (nvidia-smi) come two lines before the
 last; the line before the last is a JSON object ``{"kernels": [...]}``
-(per timed path and value type, each kernel that path runs with that
-path's launch counts: K1, T1, K2, K3 on the headline, the six fused-path
-kernels on the blocky path, the DIA kernel, the delta-pages product and
-the unit-page gather on the non-fused paths); the last
-line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
-outside the repository, it exits non-zero and prints no result.
+(per timed path and value type, each kernel that path runs, with that
+path's launch counts); the last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or outside the repository, it exits non-zero and
+prints no result.
 """
 
 import json
@@ -81,8 +95,15 @@ LOOPS, OUTER = 128, 5
 N = 1 << 20
 N_BLOCKY = 1 << 21
 N_BLOCKY_CHECK = 1 << 19
+N_DENSE = 1 << 21       # the wide-run (W = 16) and lane-skew matrices
+N_RUN128 = 1 << 19      # the width-128 wide-run check
 N_BIG = 1 << 22         # past the fused planners' 2^21-row cap
 HPCG_NX = 128           # the HPCG stencil's grid edge: 2^21 rows
+# the card's peaks for the bounds (H100 SXM: 3.35 TB/s of HBM3; 67 TFLOP/s
+# in float32 and 34 in float64 outside the tensor cores, NVIDIA's data
+# sheet), read at the card's full power limit
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 SOURCE = {"lane_gather": "sparsex_tpu_torch/csrc/route.cu",
           "dia": "sparsex_tpu_torch/csrc/dia.cu",
           "delta_pages": "sparsex_tpu_torch/csrc/pages.cu",
@@ -91,6 +112,8 @@ FUSED_SOURCE = "sparsex_tpu_torch/csrc/fused.cu"
 REPLACES = {
     "k1": "sparsex_tpu/ops/fused.py:962",
     "k1_rlp": "sparsex_tpu/ops/fused.py:962",
+    "k1_sl": "sparsex_tpu/ops/fused.py:962",
+    "k1_run": "sparsex_tpu/ops/fused.py:962",
     "t1": "sparsex_tpu/ops/fused.py:1317",
     "k2": "sparsex_tpu/ops/fused.py:1143",
     "k3": "sparsex_tpu/ops/fused.py:1372",
@@ -109,6 +132,10 @@ def fail(msg):
 def say(msg):
     print(msg, flush=True)
 
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
 
 def cuda_time_ms(fn, loops=LOOPS, outer=OUTER):
     """Median over ``outer`` CUDA-event timings of ``loops`` calls, in ms
@@ -168,6 +195,10 @@ def warm_up(seconds=3.0):
         torch.cuda.synchronize()
 
 
+# ---------------------------------------------------------------------------
+# plans
+# ---------------------------------------------------------------------------
+
 def csr_input(spx, rows, cols, vals, n):
     rowptr = np.zeros(n + 1, dtype=np.int64)
     rowptr[1:] = np.cumsum(np.bincount(rows, minlength=n))
@@ -194,46 +225,36 @@ def paged_tables(meta):
 
 
 def expected_counts(meta):
-    """Kernel launches of one SpMV, derived from the plan: K1 lp once per
-    delta part, K1 rlp once per fused run table, per route instance one
-    T1 and one K2 (and one lane gather for a merged plan's G1), one K3 per
-    8 instances; one DIA kernel per standalone DIA table, one delta-pages
-    product for the paged delta stream, one unit-page gather per paged
-    table."""
+    """Kernel launches of one SpMV, derived from the plan: one K1 per delta
+    part and per fused run table, under the key of the kernel its style
+    runs (``k1`` lp, ``k1_rlp``, ``k1_sl``, ``k1_run``); per route instance
+    one T1 and one K2 (and one lane gather for a merged plan's G1), one K3
+    per 8 instances; one DIA kernel per standalone DIA table, one
+    delta-pages product for the paged delta stream, one unit-page gather
+    per paged table."""
+    from sparsex_tpu_torch.ops import fused as tf
     ex = extras_of(meta)
     dfused, fall = ex.get("dfused"), ex.get("fall")
-    n_k1 = 0
+    counts = dict.fromkeys(tf.KERNELS, 0)
+    n_inst = 0
     if dfused is not None:
         fmeta = dfused[0]
-        n_k1 = 2 if len(fmeta) > 7 and fmeta[7] is not None else 1
-    runs = fused_runs(meta)
+        counts[tf.k1_key(fmeta[6])] += 1
+        if len(fmeta) > 7 and fmeta[7] is not None:
+            counts[tf.k1_key(fmeta[7][0][3])] += 1
+        n_inst += len(fmeta[3])
+    for _ri, m in fused_runs(meta):
+        counts[tf.k1_key(m[5])] += 1
+        n_inst += len(m[3])
     if fall is not None:
-        n_inst = len(fall[1])
-    else:
-        n_inst = (len(dfused[0][3]) if dfused is not None else 0) + sum(
-            len(m[3]) for _, m in runs)
-    n_dia = (0 if "k3dias" in ex
-             else sum(1 for _a, offs, _n in meta[4] if offs))
-    return {"k1": n_k1, "k1_rlp": len(runs),
-            "t1": n_inst, "k2": n_inst, "k3": -(-n_inst // 8),
-            "lane_gather": n_inst if fall is not None else 0,
-            "dia": n_dia, "delta_pages": int("dpages" in ex),
-            "paged_gather": len(paged_tables(meta))}
-
-
-def cmp(name, label, got, want, exact):
-    """Max abs error of a kernel against its plain version; fails unless
-    bit-equal (``exact``) or within 1e-6 of the largest value."""
-    import torch
-    err = (got.double() - want.double()).abs().max().item()
-    scale = want.double().abs().max().item()
-    if exact and not torch.equal(got, want):
-        fail(f"{name} [{label}]: not bit-equal to its plain version (max "
-             f"abs err {err:.3e})")
-    if not exact and not err <= 1e-6 * scale:
-        fail(f"{name} [{label}]: max abs err {err:.3e} > 1e-6 x "
-             f"{scale:.3e}")
-    return err
+        n_inst = counts["lane_gather"] = len(fall[1])
+    counts["t1"] = counts["k2"] = n_inst
+    counts["k3"] = -(-n_inst // 8) if n_inst else int("k3dias" in ex)
+    counts["dia"] = (0 if "k3dias" in ex
+                     else sum(1 for _a, offs, _n in meta[4] if offs))
+    counts["delta_pages"] = int("dpages" in ex)
+    counts["paged_gather"] = len(paged_tables(meta))
+    return counts
 
 
 def tune(spx, rows, cols, vals, n, dtype_name, label):
@@ -250,215 +271,88 @@ def tune(spx, rows, cols, vals, n, dtype_name, label):
     return mat
 
 
-def hpcg_matrix(nx):
-    """HPCG's problem matrix: the 27-point stencil on an nx^3 grid, 26 on the
-    diagonal and -1 for each neighbour in the 3x3x3 cube, rows in
-    lexicographic order (x fastest).  Returns (n, rows, cols, vals) sorted
-    by (row, col): a row's neighbours, taken in (dz, dy, dx) order, have
-    increasing columns."""
-    n = nx ** 3
-    r = np.arange(n, dtype=np.int64)
-    i, j, k = r % nx, (r // nx) % nx, r // (nx * nx)
-    cols = np.empty((n, 27), dtype=np.int64)
-    ok = np.empty((n, 27), dtype=bool)
-    t = 0
-    for dk in (-1, 0, 1):
-        for dj in (-1, 0, 1):
-            for di in (-1, 0, 1):
-                ok[:, t] = ((i + di >= 0) & (i + di < nx) & (j + dj >= 0)
-                            & (j + dj < nx) & (k + dk >= 0) & (k + dk < nx))
-                cols[:, t] = r + di + nx * (dj + nx * dk)
-                t += 1
-    rows = np.broadcast_to(r[:, None], (n, 27))[ok]
-    cols = cols[ok]
-    return n, rows, cols, np.where(rows == cols, 26.0, -1.0)
+def _fused_desc(meta):
+    """One line of the fused parts of a plan."""
+    extras = extras_of(meta)
+    desc = []
+    if "dfused" in extras:
+        fmeta = extras["dfused"][0]
+        tail = fmeta[7][0] if len(fmeta) > 7 and fmeta[7] else None
+        desc.append(f"delta T={fmeta[0]} q={fmeta[1]} npages={fmeta[2]} "
+                    f"style={fmeta[6]} tail={tail} instances="
+                    f"{[m[:10] for m in fmeta[3]]} residuals={fmeta[4]} "
+                    f"left={fmeta[5]}")
+    desc.append("fused runs " + str([(ri, m[0], m[1], m[2], m[5], m[4],
+                                      [i[:10] for i in m[3]])
+                                     for ri, m in fused_runs(meta)]))
+    desc.append("plain runs " + str([e[:3] for e in meta[2]
+                                     if not (len(e) > 5 and e[5])]))
+    if "fall" in extras:
+        segs, inst, _bounds, res_desc = extras["fall"]
+        desc.append(f"merged segments {segs} instances "
+                    f"{[m[:10] for m in inst]} residuals {res_desc}")
+    if "k3dias" in extras:
+        desc.append(f"k3dias {extras['k3dias']}")
+    return "; ".join(desc)
 
 
-def check_plan(mat):
+def check_plan(mat, label):
+    """The headline plan: the hybrid lp delta pipeline with the DIA tables
+    in K3."""
     ex = mat.csx.executors[0]
     extras = extras_of(ex.meta)
     if "dfused" not in extras or "k3dias" not in extras:
-        fail(f"plan holds {sorted(extras)}, expected dfused + k3dias")
+        fail(f"[{label}] plan holds {sorted(extras)}, expected dfused + "
+             "k3dias")
     fmeta = extras["dfused"][0]
     if len(fmeta) < 8 or fmeta[7] is None:
-        fail("plan has no hybrid tail part")
-    say(f"plan: bulk T={fmeta[0]} q={fmeta[1]} style={fmeta[6]}; tail "
-        f"T={fmeta[7][0][0]} q={fmeta[7][0][1]}; instances="
-        f"{[m[:7] for m in fmeta[3]]}; residuals={fmeta[4]} "
-        f"left={fmeta[5]}; k3dias={extras['k3dias']}")
-    return ex, fmeta, extras["k3dias"]
-
-
-def kernel_phase(ex, fmeta, k3dias, x, dtype_name):
-    """Each kernel against its plain version on the plan's arrays, at the
-    shapes of the main path; returns {name: (max_abs_err, ms, plain_ms)}."""
-    import torch
-    from sparsex_tpu_torch.ops import fused as tf
-
-    far = ex.arrays["fused"]
-    ncols, nrows = ex.ncols, ex.nrows
-    D2R = tf._d2r(nrows)
-    x2 = x.reshape(-1, 8, 128)          # 2^20 = 1024 whole pages
-    (_T2, q2, _np2, _s2), _inter = fmeta[7]
-    q = fmeta[1]
-    res = {}
-
-    k1_args = [(far["plo"], far["mg"], far["vals"], x2, q),
-               (far["plo2"], far["mg2"], far["vals2"], x2, q2)]
-    errs = []
-    for args in k1_args:
-        got = tf.k1(*args)
-        torch.cuda.synchronize()
-        errs.append(cmp("k1", dtype_name, got, tf.k1_plain(*args), True))
-    pairs = [paired_ms(lambda a=a: tf.k1(*a), lambda a=a: tf.k1_plain(*a))
-             for a in k1_args]
-    res["k1"] = (max(errs), sum(k for k, _ in pairs),
-                 sum(p for _, p in pairs))
-    A1 = tf.fused_delta_a1(fmeta, far, x, ncols, x2=x2)
-    e1s = []
-    t1_err, k2_err, t1_t, k2_t = 0.0, 0.0, (0, 0), (0, 0)
-    for i, m in enumerate(fmeta[3]):
-        S1c, S1p, A2R, _D, _Dp, _K, W2, a0, a1 = m[:9]
-        Ai = torch.nn.functional.pad(A1[a0:a1], (0, 0, 0, S1p - S1c))
-        got = tf.t1(Ai, A2R)
-        torch.cuda.synchronize()
-        t1_err = max(t1_err, cmp("t1", dtype_name, got,
-                                 tf.t1_plain(Ai, A2R), True))
-        kp = paired_ms(lambda: tf.t1(Ai, A2R), lambda: tf.t1_plain(Ai, A2R))
-        t1_t = (t1_t[0] + kp[0], t1_t[1] + kp[1])
-        wires = (far[f"g2a_{i}"], far[f"g2b_{i}"], far[f"g2c_{i}"], W2, D2R)
-        e1 = tf.k2(got, *wires)
-        torch.cuda.synchronize()
-        k2_err = max(k2_err, cmp("k2", dtype_name, e1,
-                                 tf.k2_plain(got, *wires), True))
-        kp = paired_ms(lambda: tf.k2(got, *wires),
-                       lambda: tf.k2_plain(got, *wires))
-        k2_t = (k2_t[0] + kp[0], k2_t[1] + kp[1])
-        e1s.append(e1)
-    res["t1"] = (t1_err,) + t1_t
-    res["k2"] = (k2_err,) + k2_t
-    g3s = [far[f"g3_{i}"] for i in range(len(fmeta[3]))]
-    dia_offs, anti_offs = k3dias
-    if anti_offs:
-        fail("the headline plan is expected to hold no anti-diagonals")
-    xb = tf._to_blocks(x)[0]
-    k3_args = (e1s, g3s, ex.arrays.get("dias_fused_dv"), tuple(dia_offs),
-               None, (), xb, None, ncols, D2R)
-    got = tf.k3(*k3_args)
-    torch.cuda.synchronize()
-    res["k3"] = (cmp("k3", dtype_name, got, tf.k3_plain(*k3_args),
-                         False),) + paired_ms(
-        lambda: tf.k3(*k3_args), lambda: tf.k3_plain(*k3_args))
-    say_kernels(res, dtype_name)
-    return res
-
-
-def say_kernels(res, label):
-    for name, (err, ms, pms) in res.items():
-        say(f"kernel {name} [{label}]: max abs err {err:.3e}"
-            + ("" if ms is None else
-               f"; {ms * 1e3:.2f} us vs plain {pms * 1e3:.2f} us per SpMV, "
-               "each replayed alone (inputs warm in L2)"))
+        fail(f"[{label}] plan has no hybrid tail part")
+    if extras["k3dias"][1]:
+        fail(f"[{label}] the headline plan is expected to hold no "
+             "anti-diagonals")
+    say(f"[{label}] plan: {_fused_desc(ex.meta)}")
+    return ex
 
 
 def check_blocky_plan(mat, label):
     """The blocky plan: the delta pipeline and the rlp8 and rlp2 fused run
-    tables in one merged route plan."""
+    tables in one merged route plan, no DIA tables."""
     ex = mat.csx.executors[0]
     extras = extras_of(ex.meta)
-    runs = fused_runs(ex.meta)
-    styles = {m[5] for _, m in runs}
+    styles = {m[5] for _, m in fused_runs(ex.meta)}
     if ("dfused" not in extras or "fall" not in extras
-            or not {"rlp2", "rlp8"} <= styles):
+            or not {"rlp2", "rlp8"} <= styles or "k3dias" in extras):
         fail(f"[{label}] plan holds {sorted(extras)} and fused run styles "
              f"{sorted(styles)}, expected dfused + fall with rlp8 and rlp2")
-    fmeta = extras["dfused"][0]
-    segs, inst, _bounds, res_desc = extras["fall"]
-    say(f"[{label}] plan: delta T={fmeta[0]} q={fmeta[1]} style={fmeta[6]}"
-        f" tail={fmeta[7][0] if len(fmeta) > 7 and fmeta[7] else None}; "
-        "fused runs "
-        f"{[(ri, m[0], m[1], m[5], m[4]) for ri, m in runs]}; merged "
-        f"segments {segs}; instances {[m[:10] for m in inst]}; residuals "
-        f"{res_desc}")
-    return ex, fmeta, runs, extras["fall"]
+    say(f"[{label}] plan: {_fused_desc(ex.meta)}")
+    return ex
 
 
-def check_kernel(res, label, timed, name, fn, plain, args, exact=True):
-    """``fn`` (a kernel wrapper) against ``plain`` on each argument tuple in
-    ``args``; ``res[name]`` = (max abs err, kernel ms, plain ms) summed over
-    the calls, the times None when not ``timed``.  Returns the kernel's
-    outputs."""
-    outs = [fn(*a) for a in args]
-    errs = [cmp(name, label, o, plain(*a), exact)
-            for o, a in zip(outs, args)]
-    if not timed:
-        res[name] = (max(errs), None, None)
-        return outs
-    pairs = [paired_ms(lambda a=a: fn(*a), lambda a=a: plain(*a))
-             for a in args]
-    res[name] = (max(errs), sum(k for k, _ in pairs),
-                 sum(p for _, p in pairs))
-    return outs
+def check_masked_blocky_plan(mat, label):
+    """The blocky plan at 2^19: a merged instance with a masked g3."""
+    ex = check_blocky_plan(mat, label)
+    if all(m[9] & 2 for m in extras_of(ex.meta)["fall"][1]):
+        fail(f"[{label}] no merged instance with a masked g3 (um & 2 == 0)")
+    return ex
 
 
-def blocky_kernel_phase(ex, fmeta, runs, fall, x, label, timed=True):
-    """Every kernel of the blocky path against its plain version, on the
-    plan's arrays at the main path's shapes: K1 lp on the delta bulk and
-    tail, K1 rlp on each fused run table, then per merged instance the lane
-    gather, T1 and K2 (raw g2b wires where um & 1), and the one K3 over all
-    instances (masked g3 where um & 2 is 0).  Each stage takes the previous
-    kernel's output.  Returns {name: (max_abs_err, ms, plain_ms)}, the
-    times None when not ``timed``."""
-    import torch.nn.functional as F
-    from sparsex_tpu_torch.ops import fused as tf
-    from sparsex_tpu_torch.ops import kernels as tk
-    from sparsex_tpu_torch.ops import route as troute
-
-    ncols = ex.ncols
-    D2R = tf._d2r(ex.nrows)
-    x2f = tk.shared_page_grid(ex.meta, x, ncols)
-    res = {}
-
-    def run(name, fn, plain, args, exact=True):
-        return check_kernel(res, label, timed, name, fn, plain, args, exact)
-
-    far = ex.arrays["fused"]
-    parts = [("", fmeta[1], fmeta[2], fmeta[6])]          # bulk (and tail)
-    if len(fmeta) > 7 and fmeta[7] is not None:
-        parts.append(("2",) + tuple(fmeta[7][0][1:4]))
-    # one page grid for both parts, as fused_delta_a1 shares it
-    x2 = tf._k1_x2(x, ncols, max(p[1] for p in parts),
-                   max(p[2] for p in parts), x2f)
-    run("k1", tf.k1, tf.k1_plain,
-        [(far["plo" + s], far["mg" + s], far["vals" + s], x2, q, style)
-         for s, q, _np, style in parts])
-    k1_args = []
-    for ri, m in runs:
-        fr = ex.arrays["runs"][ri]["frun"]
-        k1_args.append((fr["plo"], fr["mg"], fr["vals"],
-                        tf._k1_x2(x, ncols, m[1], m[2], x2f), m[1], m[5]))
-    run("k1_rlp", tf.k1, tf.k1_plain, k1_args)
-
-    # the merged plan's source grid, built as local_contrib builds it
-    A1g = tk.merged_source(ex.meta, ex.arrays, x, ncols, x2f)
-    fa, inst = ex.arrays["fall"], fall[1]
-    a1s = run("lane_gather", troute.lane_gather, troute.lane_gather_plain,
-              [(F.pad(A1g[m[7]:m[8]], (0, 0, 0, m[1] - m[0])).contiguous(),
-                fa[f"g1_{i}"][None]) for i, m in enumerate(inst)])
-    a1ts = run("t1", tf.t1, tf.t1_plain,
-               [(a1, m[2]) for a1, m in zip(a1s, inst)])
-    e1s = run("k2", tf.k2, tf.k2_plain,
-              [(a1t, fa[f"g2a_{i}"], fa[f"g2b_{i}"], fa[f"g2c_{i}"], m[6],
-                D2R) for i, (a1t, m) in enumerate(zip(a1ts, inst))])
-    if "k3dias" in extras_of(ex.meta):
-        fail(f"[{label}] the blocky plan is expected to hold no DIA tables")
-    step = tf.MAX_INSTANCES
-    run("k3", tf.k3, tf.k3_plain,
-        [(e1s[s:s + step], [fa[f"g3_{i}"] for i in range(s, min(
-            s + step, len(inst)))], None, (), None, (), None, None, ncols,
-          D2R) for s in range(0, len(inst), step)], exact=False)
-    say_kernels(res, label)
-    return res
+def check_dense_plan(style):
+    """A plan check for the dense-tile K1 style ``style``: ``sl`` the delta
+    pipeline in style sl; ``run{W}`` a fused run table in that style."""
+    def check(mat, label):
+        ex = mat.csx.executors[0]
+        extras = extras_of(ex.meta)
+        if style == "sl":
+            ok = ("dfused" in extras
+                  and extras["dfused"][0][6] == "sl")
+        else:
+            ok = any(m[5] == style for _, m in fused_runs(ex.meta))
+        if not ok:
+            fail(f"[{label}] no K1 part in style {style}: "
+                 f"{_fused_desc(ex.meta)}")
+        say(f"[{label}] plan: {_fused_desc(ex.meta)}")
+        return ex
+    return check
 
 
 def check_pages_plan(mat, kind, label):
@@ -491,12 +385,237 @@ def check_pages_plan(mat, kind, label):
     return ex
 
 
+# ---------------------------------------------------------------------------
+# kernels against their plain versions, with their bounds
+# ---------------------------------------------------------------------------
+
+def cmp(name, label, got, want, exact):
+    """Max abs error of a kernel against its plain version; fails unless
+    bit-equal (``exact``) or within 1e-6 of the largest value."""
+    import torch
+    err = (got.double() - want.double()).abs().max().item()
+    scale = want.double().abs().max().item()
+    if exact and not torch.equal(got, want):
+        fail(f"{name} [{label}]: not bit-equal to its plain version (max "
+             f"abs err {err:.3e})")
+    if not exact and not err <= 1e-6 * scale:
+        fail(f"{name} [{label}]: max abs err {err:.3e} > 1e-6 x "
+             f"{scale:.3e}")
+    return err
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def _distinct(idx, mask):
+    """The number of distinct indices ``idx[mask]``."""
+    import torch
+    return int(torch.unique(idx[mask]).numel())
+
+
+def _bound_k1(a, out):
+    """K1: plo, mg, vals read and out written once, plus each distinct x
+    value that a slot holding a value reads; one multiply per slot and
+    log2(W) adds for the run styles."""
+    from sparsex_tpu_torch.ops import fused as tf
+    plo, mg, vals, x2, q, style = a
+    idx, ok = tf.k1_x_index(plo, mg, q, style)
+    W = tf.k1_style(style)[1]
+    return (_nbytes(plo, mg, vals, out)
+            + _distinct(idx, ok & (vals != 0)) * x2.element_size(),
+            vals.numel() * max(1, W.bit_length()))
+
+
+def _bound_pages(a, out):
+    """The delta-pages product (plo, sl, vals, x2, q) and the unit-page
+    gather (plo, sl, x2, q): the streams and out once, plus each distinct x
+    value the windows read."""
+    from sparsex_tpu_torch.ops import pallas_kernels as tpk
+    plo, sl, *vals, x2, q = a
+    idx, ok = tpk.window_index(plo, sl, q)
+    if vals:
+        ok = ok & (vals[0] != 0)
+    return (_nbytes(plo, sl, *vals, out)
+            + _distinct(idx, ok) * x2.element_size(),
+            vals[0].numel() if vals else 0)
+
+
+def _bound_k3(a, out):
+    e1s, g3s, dv, _do, adv, _ao, xb, xrb, _ncols, _d2r = a
+    return (_nbytes(*e1s, *g3s, dv, adv, xb, xrb, out),
+            sum(g.numel() for g in g3s)
+            + 2 * sum(t.numel() for t in (dv, adv) if t is not None))
+
+
+# per kernel: (bytes, operations) of one call from its arguments and output
+BOUNDS = {
+    "k1": _bound_k1, "k1_rlp": _bound_k1, "k1_sl": _bound_k1,
+    "k1_run": _bound_k1,
+    "t1": lambda a, out: (_nbytes(a[0], out), 0),
+    "k2": lambda a, out: (_nbytes(*a[:4], out), 0),
+    "k3": _bound_k3,
+    "lane_gather": lambda a, out: (_nbytes(a[0], a[1], out), a[1].numel()),
+    "dia": lambda a, out: (_nbytes(a[0], a[1], out), 2 * a[0].numel()),
+    "delta_pages": _bound_pages,
+    "paged_gather": _bound_pages,
+}
+
+
+def _library_t1(a):
+    a1, A2R = a
+    return lambda: a1.view(A2R, 128, 128).transpose(1, 2).contiguous()
+
+
+def _library_paged_gather(a):
+    import torch
+    from sparsex_tpu_torch.ops import pallas_kernels as tpk
+    plo, sl, x2, q = a
+    idx, _ok = tpk.window_index(plo, sl, q)
+    flat = x2.reshape(-1)
+    return lambda: torch.take(flat, idx)
+
+
+# per kernel with one: the PyTorch call that computes the same function on
+# the same inputs (indices precomputed), timed as a yardstick only
+LIBRARY = {"t1": _library_t1, "paged_gather": _library_paged_gather}
+
+
+def check_kernel(res, label, timed, name, fn, plain, args, exact=True):
+    """``fn`` (a kernel wrapper) against ``plain`` on each argument tuple in
+    ``args``; ``res[name]`` holds the max abs error and, when ``timed``, the
+    kernel's, the plain version's and the PyTorch call's ms for all the
+    calls (one CUDA graph each), and the bound of the same work.  Returns
+    the kernel's outputs."""
+    import torch
+    outs = [fn(*a) for a in args]
+    if outs and outs[0].is_cuda:
+        torch.cuda.synchronize()
+    errs = [cmp(name, label, o, plain(*a), exact)
+            for o, a in zip(outs, args)]
+    entry = dict.fromkeys(("ms", "plain_ms", "bound_ms", "bound_by",
+                           "library_ms"))
+    entry["max_abs_err"] = max(errs)
+    res[name] = entry
+    if not timed:
+        return outs
+    entry["ms"], entry["plain_ms"] = paired_ms(
+        lambda: [fn(*a) for a in args], lambda: [plain(*a) for a in args])
+    nbytes = flops = 0
+    for o, a in zip(outs, args):
+        b, f = BOUNDS[name](a, o)
+        nbytes, flops = nbytes + b, flops + f
+    dt = str(outs[0].dtype).replace("torch.", "")
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dt] * 1e3
+    entry["bound_ms"] = max(t_bytes, t_ops)
+    entry["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    if name in LIBRARY:
+        calls = [LIBRARY[name](a) for a in args]
+        entry["library_ms"] = graph_time_ms(lambda: [c() for c in calls])
+    return outs
+
+
+def fused_kernel_phase(ex, x, label, timed=True):
+    """Every kernel of a fused path against its plain version, on the
+    plan's arrays at the main path's shapes, each stage fed what
+    ``local_contrib`` feeds it: K1 on every part (the delta bulk and tail,
+    each fused run table), grouped by the kernel its style runs; then per
+    route instance, the merged plan's (its G1 lane gather over the merged
+    source grid) or each segment's own, T1 and K2 (raw g2b wires where um &
+    1); then K3 over every instance in calls of 8, the first with the DIA
+    tables that ride it (masked g3 where um & 2 is 0).  Returns {name:
+    entry} (``check_kernel``)."""
+    import torch
+    import torch.nn.functional as F
+    from sparsex_tpu_torch.ops import fused as tf
+    from sparsex_tpu_torch.ops import kernels as tk
+    from sparsex_tpu_torch.ops import route as troute
+
+    meta, arrs, ncols = ex.meta, ex.arrays, ex.ncols
+    D2R = tf._d2r(ex.nrows)
+    extras = extras_of(meta)
+    x2f = tk.shared_page_grid(meta, x, ncols)
+    res = {}
+
+    def run(name, fn, plain, args, exact=True):
+        return check_kernel(res, label, timed, name, fn, plain, args, exact)
+
+    k1_args = {}
+    dfused = extras.get("dfused")
+    if dfused is not None:
+        fmeta, far = dfused[0], arrs["fused"]
+        parts = [("", fmeta[1], fmeta[2], fmeta[6])]
+        hybrid = len(fmeta) > 7 and fmeta[7] is not None
+        if hybrid:
+            parts.append(("2",) + tuple(fmeta[7][0][1:4]))
+        # one page grid for both parts, as fused_delta_a1 shares it
+        x2 = tf._k1_x2(x, ncols, max(p[1] for p in parts),
+                       max(p[2] for p in parts),
+                       "lp" if hybrid else fmeta[6], x2f)
+        for s, q, _np, style in parts:
+            k1_args.setdefault(tf.k1_key(style), []).append(
+                (far["plo" + s], far["mg" + s], far["vals" + s], x2, q,
+                 style))
+    for ri, m in fused_runs(meta):
+        fr = arrs["runs"][ri]["frun"]
+        k1_args.setdefault(tf.k1_key(m[5]), []).append(
+            (fr["plo"], fr["mg"], fr["vals"],
+             tf._k1_x2(x, ncols, m[1], m[2], m[5], x2f), m[1], m[5]))
+    for key in tf.KERNELS:
+        if key in k1_args:
+            run(key, tf.k1, tf.k1_plain, k1_args[key])
+
+    def padded(src, m):   # an instance's source rows, padded to S1p
+        return F.pad(src[m[7]:m[8]], (0, 0, 0, m[1] - m[0])).contiguous()
+
+    fall = extras.get("fall")
+    if fall is not None:
+        src = tk.merged_source(meta, arrs, x, ncols, x2f)
+        fa = arrs["fall"]
+        insts = [(fa, i, m) for i, m in enumerate(fall[1])]
+        a1s = run("lane_gather", troute.lane_gather,
+                  troute.lane_gather_plain,
+                  [(padded(src, m), fa[f"g1_{i}"][None])
+                   for _w, i, m in insts])
+    else:
+        segs = []
+        if dfused is not None:
+            segs.append((tf.fused_delta_a1(fmeta, far, x, ncols, x2=x2f),
+                         far, fmeta[3]))
+        for ri, m in fused_runs(meta):
+            fr = arrs["runs"][ri]["frun"]
+            segs.append((tf.fused_run_a1(m, fr, x, ncols, x2=x2f), fr, m[3]))
+        insts = [(w, i, m) for _a1, w, inst in segs
+                 for i, m in enumerate(inst)]
+        a1s = [padded(a1, m) for a1, _w, inst in segs for m in inst]
+    a1ts = run("t1", tf.t1, tf.t1_plain,
+               [(a1, m[2]) for a1, (_w, _i, m) in zip(a1s, insts)])
+    e1s = run("k2", tf.k2, tf.k2_plain,
+              [(a1t, w[f"g2a_{i}"], w[f"g2b_{i}"], w[f"g2c_{i}"], m[6], D2R)
+               for a1t, (w, i, m) in zip(a1ts, insts)])
+    g3s = [w[f"g3_{i}"] for w, i, _m in insts]
+    dia_offs, anti_offs = extras.get("k3dias", ((), ()))
+    dias = (arrs.get("dias_fused_dv"), tuple(dia_offs),
+            arrs.get("dias_fused_adv"),
+            tuple(ncols - 1 - s for s in anti_offs),
+            tf._to_blocks(x)[0] if dia_offs else None,
+            tf._to_blocks(torch.flip(x, (0,)))[0] if anti_offs else None)
+    step = tf.MAX_INSTANCES
+    run("k3", tf.k3, tf.k3_plain,
+        [(e1s[s:s + step], g3s[s:s + step],
+          *(dias if s == 0 else (None, (), None, (), None, None)), ncols,
+          D2R) for s in range(0, max(len(insts), 1), step)], exact=False)
+    say_kernels(res, label)
+    return res
+
+
 def pages_kernel_phase(ex, x, label, timed=True):
     """Each kernel of a non-fused path against its plain version, on the
     plan's arrays at the main path's shapes: the DIA kernel per standalone
     DIA table (in its zero-padded x frame), the delta-pages product over
     the shared page grid, the unit-page gather per paged table.  All three
-    must be bit-equal.  Returns {name: (max_abs_err, ms, plain_ms)}."""
+    must be bit-equal.  Returns {name: entry} (``check_kernel``)."""
     from sparsex_tpu_torch.ops import kernels as tk
     from sparsex_tpu_torch.ops import pallas_kernels as tpk
 
@@ -526,6 +645,25 @@ def pages_kernel_phase(ex, x, label, timed=True):
     return res
 
 
+def say_kernels(res, label):
+    for name, r in res.items():
+        line = f"kernel {name} [{label}]: max abs err {r['max_abs_err']:.3e}"
+        if r["ms"] is not None:
+            lib = r["library_ms"]
+            line += (f"; {r['ms'] * 1e3:.2f} us vs plain "
+                     f"{r['plain_ms'] * 1e3:.2f} us"
+                     + ("" if lib is None else
+                        f", PyTorch call {lib * 1e3:.2f} us")
+                     + f", bound {r['bound_ms'] * 1e3:.2f} us "
+                     f"({r['bound_by']}), per SpMV, each replayed alone "
+                     "(inputs warm in L2)")
+        say(line)
+
+
+# ---------------------------------------------------------------------------
+# the SpMV end to end
+# ---------------------------------------------------------------------------
+
 def e2e_phase(spx, tf, mat, rows, cols, vals, x, tol, dtype_name,
               timed=True):
     """Two SpMVs through matvec_kernel against the float64 COO oracle, with
@@ -534,7 +672,6 @@ def e2e_phase(spx, tf, mat, rows, cols, vals, x, tol, dtype_name,
     graph, oracle errors, the timed SpMV call); the times are None when
     not ``timed``."""
     import torch
-    import bench
 
     n = mat.nrows
     xh = x.double().cpu().numpy()
@@ -560,13 +697,15 @@ def e2e_phase(spx, tf, mat, rows, cols, vals, x, tol, dtype_name,
         if g.shape != (n,) or not np.isfinite(g).all():
             fail(f"[{dtype_name}] SpMV result has shape {g.shape} or "
                  "non-finite values")
-        errs.append(bench._mixed_rel_err(g, ref))
+        errs.append(_mixed_rel_err(g, ref))
     say(f"spmv [{dtype_name}]: oracle rel err {errs[0]:.3e} (alpha=1, "
         f"beta=0), {errs[1]:.3e} (alpha=2, beta=0.5); bar {tol:g}; "
-        f"launches per 2 SpMVs {counts}")
+        f"launches per 2 SpMVs "
+        f"{ {k: v for k, v in counts.items() if v} }")
     if not max(errs) < tol:
         fail(f"[{dtype_name}] SpMV diverges from the oracle: {errs} vs "
              f"{tol:g}")
+
     def spmv():
         return spx.matvec_kernel(1.0, mat, x, 0.0, None)
 
@@ -584,8 +723,9 @@ def e2e_phase(spx, tf, mat, rows, cols, vals, x, tol, dtype_name,
     return counts, ms, host_ms, graph_time_ms(spmv), errs, spmv
 
 
-_KERNEL_NAME = re.compile(r"\b(k1_lp|k1_rlp|t1|k2|k3|lane_gather|dia|"
-                          r"delta_pages|paged_gather)_kernel\b")
+_KERNEL_NAME = re.compile(r"\b(k1_lp|k1_rlp|k1_sl|k1_run|t1|k2|k3|"
+                          r"lane_gather|dia|delta_pages|paged_gather)"
+                          r"_kernel\b")
 
 
 def profile_phase(spmv, reps=50):
@@ -642,7 +782,7 @@ def report(label, mat, res, timing, profiled):
         say(f"[{label}] largest glue kernels (us per SpMV): "
             + "; ".join(f"{v:.2f} {k}" for k, v in glue))
     gnnz = mat.nnz / (ms * 1e-3) / 1e9
-    dev_ms = sum(r[1] for r in res.values())
+    dev_ms = sum(r["ms"] for r in res.values())
     say(f"[{label}] SpMV end to end: {ms * 1e3:.2f} us ({gnnz:.2f} Gnnz/s) "
         f"called from Python, host enqueue {host_ms * 1e3:.2f} us; "
         f"{graph_ms * 1e3:.2f} us "
@@ -660,9 +800,11 @@ def kernel_entries(res, counts, prof, label):
     return [{"name": f"{name}[{label}]", "route": "cuda",
              "source": SOURCE.get(name, FUSED_SOURCE),
              "replaces": REPLACES[name], "launches": counts[name],
-             "max_abs_err": err, "ms": kms, "plain_ms": pms,
+             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
              "ms_in_spmv": None if prof is None else prof[name] * 1e-3}
-            for name, (err, kms, pms) in res.items()]
+            for name, r in res.items()]
 
 
 def x_for(mat, n, dtype_name):
@@ -673,20 +815,170 @@ def x_for(mat, n, dtype_name):
         device=mat.device)
 
 
+def run_path(spx, tf, label, n, rows, cols, vals, dtype_name, tol, check,
+             phase, timed=True):
+    """One path in one value type: tune, check the plan, each kernel
+    against its plain version, the SpMV against the oracle with its launch
+    counts, and when ``timed`` the times and a profile.  Returns (summary,
+    kernel entries), both empty when not timed."""
+    import torch
+    t0 = time.perf_counter()
+    mat = tune(spx, rows, cols, vals, n, dtype_name, label)
+    ex = check(mat, label)
+    x = x_for(mat, n, dtype_name)
+    res = phase(ex, x, label, timed)
+    timing = e2e_phase(spx, tf, mat, rows, cols, vals, x, tol, label, timed)
+    out = ({}, [])
+    if timed:
+        profiled = profile_phase(timing[-1])
+        out = (report(label, mat, res, timing, profiled),
+               kernel_entries(res, timing[0], profiled[0], label))
+    del mat, ex, x, timing
+    torch.cuda.empty_cache()
+    say(f"[{label}] path done in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the matrices (bench.py's builders and its oracle bar, copied so that this
+# script imports nothing of the JAX benchmark)
+# ---------------------------------------------------------------------------
+
+# f32 accumulation-order tolerance of the oracle check (bench.py:49)
+CHECK_TOL = 2e-4
+
+
+def _mixed_rel_err(a, b) -> float:
+    """max |a-b| / (|b| + 1e-3*max|b|): relative where |b| is large, scaled
+    absolute near zero rows (bench.py:72)."""
+    a = np.asarray(a, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    if not a.size:
+        return 0.0
+    scale = 1e-3 * float(np.max(np.abs(b))) + 1e-30
+    return float(np.max(np.abs(a - b) / (np.abs(b) + scale)))
+
+
+def _dedup_sort(rows, cols, n, seed=1):
+    """Unique (row, col) pairs sorted row-major, with f32 values 0.1 * N(0,
+    1) from ``seed`` (bench.py:242)."""
+    key = rows * n + cols
+    _, uniq = np.unique(key, return_index=True)
+    rows, cols = rows[uniq], cols[uniq]
+    order = np.lexsort((cols, rows))
+    rows, cols = rows[order], cols[order]
+    vals = np.random.default_rng(seed).standard_normal(
+        rows.size).astype(np.float32) * 0.1
+    return rows, cols, vals
+
+
+def build_matrix(n):
+    """Headline: 5 dense diagonals + n/2 random singles (bench.py:141)."""
+    rng = np.random.default_rng(0)
+    rows, cols = [], []
+    for b in (0, 1, -1, 8, -13):
+        r = np.arange(max(0, -b), min(n, n - b), dtype=np.int64)
+        rows.append(r)
+        cols.append(r + b)
+    m = n // 2
+    rows.append(rng.integers(0, n, size=m))
+    cols.append(rng.integers(0, n, size=m))
+    return _dedup_sort(np.concatenate(rows), np.concatenate(cols), n)
+
+
+def build_blocky_matrix(n):
+    """Blocky: 4x2 dense blocks + horizontal runs (w=8) + singles
+    (bench.py:155)."""
+    rng = np.random.default_rng(7)
+    rows, cols = [], []
+    nb = n // 8
+    br0 = rng.integers(0, (n - 4) // 4, size=nb) * 4
+    bc0 = rng.integers(0, (n - 2) // 2, size=nb) * 2
+    ii, jj = np.meshgrid(np.arange(4), np.arange(2), indexing="ij")
+    rows.append((br0[:, None, None] + ii[None]).ravel())
+    cols.append((bc0[:, None, None] + jj[None]).ravel())
+    nh = n // 4
+    hr = rng.integers(0, n, size=nh)
+    hc = rng.integers(0, n - 8, size=nh)
+    rows.append(np.repeat(hr, 8))
+    cols.append((hc[:, None] + np.arange(8)[None]).ravel())
+    m = n // 4
+    rows.append(rng.integers(0, n, size=m))
+    cols.append(rng.integers(0, n, size=m))
+    return _dedup_sort(np.concatenate(rows), np.concatenate(cols), n)
+
+
+def wide_run_matrix(n, W, seed=0):
+    """n/4 horizontal runs of width W at random (row, col), plus n random
+    singles: rows with dense segments of W columns, as FEM matrices with
+    many unknowns per node and LP or power-flow matrices have.  Width 16
+    plans the dense-tile K1 style ``run16`` (lane placement takes W <= 8
+    only), width 128 ``run128``."""
+    rng = np.random.default_rng(seed)
+    nh = n // 4
+    hr = rng.integers(0, n, size=nh)
+    hc = rng.integers(0, n - W + 1, size=nh)
+    rows = np.concatenate([np.repeat(hr, W), rng.integers(0, n, size=n)])
+    cols = np.concatenate([(hc[:, None] + np.arange(W)[None]).ravel(),
+                           rng.integers(0, n, size=n)])
+    return _dedup_sort(rows, cols, n, seed + 1)
+
+
+def lane_skew_matrix(n, seed=0):
+    """2n random singles whose columns fall on the coarse grid 128*j +
+    {0, 1}: every element would sit in lane 0 or 1 of a lane-placed tile,
+    so lane placement fails its fill gate and the delta pipeline takes the
+    dense-tile K1 style ``sl``."""
+    rng = np.random.default_rng(seed)
+    m = 2 * n
+    rows = rng.integers(0, n, size=m)
+    cols = rng.integers(0, n // 128, size=m) * 128 + rng.integers(0, 2, m)
+    return _dedup_sort(rows, cols, n, seed + 1)
+
+
+def hpcg_matrix(nx):
+    """HPCG's problem matrix: the 27-point stencil on an nx^3 grid, 26 on the
+    diagonal and -1 for each neighbour in the 3x3x3 cube, rows in
+    lexicographic order (x fastest).  Returns (n, rows, cols, vals) sorted
+    by (row, col): a row's neighbours, taken in (dz, dy, dx) order, have
+    increasing columns."""
+    n = nx ** 3
+    r = np.arange(n, dtype=np.int64)
+    i, j, k = r % nx, (r // nx) % nx, r // (nx * nx)
+    cols = np.empty((n, 27), dtype=np.int64)
+    ok = np.empty((n, 27), dtype=bool)
+    t = 0
+    for dk in (-1, 0, 1):
+        for dj in (-1, 0, 1):
+            for di in (-1, 0, 1):
+                ok[:, t] = ((i + di >= 0) & (i + di < nx) & (j + dj >= 0)
+                            & (j + dj < nx) & (k + dk >= 0) & (k + dk < nx))
+                cols[:, t] = r + di + nx * (dj + nx * dk)
+                t += 1
+    rows = np.broadcast_to(r[:, None], (n, 27))[ok]
+    cols = cols[ok]
+    return n, rows, cols, np.where(rows == cols, 26.0, -1.0)
+
+
+# ---------------------------------------------------------------------------
+# main
+# ---------------------------------------------------------------------------
+
 def main():
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
     sys.path.insert(0, ROOT)
     try:
-        import bench
         import sparsex_tpu_torch as spx
         from sparsex_tpu_torch.ops import _build
         from sparsex_tpu_torch.ops import fused as tf
     except ImportError as e:
         fail(f"cannot import the repository ({e}); run from its root")
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        fail("jax was imported")
+    banned = [m for m in sys.modules if m.split(".")[0] in
+              ("jax", "sparsex_tpu", "bench")]
+    if banned:
+        fail(f"imported {sorted(banned)}")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -703,75 +995,45 @@ def main():
         if "registers" in line or "spill" in line or "smem" in line:
             print("  ptxas: " + line.strip(), file=sys.stderr)
 
-    tols = (("float32", bench.CHECK_TOL), ("float64", 1e-6))
+    tols = (("float32", CHECK_TOL), ("float64", 1e-6))
     kernels_out, summary = [], {}
-    # --- the headline path: fused delta pipeline + DIA in K3 ---
-    rows, cols, vals = bench.build_matrix(N)
     warm_up()
-    for dtype_name, tol in tols:
-        mat = tune(spx, rows, cols, vals, N, dtype_name, dtype_name)
-        ex, fmeta, k3dias = check_plan(mat)
-        x = x_for(mat, N, dtype_name)
-        res = kernel_phase(ex, fmeta, k3dias, x, dtype_name)
-        timing = e2e_phase(spx, tf, mat, rows, cols, vals, x, tol,
-                           dtype_name)
-        profiled = profile_phase(timing[-1])
-        summary[dtype_name] = report(dtype_name, mat, res, timing, profiled)
-        kernels_out += kernel_entries(res, timing[0], profiled[0],
-                                      dtype_name)
-        del mat, ex, x, timing
-        torch.cuda.empty_cache()
-
-    # --- the blocky path: fused runs (K1 rlp) + the merged route plan ---
-    rows, cols, vals = bench.build_blocky_matrix(N_BLOCKY)
-    for dtype_name, tol in tols:
-        label = f"blocky {dtype_name}"
-        mat = tune(spx, rows, cols, vals, N_BLOCKY, dtype_name, label)
-        ex, fmeta, runs, fall = check_blocky_plan(mat, label)
-        x = x_for(mat, N_BLOCKY, dtype_name)
-        res = blocky_kernel_phase(ex, fmeta, runs, fall, x, label)
-        timing = e2e_phase(spx, tf, mat, rows, cols, vals, x, tol, label)
-        profiled = profile_phase(timing[-1])
-        summary[label] = report(label, mat, res, timing, profiled)
-        kernels_out += kernel_entries(res, timing[0], profiled[0], label)
-        del mat, ex, x, timing
-        torch.cuda.empty_cache()
-    # bench.py's own size, untimed: its merged plan has a masked instance
-    rows, cols, vals = bench.build_blocky_matrix(N_BLOCKY_CHECK)
-    label = "blocky 2^19 float32"
-    mat = tune(spx, rows, cols, vals, N_BLOCKY_CHECK, "float32", label)
-    ex, fmeta, runs, fall = check_blocky_plan(mat, label)
-    if all(m[9] & 2 for m in fall[1]):
-        fail(f"[{label}] no merged instance with a masked g3 (um & 2 == 0)")
-    x = x_for(mat, N_BLOCKY_CHECK, "float32")
-    blocky_kernel_phase(ex, fmeta, runs, fall, x, label, timed=False)
-    e2e_phase(spx, tf, mat, rows, cols, vals, x, bench.CHECK_TOL, label,
-              timed=False)
-
-    # --- the non-fused variants: the HPCG stencil (plain tables, one DIA
-    # table) and the two bench matrices past the fused planners' 2^21-row
-    # cap (legacy paged variant: delta pages, DIA, paged gathers) ---
-    for kind, label0, build in (
-            ("hpcg", "hpcg 128^3", lambda: hpcg_matrix(HPCG_NX)),
-            ("headline", "headline 2^22",
-             lambda: (N_BIG,) + tuple(bench.build_matrix(N_BIG))),
-            ("blocky", "blocky 2^22",
-             lambda: (N_BIG,) + tuple(bench.build_blocky_matrix(N_BIG)))):
-        n, rows, cols, vals = build()
-        for dtype_name, tol in tols:
-            label = f"{label0} {dtype_name}"
-            mat = tune(spx, rows, cols, vals, n, dtype_name, label)
-            ex = check_pages_plan(mat, kind, label)
-            x = x_for(mat, n, dtype_name)
-            res = pages_kernel_phase(ex, x, label)
-            timing = e2e_phase(spx, tf, mat, rows, cols, vals, x, tol,
-                               label)
-            profiled = profile_phase(timing[-1])
-            summary[label] = report(label, mat, res, timing, profiled)
-            kernels_out += kernel_entries(res, timing[0], profiled[0],
-                                          label)
-            del mat, ex, x, timing
-            torch.cuda.empty_cache()
+    # (label, rows of the matrix, its builder, plan check, kernel phase,
+    # value types to run, timed)
+    paths = (
+        ("", N, lambda: build_matrix(N), check_plan, fused_kernel_phase,
+         tols, True),
+        ("blocky ", N_BLOCKY, lambda: build_blocky_matrix(N_BLOCKY),
+         check_blocky_plan, fused_kernel_phase, tols, True),
+        ("blocky 2^19 ", N_BLOCKY_CHECK,
+         lambda: build_blocky_matrix(N_BLOCKY_CHECK),
+         check_masked_blocky_plan, fused_kernel_phase, tols[:1], False),
+        ("wide-run 2^21 W=16 ", N_DENSE, lambda: wide_run_matrix(N_DENSE, 16),
+         check_dense_plan("run16"), fused_kernel_phase, tols, True),
+        ("lane-skew 2^21 ", N_DENSE, lambda: lane_skew_matrix(N_DENSE),
+         check_dense_plan("sl"), fused_kernel_phase, tols, True),
+        ("wide-run 2^19 W=128 ", N_RUN128,
+         lambda: wide_run_matrix(N_RUN128, 128), check_dense_plan("run128"),
+         fused_kernel_phase, tols[:1], False),
+        ("hpcg 128^3 ", HPCG_NX ** 3, lambda: hpcg_matrix(HPCG_NX)[1:],
+         lambda m, lb: check_pages_plan(m, "hpcg", lb), pages_kernel_phase,
+         tols, True),
+        ("headline 2^22 ", N_BIG, lambda: build_matrix(N_BIG),
+         lambda m, lb: check_pages_plan(m, "headline", lb),
+         pages_kernel_phase, tols, True),
+        ("blocky 2^22 ", N_BIG, lambda: build_blocky_matrix(N_BIG),
+         lambda m, lb: check_pages_plan(m, "blocky", lb),
+         pages_kernel_phase, tols, True),
+    )
+    for prefix, n, build, check, phase, types, timed in paths:
+        rows, cols, vals = build()
+        for dtype_name, tol in types:
+            label = prefix + dtype_name
+            s, k = run_path(spx, tf, label, n, rows, cols, vals, dtype_name,
+                            tol, check, phase, timed)
+            if timed:
+                summary[label] = s
+                kernels_out += k
         del rows, cols, vals
 
     say("summary: " + json.dumps(summary))

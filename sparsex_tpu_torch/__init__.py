@@ -3,8 +3,9 @@
 A port of :mod:`sparsex_tpu` (JAX, TPU) to PyTorch with hand-written CUDA
 kernels for NVIDIA Hopper (H100, ``sm_90a``).  The host side — matrix I/O,
 substructure mining, encoding and every layout and route planner — is the
-reference package's own NumPy/C++ code, imported as it is; the port holds
-the device half.  This package imports ``torch`` and never ``jax``.
+port's own copy of the reference's NumPy/C++ code, so both packages plan
+the same arrays; ``Config`` and ``SparsexError`` are the port's own.  This
+package imports ``torch``, never ``jax`` and nothing of ``sparsex_tpu``.
 
 Ported so far, for one shard in float32 and float64: the fused SpMV main
 path (K1 lane-placed product + G1, T1, K2, K3 with the DIA tables,
@@ -22,8 +23,8 @@ run and block tables).  Other execution classes raise
     y = spx.matvec_kernel(alpha=1.0, mat=A, x=x, beta=0.0, y=None)
 """
 
-from sparsex_tpu.config import Config, option_get, option_set
-from sparsex_tpu.errors import ErrorCode, SparsexError
+from sparsex_tpu_torch.config import Config, option_get, option_set
+from sparsex_tpu_torch.errors import ErrorCode, SparsexError
 from sparsex_tpu_torch.api import (INDEX_ONE_BASED, INDEX_ZERO_BASED,
                                    OP_REORDER, Input, Matrix,
                                    input_load_csr, input_load_mmf, mat_tune,

@@ -1,7 +1,9 @@
 """Public API of the PyTorch port (counterpart of ``sparsex_tpu/api.py``).
 
-Loading, options and errors are the reference's own host code, re-exported
-unchanged; tuning and the SpMV kernels run on a PyTorch device:
+Loading, options and errors are the port's own copies of the reference's
+host code (``Input``, the CSR and MMF loaders and the flags below are
+copied from ``sparsex_tpu/api.py:42-126``); tuning plans on the host and
+the SpMV kernels run on a PyTorch device:
 
 =====================================  =====================================
 reference                               sparsex_tpu_torch
@@ -26,13 +28,60 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sparsex_tpu.api import (INDEX_ONE_BASED, INDEX_ZERO_BASED, OP_REORDER,
-                             Input, input_load_csr, input_load_mmf)
-from sparsex_tpu.config import Config
-from sparsex_tpu.errors import ErrorCode, SparsexError
-from sparsex_tpu.logger import log_info
+from sparsex_tpu_torch.config import Config
 from sparsex_tpu_torch.csx import CsxMatrix
 from sparsex_tpu_torch.device import resolve_device
+from sparsex_tpu_torch.errors import ErrorCode, SparsexError, seterror
+from sparsex_tpu_torch.io.csr import CSR
+from sparsex_tpu_torch.io.mmf import MMF, load_mmf
+from sparsex_tpu_torch.logger import log_info
+
+# Flags mirroring the reference's option macros.
+OP_REORDER = "reorder"  # SPX_MAT_REORDER
+INDEX_ZERO_BASED = 0    # SPX_INDEX_ZERO_BASED
+INDEX_ONE_BASED = 1     # SPX_INDEX_ONE_BASED
+
+
+@dataclass
+class Input:
+    """``spx_input_t`` parity: a loaded, not-yet-tuned matrix."""
+
+    kind: str  # "csr" or "mmf"
+    mmf: Optional[MMF] = None
+    csr: Optional[CSR] = None
+
+    @property
+    def nrows(self) -> int:
+        src = self.mmf if self.kind == "mmf" else self.csr
+        return src.nrows
+
+    @property
+    def ncols(self) -> int:
+        src = self.mmf if self.kind == "mmf" else self.csr
+        return src.ncols
+
+    def tocoo(self):
+        src = self.mmf if self.kind == "mmf" else self.csr
+        return src.tocoo()
+
+
+def input_load_csr(rowptr, colind, values, nrows: int, ncols: int,
+                   indexing: int = INDEX_ZERO_BASED) -> Input:
+    """``spx_input_load_csr`` parity (ref ``src/api/matvec.c:163``)."""
+    csr = CSR(nrows, ncols, rowptr, colind, values,
+              zero_based=(indexing == INDEX_ZERO_BASED))
+    return Input(kind="csr", csr=csr)
+
+
+def input_load_mmf(filename: str) -> Input:
+    """``spx_input_load_mmf`` parity (ref ``src/api/matvec.c:217``)."""
+    cfg = Config.instance()
+    mmf = load_mmf(filename, keep_lower=cfg.symmetric,
+                   index_dtype=cfg.index_dtype, value_dtype=cfg.value_dtype)
+    if cfg.symmetric and not mmf.symmetric:
+        seterror(ErrorCode.SPX_ERR_INPUT_MAT,
+                 "spx.matrix.symmetric set but input is not symmetric")
+    return Input(kind="mmf", mmf=mmf)
 
 
 @dataclass
@@ -74,7 +123,7 @@ def mat_tune(input_: Input, *flags: str, device=None) -> Matrix:
     nrows, ncols = input_.nrows, input_.ncols
     permutation = None
     if OP_REORDER in flags:
-        from sparsex_tpu.reorder import reorder_rcm
+        from sparsex_tpu_torch.reorder import reorder_rcm
         rows, cols, vals, permutation = reorder_rcm(
             nrows, ncols, rows, cols, vals)
     csx = CsxMatrix.from_coo(nrows, ncols, rows, cols, vals, config=cfg,

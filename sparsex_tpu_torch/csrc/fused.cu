@@ -1,14 +1,15 @@
-// The fused CSX SpMV pipeline for Hopper (sm_90a): K1 (styles lp and
-// rlp{W}), T1, K2 and K3.
+// The fused CSX SpMV pipeline for Hopper (sm_90a): K1 (the lane-placed
+// styles lp and rlp{W}, the dense-tile styles sl and run{W}), T1, K2 and K3.
 //
 // Each kernel replaces one Pallas TPU kernel of sparsex_tpu/ops/fused.py and
-// reads exactly the plan arrays its counterpart reads (the shared NumPy
-// planners build them).  All are gathers with little or no reuse, so
-// each is bound by device-memory bytes and latency, not by arithmetic; the
-// first versions keep every intermediate either in registers or in one
-// shared-memory stage and read x through L2.
+// reads exactly the plan arrays its counterpart reads (the host planners of
+// sparsex_tpu_torch, copies of the reference's, build them).  All are
+// gathers with little or no reuse, so each is bound by device-memory bytes
+// and latency, not by arithmetic; the first versions keep every
+// intermediate either in registers or in one shared-memory stage and read x
+// through L2.
 //
-// Numerics: the only arithmetic is K1's one multiply (plus the rlp styles'
+// Numerics: the only arithmetic is K1's one multiply (plus the run styles'
 // sliding lane sums) and K3's sums.  The
 // explicit __fmul_rn / __fadd_rn (and double) intrinsics keep nvcc from
 // contracting a multiply and an add into an FMA, so the sums round exactly
@@ -34,20 +35,45 @@ __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, 
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
 // ---------------------------------------------------------------------------
-// K1 (replaces fused.py:_build_k1, style "lp").  One thread per output
-// element (t, s, l) of the (T, 8, 128) grid:
-//   g1 = (mg[t,s,l] >> 16) - 1;  out = g1 < 0 ? 0 : prod[t, s, g1]
-//   prod[t, s, g] = x2[page, low & 7, g] * vals[t, s, g],  low = mg[t,s,g] & 0x3FFF
-//   page = plo[t] * q8 + (low >> 3)   (q8 == 1: the window is one page)
+// K1 (replaces fused.py:_build_k1, all four styles).  Every element (t, s, l)
+// of the (T, 8, 128) tile grid carries low = mg & 0x3FFF, its offset in the
+// tile's x window, and reads one x value, by one of two addressing modes:
+//   lane-placed (lp, rlp{W}; q = q8, plo counts q8-page blocks): the element
+//     sits at its x lane l: x2[plo[t]*q8 + (low >> 3), low & 7, l], 0 where
+//     the page low >> 3 is outside the window (q8 == 1: the window is one
+//     page and the page bits are ignored, as in the Pallas kernel);
+//   dense tile (sl, run{W}; q pages, plo counts pages): the element may sit
+//     at any lane: x2flat[plo[t]*1024 + low], 0 where the sublane low >> 7 is
+//     8q or more.  low has 14 bits, so q <= 16.
 // A q = 32 window is 128 KB of f32 (256 KB of f64), more than a block's
 // shared memory, so x is read through L2 rather than staged.
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void k1_lp_kernel(const int32_t* __restrict__ plo,
-                             const int32_t* __restrict__ mg,
-                             const T* __restrict__ vals,
-                             const T* __restrict__ x2,
-                             T* __restrict__ out, long long n_elems, int q8) {
+template <bool DENSE>
+__device__ __forceinline__ long long k1_x_index(const int32_t* __restrict__ plo,
+                                                long long row, int low, int l,
+                                                int q) {
+  if (DENSE) {
+    if ((low >> 7) >= 8 * q) return -1;
+    return (long long)plo[row >> 3] * 1024 + low;
+  }
+  const int pg = low >> 3;
+  if (q != 1 && pg >= q) return -1;
+  const long long page = (long long)plo[row >> 3] * q + (q == 1 ? 0 : pg);
+  return ((page << 3) + (low & 7)) * L + l;
+}
+
+// Styles lp and sl: one thread per output element, which forms only the
+// product its G1 wire routes there (no product is formed twice):
+//   g1 = (mg[t,s,l] >> 16) - 1;  out = g1 < 0 ? 0 : x[t,s,g1] * vals[t,s,g1]
+// Bound by the bytes of mg, vals and out (12 B a slot in f32) plus the x
+// window, read through L2.
+template <typename T, bool DENSE>
+__device__ __forceinline__ void k1_route(const int32_t* __restrict__ plo,
+                                         const int32_t* __restrict__ mg,
+                                         const T* __restrict__ vals,
+                                         const T* __restrict__ x2,
+                                         T* __restrict__ out, long long n_elems,
+                                         int q) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n_elems) return;
   const long long row = e >> 7;            // t * 8 + s
@@ -55,55 +81,60 @@ __global__ void k1_lp_kernel(const int32_t* __restrict__ plo,
   T r = T(0);
   if (g1 >= 0) {
     const long long src = (row << 7) + g1;
-    const int low = mg[src] & 0x3FFF;
-    const int pg = low >> 3;
-    if (q8 == 1 || pg < q8) {
-      const long long page =
-          (long long)plo[row >> 3] * q8 + (q8 == 1 ? 0 : pg);
-      r = mul_rn(x2[((page << 3) + (low & 7)) * L + g1], vals[src]);
-    }
+    const long long i = k1_x_index<DENSE>(plo, row, mg[src] & 0x3FFF, g1, q);
+    if (i >= 0) r = mul_rn(x2[i], vals[src]);
   }
   out[e] = r;
 }
 
-// ---------------------------------------------------------------------------
-// K1, styles "rlp2" / "rlp4" / "rlp8" (replaces fused.py:_build_k1, the
-// lane-placed run styles).  Horizontal runs of width W sit in W-aligned
-// mod-128 lane slots of a row; every lane holds the lp product
-//   p[l] = x2[page, low & 7, l] * vals[t, s, l]   (0 where the page is
-//          outside the q8-page window, as in k1_lp_kernel)
-// then log2(W) CIRCULAR roll-right adds, p[l] += p[(l - d) & 127] for
-// d = 1, 2, 4, leave each run's total at its last lane (arcs that wrap
-// lane 127 -> 0 sum correctly because the roll is circular), and the G1
-// wires route the totals: out[l] = g1 < 0 ? 0 : p[g1].
-// One 128-thread group per (tile, sublane) row computes each product once
-// into shared memory, where a per-output gather (k1_lp_kernel's design)
-// would recompute up to W products per lane.  Like the lp kernel it is
-// bound by the bytes of mg, vals and the x window, read through L2; the
-// adds keep the Pallas kernel's order, so the result is bit-equal to it.
-// ---------------------------------------------------------------------------
-constexpr int K1_ROWS = 2;       // (tile, sublane) rows per rlp block
+template <typename T>
+__global__ void k1_lp_kernel(const int32_t* __restrict__ plo,
+                             const int32_t* __restrict__ mg,
+                             const T* __restrict__ vals,
+                             const T* __restrict__ x2,
+                             T* __restrict__ out, long long n_elems, int q8) {
+  k1_route<T, false>(plo, mg, vals, x2, out, n_elems, q8);
+}
 
 template <typename T>
-__global__ void k1_rlp_kernel(const int32_t* __restrict__ plo,
-                              const int32_t* __restrict__ mg,
-                              const T* __restrict__ vals,
-                              const T* __restrict__ x2,
-                              T* __restrict__ out, int q8, int W) {
+__global__ void k1_sl_kernel(const int32_t* __restrict__ plo,
+                             const int32_t* __restrict__ mg,
+                             const T* __restrict__ vals,
+                             const T* __restrict__ x2,
+                             T* __restrict__ out, long long n_elems, int q) {
+  k1_route<T, true>(plo, mg, vals, x2, out, n_elems, q);
+}
+
+// Styles rlp{W} and run{W}: horizontal runs of width W (W divides 128) sit
+// in W-lane slots of a row: W-aligned mod-128 slots for rlp, lanes
+// [uW, uW+W) for run.  Every lane holds its product p[l] (0 outside the
+// window), then log2(W) CIRCULAR roll-right adds, p[l] += p[(l - d) & 127]
+// for d = 1, 2, 4, .. < W, leave each run's total at its last lane (rlp arcs
+// that wrap lane 127 -> 0 sum correctly because the roll is circular; the
+// run style's lanes below W - 1 hold wrapped values that no wire reads), and
+// the G1 wires route the totals: out[l] = g1 < 0 ? 0 : p[g1].
+// One 128-thread group per (tile, sublane) row computes each product once
+// into shared memory, where a per-output gather (k1_route) would recompute
+// up to W products per lane.  Like k1_route it is bound by the bytes of mg,
+// vals, out and the x window; the adds keep the Pallas kernel's order, so
+// the result is bit-equal to it.
+// ---------------------------------------------------------------------------
+constexpr int K1_ROWS = 2;       // (tile, sublane) rows per run-style block
+
+template <typename T, bool DENSE>
+__device__ __forceinline__ void k1_roll(const int32_t* __restrict__ plo,
+                                        const int32_t* __restrict__ mg,
+                                        const T* __restrict__ vals,
+                                        const T* __restrict__ x2,
+                                        T* __restrict__ out, int q, int W) {
   __shared__ T p[K1_ROWS][L];
   const int r = threadIdx.x >> 7;
   const int l = threadIdx.x & (L - 1);
   const long long row = (long long)blockIdx.x * K1_ROWS + r;   // t * 8 + s
   const long long e = (row << 7) + l;
   const int m = mg[e];
-  const int low = m & 0x3FFF;
-  const int pg = low >> 3;
-  T xv = T(0);
-  if (q8 == 1 || pg < q8) {
-    const long long page = (long long)plo[row >> 3] * q8 + (q8 == 1 ? 0 : pg);
-    xv = x2[((page << 3) + (low & 7)) * L + l];
-  }
-  T acc = mul_rn(xv, vals[e]);
+  const long long i = k1_x_index<DENSE>(plo, row, m & 0x3FFF, l, q);
+  T acc = mul_rn(i >= 0 ? x2[i] : T(0), vals[e]);
   for (int d = 1; d < W; d <<= 1) {
     p[r][l] = acc;
     __syncthreads();
@@ -114,6 +145,24 @@ __global__ void k1_rlp_kernel(const int32_t* __restrict__ plo,
   __syncthreads();
   const int g1 = (int)(((uint32_t)m) >> 16) - 1;
   out[e] = g1 >= 0 ? p[r][g1] : T(0);
+}
+
+template <typename T>
+__global__ void k1_rlp_kernel(const int32_t* __restrict__ plo,
+                              const int32_t* __restrict__ mg,
+                              const T* __restrict__ vals,
+                              const T* __restrict__ x2,
+                              T* __restrict__ out, int q8, int W) {
+  k1_roll<T, false>(plo, mg, vals, x2, out, q8, W);
+}
+
+template <typename T>
+__global__ void k1_run_kernel(const int32_t* __restrict__ plo,
+                              const int32_t* __restrict__ mg,
+                              const T* __restrict__ vals,
+                              const T* __restrict__ x2,
+                              T* __restrict__ out, int q, int W) {
+  k1_roll<T, true>(plo, mg, vals, x2, out, q, W);
 }
 
 // ---------------------------------------------------------------------------
@@ -240,29 +289,43 @@ __global__ void k3_kernel(K3Args a, T* __restrict__ y) {
   y[row] = total;
 }
 
-template <typename T>
+template <typename T, bool DENSE>
 int launch_k1(const void* plo, const void* mg, const void* vals, const void* x2,
-              void* out, long long n_tiles, int q8, void* stream) {
+              void* out, long long n_tiles, int q, void* stream) {
+  if (q < 1 || (DENSE && q > 16)) return (int)cudaErrorInvalidValue;
   const long long n = n_tiles * 8 * L;
   if (n == 0) return (int)cudaGetLastError();
   const int threads = 256;
   const long long blocks = (n + threads - 1) / threads;
-  k1_lp_kernel<T><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)plo, (const int32_t*)mg, (const T*)vals, (const T*)x2,
-      (T*)out, n, q8);
+  if (DENSE)
+    k1_sl_kernel<T><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)plo, (const int32_t*)mg, (const T*)vals,
+        (const T*)x2, (T*)out, n, q);
+  else
+    k1_lp_kernel<T><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)plo, (const int32_t*)mg, (const T*)vals,
+        (const T*)x2, (T*)out, n, q);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_k1_rlp(const void* plo, const void* mg, const void* vals,
-                  const void* x2, void* out, long long n_tiles, int q8, int W,
-                  void* stream) {
+template <typename T, bool DENSE>
+int launch_k1_roll(const void* plo, const void* mg, const void* vals,
+                   const void* x2, void* out, long long n_tiles, int q, int W,
+                   void* stream) {
   if (W < 2 || W > L || (W & (W - 1))) return (int)cudaErrorInvalidValue;
+  if (q < 1 || (DENSE && q > 16)) return (int)cudaErrorInvalidValue;
   const long long blocks = n_tiles * 8 / K1_ROWS;   // 8 rows per tile
   if (blocks == 0) return (int)cudaGetLastError();
-  k1_rlp_kernel<T><<<(unsigned)blocks, K1_ROWS * L, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)plo, (const int32_t*)mg, (const T*)vals, (const T*)x2,
-      (T*)out, q8, W);
+  if (DENSE)
+    k1_run_kernel<T><<<(unsigned)blocks, K1_ROWS * L, 0,
+                       (cudaStream_t)stream>>>(
+        (const int32_t*)plo, (const int32_t*)mg, (const T*)vals,
+        (const T*)x2, (T*)out, q, W);
+  else
+    k1_rlp_kernel<T><<<(unsigned)blocks, K1_ROWS * L, 0,
+                       (cudaStream_t)stream>>>(
+        (const int32_t*)plo, (const int32_t*)mg, (const T*)vals,
+        (const T*)x2, (T*)out, q, W);
   return (int)cudaGetLastError();
 }
 
@@ -322,13 +385,26 @@ int launch_k3(const void* const* e1, const void* const* g3, const int* K,
   extern "C" int spx_k1_##SFX(const void* plo, const void* mg,                 \
                               const void* vals, const void* x2, void* out,     \
                               long long n_tiles, int q8, void* stream) {       \
-    return launch_k1<T>(plo, mg, vals, x2, out, n_tiles, q8, stream);          \
+    return launch_k1<T, false>(plo, mg, vals, x2, out, n_tiles, q8, stream);   \
+  }                                                                            \
+  extern "C" int spx_k1_sl_##SFX(const void* plo, const void* mg,              \
+                                 const void* vals, const void* x2, void* out,  \
+                                 long long n_tiles, int q, void* stream) {     \
+    return launch_k1<T, true>(plo, mg, vals, x2, out, n_tiles, q, stream);     \
   }                                                                            \
   extern "C" int spx_k1_rlp_##SFX(const void* plo, const void* mg,             \
                                   const void* vals, const void* x2, void* out, \
                                   long long n_tiles, int q8, int W,            \
                                   void* stream) {                              \
-    return launch_k1_rlp<T>(plo, mg, vals, x2, out, n_tiles, q8, W, stream);   \
+    return launch_k1_roll<T, false>(plo, mg, vals, x2, out, n_tiles, q8, W,    \
+                                    stream);                                   \
+  }                                                                            \
+  extern "C" int spx_k1_run_##SFX(const void* plo, const void* mg,             \
+                                  const void* vals, const void* x2, void* out, \
+                                  long long n_tiles, int q, int W,             \
+                                  void* stream) {                              \
+    return launch_k1_roll<T, true>(plo, mg, vals, x2, out, n_tiles, q, W,      \
+                                   stream);                                    \
   }                                                                            \
   extern "C" int spx_t1_##SFX(const void* in, void* out, int A2R,              \
                               void* stream) {                                  \

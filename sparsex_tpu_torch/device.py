@@ -10,12 +10,37 @@ shared with the reference (the host planners are the same code).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from sparsex_tpu.errors import ErrorCode, SparsexError
-from sparsex_tpu.platform import tune_host_allocator
+from sparsex_tpu_torch.errors import ErrorCode, SparsexError
 
 __all__ = ["resolve_device", "tune_host_allocator"]
+
+_ALLOCATOR_TUNED = False
+
+
+def tune_host_allocator() -> bool:
+    """Raise glibc's mmap/trim thresholds so large preprocessing temporaries
+    are recycled from the heap instead of mmap'd and munmap'd per array
+    (``sparsex_tpu/platform.py:47`` has the reason and its measurement).
+
+    Returns True when mallopt was applied.  Idempotent; no-op on
+    non-glibc platforms.
+    """
+    global _ALLOCATOR_TUNED
+    if _ALLOCATOR_TUNED:
+        return True
+    try:
+        libc = ctypes.CDLL(None, use_errno=True)
+        M_TRIM_THRESHOLD, M_MMAP_THRESHOLD = -1, -3
+        ok = libc.mallopt(M_MMAP_THRESHOLD, 32 * 1024 * 1024)
+        ok &= libc.mallopt(M_TRIM_THRESHOLD, 512 * 1024 * 1024)
+        _ALLOCATOR_TUNED = bool(ok)
+    except Exception:
+        return False
+    return _ALLOCATOR_TUNED
 
 
 def resolve_device(device=None) -> torch.device:

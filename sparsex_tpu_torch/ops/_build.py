@@ -117,12 +117,14 @@ def _compile(out: str) -> None:
 def _bind(lib: ctypes.CDLL) -> None:
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for sfx in ("f32", "f64"):
-        f = getattr(lib, f"spx_k1_{sfx}")
-        f.argtypes = [vp, vp, vp, vp, vp, ll, i, vp]
-        f.restype = i
-        f = getattr(lib, f"spx_k1_rlp_{sfx}")
-        f.argtypes = [vp, vp, vp, vp, vp, ll, i, i, vp]
-        f.restype = i
+        for name in ("k1", "k1_sl"):
+            f = getattr(lib, f"spx_{name}_{sfx}")
+            f.argtypes = [vp, vp, vp, vp, vp, ll, i, vp]
+            f.restype = i
+        for name in ("k1_rlp", "k1_run"):
+            f = getattr(lib, f"spx_{name}_{sfx}")
+            f.argtypes = [vp, vp, vp, vp, vp, ll, i, i, vp]
+            f.restype = i
         f = getattr(lib, f"spx_lane_gather_{sfx}")
         f.argtypes = [vp, vp, vp, ll, i, vp]
         f.restype = i

@@ -1,14 +1,14 @@
-"""Upload of a shared planner's NumPy plan as device tensors ("weights
+"""Upload of the host planners' NumPy plan as device tensors ("weights
 carried across").
 
 ``plan_to_torch`` takes the paged meta and arrays that
-``sparsex_tpu.ops.exec.CsxExecutor._maybe_build_pages`` builds (or the
-executor's plain-table meta and arrays when it built none) and returns the
-tensors the executor reads, placed on ``device`` once.  Values take the
-plan's value dtype; int8 wires, the packed K1 metadata and the page plans'
-``plo`` / ``sl`` streams stay as they are (the delta stream's ``sl`` int16,
-the unit plans' int32); index streams of the torch gathers, scatter-adds
-and residual adds become int64.
+``ops.exec.HostPlan._maybe_build_pages`` builds (the reference executor's
+planning, copied; or the plain-table meta and arrays when it built none),
+and returns the tensors the executor reads, placed on ``device`` once.
+Values take the plan's value dtype; int8 wires, the packed K1 metadata and
+the page plans' ``plo`` / ``sl`` streams stay as they are (the delta
+stream's ``sl`` int16, the unit plans' int32); index streams of the torch
+gathers, scatter-adds and residual adds become int64.
 One array changes form on the way: for unmasked (``um & 1``) route
 instances the planner bakes K2's batched-transpose lane offset into
 ``g2b`` (``fused._g2b_lane_offset``), which the CUDA K2 does not use, so
@@ -25,8 +25,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from sparsex_tpu.ops.fused import L, _k2_gba
-from sparsex_tpu_torch.ops.fused import lp_window
+from sparsex_tpu_torch.ops.fused import L, _k2_gba, k1_style, k1_window
 
 # index streams of the torch gathers and index_add_ residual adds
 _INDEX_KEYS = frozenset((
@@ -86,34 +85,42 @@ def _upload_tree(src, device, dtype, inst=()) -> Dict[str, object]:
 
 
 def _k1_parts(pages_meta, pages_arrays):
-    """(name, plo, q, npages) of every lane-placed K1 part of the plan: the
+    """(name, plo, q, npages, style) of every K1 part of the plan: the
     delta bulk and tail, and each fused run table."""
     extras = {e[0]: e[1:] for e in pages_meta[5:] if e}
     parts = []
     if "dfused" in extras:
         fmeta, src = extras["dfused"][0], pages_arrays["fused"]
-        parts.append(("fused plo", src["plo"], fmeta[1], fmeta[2]))
+        parts.append(("fused plo", src["plo"], fmeta[1], fmeta[2],
+                      fmeta[6] if len(fmeta) > 6 else "sl"))
         if len(fmeta) > 7 and fmeta[7] is not None:
-            (_T2, q2, npages2, _style2), _inter = fmeta[7]
-            parts.append(("fused plo2", src["plo2"], q2, npages2))
+            (_T2, q2, npages2, style2), _inter = fmeta[7]
+            parts.append(("fused plo2", src["plo2"], q2, npages2, style2))
     for ri, (entry, t) in enumerate(zip(pages_meta[2],
                                         pages_arrays.get("runs", ()))):
         if len(entry) > 5 and entry[5] and entry[5][0] == "frun":
             fmeta_r = entry[5][1]
             parts.append((f"run {ri} plo", t["frun"]["plo"], fmeta_r[1],
-                          fmeta_r[2]))
+                          fmeta_r[2], fmeta_r[5]))
     return parts
 
 
 def _check_windows(pages_meta, pages_arrays) -> None:
     """Every K1 tile's window must lie inside the page grid that
     ``fused._k1_x2`` builds for its part, since the CUDA K1 reads it
-    unchecked.  Every part is lane-placed (``lp`` or ``rlp{W}``):
-    ``kernels.check_slice`` has refused any other style."""
-    for name, plo, q, npages in _k1_parts(pages_meta, pages_arrays):
-        q8, npages_pad = lp_window(q, npages)
-        plo = np.asarray(plo)
-        if plo.size and (plo.min() < 0 or (int(plo.max()) + 1) * q8
+    unchecked: a lane-placed part's window ``plo`` counts q8-page blocks
+    (pages ``plo*q8`` to ``plo*q8 + q8 - 1``), a dense-tile part's counts
+    pages (``plo`` to ``plo + q - 1``, and q <= 16, the pages its 14-bit
+    offsets reach)."""
+    for name, plo, q, npages, style in _k1_parts(pages_meta, pages_arrays):
+        align, npages_pad = k1_window(q, npages, style)
+        dense = k1_style(style)[0]
+        if dense and not 1 <= q <= 16:
+            raise ValueError(f"{name}: a dense K1 window of {q} pages "
+                             "(1..16)")
+        last = q if dense else align       # pages a window reaches past plo
+        plo = np.asarray(plo, dtype=np.int64)
+        if plo.size and (plo.min() < 0 or int(plo.max()) * align + last
                          > npages_pad):
             raise ValueError(f"{name}: K1 windows outside the "
                              f"{npages_pad}-page grid")

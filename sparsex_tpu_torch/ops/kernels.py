@@ -7,18 +7,19 @@ when the planner made no paged one), with the reference's own queue
 (``k3_pending``, ``k3_post``, ``fall_pieces``) and one shared K3 at the
 end:
 
-- the shared ``x2f`` page grid of every lane-placed K1 (:320-331,
+- the shared ``x2f`` page grid of the fused K1 calls (:320-331,
   ``shared_page_grid``);
-- ``dfused``, the fused delta pipeline (:332-350);
+- ``dfused``, the fused delta pipeline (:332-350), its K1 lane-placed
+  (``lp``, bulk and tail) or dense-tile (``sl``);
 - the standalone DIA tables with static offsets (``dia_contrib``, :352-361,
   :78-127), through the DIA kernel;
 - the shared ``x2`` page grid of every legacy paged consumer (:392-402,
   ``paged_grid``) and ``dpages``, the page-bucketed delta product and its
   scatter-add (:403-422, without ``dscatter``);
 - the plain delta singles (gather + segment sum, :454-459);
-- ``frun`` fused run tables (:541-569) and the plain or paged, non-routed
-  run tables (:570-588, ``_gather_units`` :471-491); ``cvt`` tables are
-  skipped (:536-540, :603-606);
+- ``frun`` fused run tables (:541-569; K1 ``rlp{W}`` or ``run{W}``) and
+  the plain or paged, non-routed run tables (:570-588, ``_gather_units``
+  :471-491); ``cvt`` tables are skipped (:536-540, :603-606);
 - the plain or paged, non-routed block tables (:647-665);
 - the ``fall`` merged plan over the trimmed, concatenated K1 outputs of
   its segments (``merged_source``) with its ``dres`` / ``rres`` residuals
@@ -28,25 +29,60 @@ end:
 
 Every other table class or extra raises ``NotImplementedError`` naming the
 ROADMAP.md queue item that ports it; nothing runs silently by another
-route.
+route.  ``static_meta`` and ``tables_to_arrays`` are the port's copies of
+the reference's (kernels.py:41-75), which the host planner starts from.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 
-from sparsex_tpu.preprocess.encodings import EncType
-from sparsex_tpu.preprocess.xform import run_step
 from sparsex_tpu_torch.ops.fused import (add_products, add_totals,
                                          fused_delta_a1, fused_delta_e1s,
                                          fused_run_a1, fused_run_e1s,
-                                         k1_style, k3_combine, merged_e1s,
-                                         page_grid)
+                                         k1_style, k3_combine, merged_e1s)
 from sparsex_tpu_torch.ops.pallas_kernels import (delta_pages_spmv,
                                                   dia_spmv, pad_x_pages,
-                                                  paged_gather)
+                                                  page_grid, paged_gather)
+from sparsex_tpu_torch.preprocess.encodings import EncType
+from sparsex_tpu_torch.preprocess.tables import CsxTables
+from sparsex_tpu_torch.preprocess.xform import run_step
+
+
+def static_meta(tables: CsxTables) -> Tuple:
+    """Static signature of one partition's tables (copied from
+    ``sparsex_tpu/ops/kernels.py:41``): ``(nrows, ncols, runs, blocks,
+    dias)`` with each DIA table's offsets baked in."""
+    runs = tuple((int(t.enc), t.delta, t.width) for t in tables.runs)
+    blocks = tuple((int(t.enc), t.br, t.bc) for t in tables.blocks)
+    dias = tuple((t.anti, tuple(int(o) for o in t.offsets), t.ndiags)
+                 for t in tables.dias)
+    return (tables.nrows, tables.ncols, runs, blocks, dias)
+
+
+def tables_to_arrays(tables: CsxTables) -> Dict[str, Any]:
+    """The tables' host arrays as the planners take them (copied from
+    ``sparsex_tpu/ops/kernels.py:58``)."""
+    arrs: Dict[str, Any] = {"delta": None, "runs": [], "blocks": [],
+                            "dias": []}
+    if tables.delta is not None and tables.delta.nnz:
+        arrs["delta"] = {
+            "row_ids": tables.delta.row_ids,
+            "cols": tables.delta.cols,
+            "vals": tables.delta.vals,
+        }
+    for t in tables.runs:
+        arrs["runs"].append({"rows": t.rows, "cols": t.cols, "vals": t.vals})
+    for t in tables.blocks:
+        arrs["blocks"].append({"rows": t.rows, "cols": t.cols, "vals": t.vals})
+    for t in tables.dias:
+        arrs["dias"].append({"offsets": t.offsets.astype(np.int32),
+                             "vals": t.vals})
+    return arrs
 
 # table classes, extras and merged-plan parts of the reference executor ->
 # where their port is queued in ROADMAP.md
@@ -89,11 +125,11 @@ def check_slice(meta) -> None:
     """Raise ``NotImplementedError`` unless ``meta`` holds only what the
     port runs.  ``meta`` is the executor's paged ``_pages_meta`` or, when
     the planner made none, its plain-table ``meta``.  Ported: fused delta
-    and run segments with lane-placed K1 styles, their merged plan, DIA
-    tables riding K3 or standalone (static offsets), the legacy paged delta
-    (``dpages``) without its scatter route, plain delta singles, and plain
-    or paged (unit-page gather) run and block tables that are not
-    routed."""
+    and run segments in every K1 style (lane-placed ``lp`` / ``rlp{W}``,
+    dense-tile ``sl`` / ``run{W}``), their merged plan, DIA tables riding
+    K3 or standalone (static offsets), the legacy paged delta (``dpages``)
+    without its scatter route, plain delta singles, and plain or paged
+    (unit-page gather) run and block tables that are not routed."""
     _nr, _nc, run_meta, block_meta, dia_meta = meta[:5]
     extras = {e[0]: e[1:] for e in meta[5:] if e}
     for key in extras:
@@ -157,9 +193,12 @@ def _run_steps(entry, device):
 
 
 def shared_page_grid(meta, x, ncols: int):
-    """ONE padded page grid of x shared by every lane-placed K1 call,
-    rounded to 8 pages so every window's q8 rounding divides it
-    (kernels.py:320-331); None when the plan has no fused segment."""
+    """ONE padded page grid of x shared by the fused K1 calls, rounded to 8
+    pages (kernels.py:320-331); None when the plan has no fused segment.
+    It serves every dense-tile window (q <= MAX_Q = 8 pages in a grid of at
+    least max(npages, 8)) and every lane-placed window whose q8 divides 8;
+    ``fused._k1_x2`` pads its own grid for a part it does not fit (a
+    32-page lp tail, unless the grid is a multiple of 32 pages)."""
     extras = {e[0] for e in meta[5:] if e}
     if "dfused" not in extras and not any(_kind(e) == "frun"
                                           for e in meta[2]):
@@ -384,4 +423,5 @@ def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int):
 
 
 __all__ = ["check_slice", "dia_contrib", "dia_tables", "local_contrib",
-           "merged_source", "paged_grid", "shared_page_grid"]
+           "merged_source", "paged_grid", "shared_page_grid", "static_meta",
+           "tables_to_arrays"]

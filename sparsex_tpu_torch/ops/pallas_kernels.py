@@ -2,37 +2,225 @@
 
 Counterpart of ``sparsex_tpu/ops/pallas_kernels.py``: its three Pallas
 kernels are the CUDA kernels of ``csrc/dia.cu`` (``_build_dia_kernel``) and
-``csrc/pages.cu`` (``_build_delta_kernel``, ``_build_gather_kernel``).  The
-host planners (``build_delta_pages``, ``build_unit_pages``) are the
-reference's own; only the device half is ported:
+``csrc/pages.cu`` (``_build_delta_kernel``, ``_build_gather_kernel``), and
+its host planners are the port's own copies (``build_delta_pages``,
+``build_unit_pages``, unchanged NumPy):
 
 - three kernel wrappers, ``dia``, ``delta_pages`` and ``gather``, each
   launching its CUDA kernel on a CUDA tensor and running its plain PyTorch
   version (``dia_plain``, ``delta_pages_plain``, ``gather_plain``) only on
   a CPU tensor; each launch adds one to ``ops.fused.launches`` under
   ``dia``, ``delta_pages`` and ``paged_gather``;
-- the host-side functions with the reference's names: ``pad_x_pages``,
-  ``dia_spmv`` (``dia_spmv_pallas``'s ``pad_lo`` / ``xp_len`` framing, in
-  ``dia_frame``), ``delta_pages_products``, ``delta_pages_spmv``,
-  ``paged_gather`` and ``paged_gather_grid``.
+- the host-side functions with the reference's names: ``pad_x_pages``
+  (over ``page_grid``), ``dia_spmv`` (``dia_spmv_pallas``'s ``pad_lo`` /
+  ``xp_len`` framing, in ``dia_frame``), ``delta_pages_products``,
+  ``delta_pages_spmv``, ``paged_gather`` and ``paged_gather_grid``.
 
 The reference runs these kernels in float32 only (``pallas_dtype_ok``:
-Mosaic tiles are f32) and hands more than ``MAX_DIAGS_PALLAS`` = 64
-diagonals to an XLA window sum; the port runs them in float32 and float64
-and the DIA kernel takes any number of diagonals.
+Mosaic tiles are f32) and hands more than 64 diagonals to an XLA window
+sum; the port runs them in float32 and float64 and the DIA kernel takes any
+number of diagonals.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sparsex_tpu.ops.pallas_kernels import DELTA_TILE, PAGE, TILE, _ceil_to
-from sparsex_tpu_torch.ops.fused import (L, _check, _launch, _offsets_tensor,
-                                         _route, _stream, _value_dtype,
-                                         page_grid)
+from sparsex_tpu_torch.ops._launch import (L, _check, _launch,
+                                           _offsets_tensor, _route, _stream,
+                                           _value_dtype)
+
+TILE = 32 * 1024  # rows per DIA tile of the reference (its x frame's unit)
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+# ---------------------------------------------------------------------------
+# host planners (copied from sparsex_tpu/ops/pallas_kernels.py:115-231,
+# :329-385): the page-bucketed delta layout and the unit-page gather plan
+# ---------------------------------------------------------------------------
+
+PAGE = 1024           # x elements per page = one f32 VREG tile
+DELTA_TILE = 1024     # elements per kernel tile = (8, 128)
+MAX_Q = 8             # max contiguous pages one tile may span
+MIN_PAGE_NNZ = 1 << 14  # below this the XLA gather is cheaper than a plan
+
+
+def build_delta_pages(cols: np.ndarray, rows: np.ndarray, vals: np.ndarray,
+                      ncols: int, nrows_part: int, q_force: int = 0,
+                      t_force: int = 0, sort_key=None, group_ids=None):
+    """Host-side layout for the page-bucketed delta kernel.
+
+    Returns (pages_rep, leftover_idx) where ``pages_rep`` is None when the
+    layout isn't applicable; ``leftover_idx`` indexes elements whose tile
+    would span more than MAX_Q pages (they stay on the XLA path).
+
+    ``q_force``/``t_force`` pad the window width / tile count up to a given
+    value (>= the computed ones) — the sharded executor uses this to give
+    every shard the same static kernel signature.  ``sort_key`` overrides
+    the element ordering (default: by column); pass
+    ``route.fold_sort_key`` so the scatter-route planner can size its
+    instances per capacity fold.
+    """
+    m = cols.size
+    if m < MIN_PAGE_NNZ:
+        return None, None
+    order = np.argsort(cols if sort_key is None else sort_key,
+                       kind="stable")
+    npages = -(-ncols // PAGE)
+
+    # Vectorized tiling (the old per-tile Python loop dominated pt on
+    # large matrices): optional group labels partition the sorted stream
+    # into tile-aligned segments (the fused route pipeline aligns chunk
+    # folds to product tiles this way); each group's elements fill
+    # DELTA_TILE-sized tiles, ragged tails padded.
+    if group_ids is None:
+        el_tile = np.arange(m, dtype=np.int64) // DELTA_TILE
+        lane = np.arange(m, dtype=np.int64) % DELTA_TILE
+    else:
+        g = np.asarray(group_ids)[order]
+        # group start positions in the sorted stream (caller's sort_key
+        # must make groups contiguous)
+        new_grp = np.empty(m, dtype=bool)
+        new_grp[0] = True
+        np.not_equal(g[1:], g[:-1], out=new_grp[1:])
+        starts = np.flatnonzero(new_grp)
+        gi = np.cumsum(new_grp) - 1                    # dense group index
+        pos_in_grp = np.arange(m, dtype=np.int64) - starts[gi]
+        sizes = np.diff(np.append(starts, m))
+        tiles_per_grp = -(-sizes // DELTA_TILE)
+        tile_base = np.concatenate(
+            [[0], np.cumsum(tiles_per_grp)[:-1]])
+        el_tile = tile_base[gi] + pos_in_grp // DELTA_TILE
+        lane = pos_in_grp % DELTA_TILE
+
+    csort = cols[order].astype(np.int64)
+    pages = csort // PAGE
+    # per-tile page span via reduceat (el_tile is nondecreasing; every
+    # tile index in [0, T_all) is hit because groups fill tiles densely)
+    tile_starts = np.flatnonzero(
+        np.concatenate([[True], el_tile[1:] != el_tile[:-1]]))
+    T_all = int(el_tile[-1]) + 1
+    pmin = np.minimum.reduceat(pages, tile_starts)
+    pmax = np.maximum.reduceat(pages, tile_starts)
+    span = pmax - pmin + 1
+    keepm = span <= MAX_Q
+
+    keep_el = keepm[el_tile]
+    kept_pos = np.flatnonzero(keep_el)
+    if kept_pos.size < max(m // 2, 1):
+        return None, None
+    leftover_idx = order[~keep_el]
+
+    kt = np.flatnonzero(keepm)
+    T = kt.size
+    q = int(span[kt].max())
+    q = max(q, q_force)
+    # clamp p_lo so the Q-page window stays inside x2; t_force pads with
+    # all-zero dummy tiles (vals 0, rows = sentinel -> dropped)
+    newt_of_tile = np.cumsum(keepm) - 1                # tile -> kept index
+    plo_kept = np.minimum(pmin[kt],
+                          max(0, npages - q)).astype(np.int32)
+    T_out = max(T, t_force)
+    plo_arr = np.zeros(T_out, dtype=np.int32)
+    plo_arr[:T] = plo_kept
+    # combined window offset sl = sub*128 + lane (< q*1024 <= 8192): ONE
+    # int16 stream instead of separate sub/lane arrays — the delta path is
+    # bandwidth-bound metadata (the reference picks 8/16/32-bit deltas for
+    # the same reason, GetDeltaSize CsxManager.hpp:635-682).  q <= 8 so
+    # the offset always fits int16; kernels upcast at load.
+    sl = np.zeros((T_out, DELTA_TILE), dtype=np.int16)
+    v = np.zeros((T_out, DELTA_TILE), dtype=vals.dtype)
+    r = np.full((T_out, DELTA_TILE), nrows_part, dtype=np.int32)
+    sel = order[kept_pos]
+    ti = newt_of_tile[el_tile[kept_pos]]
+    la = lane[kept_pos]
+    sl[ti, la] = (csort[kept_pos]
+                  - plo_arr[ti].astype(np.int64) * PAGE).astype(np.int16)
+    v[ti, la] = vals[sel]
+    r[ti, la] = rows[sel]
+    rep = {
+        "plo": plo_arr,
+        "sl": sl.reshape(T_out, 8, 128),
+        "vals": v.reshape(T_out, 8, 128),
+        "rows": r.reshape(T_out * DELTA_TILE),
+        "q": int(q),
+        "npages": int(npages),
+    }
+    if group_ids is not None:
+        # per kept tile: its group label (t_force dummy tiles get -1);
+        # the fused route planner cuts chunks at group boundaries
+        tg = np.full(T_out, -1, dtype=np.int64)
+        tg[:T] = np.asarray(group_ids)[order[tile_starts[kt]]]
+        rep["tile_group"] = tg
+    return rep, leftover_idx
+
+
+def build_unit_pages(flat_cols: np.ndarray, W: int, ncols: int,
+                     q_force: int = 0, min_elems: int = 1 << 13):
+    """Plan a paged gather for a (U, W) column-index table.
+
+    ``flat_cols``: (U*W,) the x indices unit-major (already clipped to
+    [0, ncols)).  Returns (unit_order, n_pageable_units, plan) where
+    ``plan`` is None if not applicable; units [0, n_pageable) of the
+    reordered table are gathered by the kernel, the rest via a clipped gather.
+    ``q_force`` pads the page-window width (the sharded executor unifies
+    signatures across shards with it).
+    """
+    M = flat_cols.size
+    U = M // W
+    if U * W != M or M < min_elems or W > DELTA_TILE:
+        return None, 0, None
+    g = max(1, DELTA_TILE // W)  # units per tile
+    cu = flat_cols.reshape(U, W)
+    # order units by their min column so tiles cluster into few pages
+    umin = cu.min(axis=1)
+    umax = cu.max(axis=1)
+    order = np.argsort(umin, kind="stable")
+    npages = -(-ncols // PAGE)
+
+    pageable, spilled = [], []
+    for t0 in range(0, U, g):
+        t1 = min(U, t0 + g)
+        sel = order[t0:t1]
+        p_lo = int(umin[sel].min() // PAGE)
+        p_hi = int(umax[sel].max() // PAGE)
+        if p_hi - p_lo + 1 <= MAX_Q and t1 - t0 == g:
+            pageable.append((sel, p_lo))
+        else:
+            spilled.append(sel)
+    if not pageable or len(pageable) * g < U // 2:
+        return None, 0, None
+
+    T = len(pageable)
+    q = max(int(umax[sel].max() // PAGE) - plo + 1
+            for sel, plo in pageable)
+    q = max(q, q_force)
+    sl = np.zeros((T, DELTA_TILE), dtype=np.int32)
+    plo_arr = np.zeros(T, dtype=np.int32)
+    unit_order = np.concatenate(
+        [np.concatenate([sel for sel, _ in pageable])]
+        + ([np.concatenate(spilled)] if spilled else []))
+    for ti, (sel, plo) in enumerate(pageable):
+        plo = min(plo, max(0, npages - q))
+        plo_arr[ti] = plo
+        off = (cu[sel].reshape(-1) - plo * PAGE).astype(np.int64)
+        n = off.size  # g * W
+        sl[ti, :n] = off.astype(np.int32)
+    plan = {
+        "plo": plo_arr,
+        "sl": sl.reshape(T, 8, 128),
+        "T": T, "q": int(q), "g": int(g), "npages": int(npages),
+    }
+    return unit_order, T * g, plan
+
+
 
 
 # ---------------------------------------------------------------------------
@@ -105,12 +293,20 @@ def dia_spmv(offsets: Sequence[int], dv, x, nrows_part: int, ncols: int):
 # the page-bucketed delta product and the unit-page gather
 # ---------------------------------------------------------------------------
 
-def _window_x(plo, sl, x2, q: int):
-    """``x2flat[plo[t] * 1024 + sl[t, s, l]]``, 0 where ``sl`` is outside
-    [0, q * 1024) (the Pallas kernels' selects match no page there)."""
+def window_index(plo, sl, q: int):
+    """``(idx, ok)``: the flat page-grid index ``plo[t] * 1024 + sl[t, s,
+    l]`` each slot reads, and whether ``sl`` lies in [0, q * 1024) (the
+    Pallas kernels' selects match no page outside); ``idx`` is clamped to
+    the window's start where ``ok`` is False."""
     s = sl.to(torch.int64)
     ok = (s >= 0) & (s < q * PAGE)
     idx = plo.to(torch.int64).view(-1, 1, 1) * PAGE + torch.where(ok, s, 0)
+    return idx, ok
+
+
+def _window_x(plo, sl, x2, q: int):
+    """``x2flat[plo[t] * 1024 + sl[t, s, l]]``, 0 outside the window."""
+    idx, ok = window_index(plo, sl, q)
     zero = torch.zeros((), dtype=x2.dtype, device=x2.device)
     return torch.where(ok, x2.reshape(-1)[idx], zero)
 
@@ -178,6 +374,13 @@ def gather(plo, sl, x2, q: int):
     return out
 
 
+def page_grid(x, ncols: int, npages: int):
+    """x as an (npages, 8, L) page grid, zero-padded past ``ncols``."""
+    if npages * PAGE == ncols:
+        return x.reshape(npages, 8, L)
+    return F.pad(x[:ncols], (0, npages * PAGE - ncols)).reshape(npages, 8, L)
+
+
 def pad_x_pages(x, ncols: int, q: int, npages: int):
     """x zero-padded to (max(npages, q), 8, 128) page form; callers with
     several paged tables build it once with the max q / npages of their
@@ -224,8 +427,8 @@ def paged_gather_grid(plan_meta, plan, x, ncols: int, x2=None):
 
 
 __all__ = [
-    "dia", "dia_plain", "dia_frame", "dia_spmv", "delta_pages",
-    "delta_pages_plain",
-    "gather", "gather_plain", "pad_x_pages", "delta_pages_products",
-    "delta_pages_spmv", "paged_gather", "paged_gather_grid",
+    "build_delta_pages", "build_unit_pages", "dia", "dia_plain",
+    "dia_frame", "dia_spmv", "delta_pages", "delta_pages_plain", "gather",
+    "gather_plain", "page_grid", "pad_x_pages", "delta_pages_products",
+    "delta_pages_spmv", "paged_gather", "paged_gather_grid", "window_index",
 ]

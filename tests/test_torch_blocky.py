@@ -8,7 +8,7 @@ the plain run and delta tables, through the port's plain kernel versions:
   (``fused._build_k1``, ``route._build_lane_gather``) in interpret mode,
   bit for bit;
 - ``merged_e1s`` against the reference's on a planner's merged plan;
-- the whole path (``CsxExecutor.from_reference`` → ``local_contrib``)
+- the whole path (``CsxExecutor.from_tables`` → ``local_contrib``)
   against the reference executor in interpret mode and a float64 COO
   oracle: 1e-5 of the largest value in float32 (as tests/test_fused.py),
   1e-12 in float64;
@@ -38,6 +38,7 @@ from sparsex_tpu.ops import route as route_mod
 import sparsex_tpu_torch as spt
 from sparsex_tpu_torch.ops import convert
 from sparsex_tpu_torch.ops import fused as tf
+from sparsex_tpu_torch.ops import pallas_kernels as tpk
 from sparsex_tpu_torch.ops import route as troute
 from sparsex_tpu_torch.ops.exec import CsxExecutor
 from sparsex_tpu_torch.ops.kernels import check_slice
@@ -50,11 +51,30 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+@pytest.fixture(autouse=True)
+def fresh_port_config():
+    """The port's Config is its own singleton: reset it around every test,
+    as tests/conftest.py resets the reference's."""
+    spt.Config.reset()
+    yield
+    spt.Config.reset()
+
+
+def _thresholds(monkeypatch, **values):
+    """Set planner thresholds (``MIN_FUSED_NNZ``, ``MIN_PAGE_NNZ``,
+    ``MIN_ELEMS``) alike on both packages, so that they plan the same
+    arrays."""
+    mods = {"MIN_FUSED_NNZ": (fused, tf), "MIN_PAGE_NNZ": (pk, tpk),
+            "MIN_ELEMS": (route_mod, troute)}
+    for name, value in values.items():
+        for mod in mods[name]:
+            monkeypatch.setattr(mod, name, value)
+
+
 @pytest.fixture
 def small_thresholds(monkeypatch):
-    monkeypatch.setattr(fused, "MIN_FUSED_NNZ", 256)
-    monkeypatch.setattr(pk, "MIN_PAGE_NNZ", 64)
-    monkeypatch.setattr(route_mod, "MIN_ELEMS", 64)
+    _thresholds(monkeypatch, MIN_FUSED_NNZ=256, MIN_PAGE_NNZ=64,
+                MIN_ELEMS=64)
     monkeypatch.setattr(pk, "dia_pallas_ok", lambda: True)
 
 
@@ -90,14 +110,17 @@ def test_k1_rlp_matches_pallas(W, q8, dtype):
     assert not np.array_equal(lp, want)
 
 
-@pytest.mark.parametrize("style", ["sl", "run8", "rlp3", "rlp16"])
+@pytest.mark.parametrize("style", ["run3", "run256", "rlp3", "lp2"])
 def test_k1_refuses_unported_styles(style):
+    """Every style the planners make is ported since the dense-tile ones
+    (``sl``, ``run{W}``) were; a name outside the four families, or a run
+    width that does not divide 128, is refused."""
     rng = np.random.default_rng(0)
     T = 8
     args = (_t(np.zeros(T, np.int32)), _t(np.zeros((T, 8, L), np.int32)),
             _t(rng.standard_normal((T, 8, L)).astype(np.float32)),
             _t(np.zeros((4, 8, L), np.float32)), 4)
-    with pytest.raises(NotImplementedError, match="Queue 2, item 1"):
+    with pytest.raises(ValueError, match="not a K1 style"):
         tf.k1(*args, style)
 
 
@@ -177,14 +200,18 @@ def _run_matrix(dtype):
 
 
 def _tune(n, rows, cols, vals, xform="all", **options):
-    cfg = Config.instance()
-    cfg.set("spx.tpu.value_dtype", np.dtype(vals.dtype).name)
-    cfg.set("spx.preproc.xform", xform)
-    for key, value in options.items():
-        cfg.set(key, value)
+    """The reference executor and the port's, planned by each package from
+    the same options (the port from the reference's tables, which its own
+    encoder reproduces: tests/test_torch_plan.py)."""
+    options = {"spx.tpu.value_dtype": np.dtype(vals.dtype).name,
+               "spx.preproc.xform": xform, **options}
+    for cfg in (Config.instance(), spt.Config.instance()):
+        for key, value in options.items():
+            cfg.set(key, value)
     mat = CsxMatrix.from_coo(n, n, rows, cols, vals)
     ex = mat.executors[0]
-    port = CsxExecutor.from_reference(ex, "cpu")
+    ex._maybe_build_pages()
+    port = CsxExecutor.from_tables(ex.tables, "cpu")
     return ex, port
 
 
@@ -240,10 +267,11 @@ def test_merged_plan_path_matches_reference(small_thresholds, monkeypatch,
                                             dtype, bar):
     """delta (hybrid lp) + rlp8 runs + 4x2 blocks as rlp2 pseudo-runs in
     one merged plan, with dres/rres residuals and a plain run table."""
-    monkeypatch.setattr(pk, "MIN_PAGE_NNZ", 1024)
+    _thresholds(monkeypatch, MIN_PAGE_NNZ=1024)
     n, rows, cols, vals = _merged_matrix(dtype)
     ex, port = _tune(n, rows, cols, vals)
     meta = ex._pages_meta
+    assert port.meta == meta
     ex_ = _extras(meta)
     assert set(ex_) == {"dfused", "fall"}
     segs, inst, _bounds, res_desc = ex_["fall"]
@@ -266,7 +294,7 @@ def test_fused_run_path_matches_reference(small_thresholds, monkeypatch,
     over-capacity residual units; plain horizontal and vertical run tables
     (too small for a route plan at MIN_ELEMS 1024) and plain delta singles
     (the run table's spills)."""
-    monkeypatch.setattr(route_mod, "MIN_ELEMS", 1024)
+    _thresholds(monkeypatch, MIN_ELEMS=1024)
     n, rows, cols, vals = _run_matrix(dtype)
     ex, port = _tune(n, rows, cols, vals, xform="h,v",
                      **{"spx.matrix.min_coverage": "0.001",
@@ -301,7 +329,7 @@ def test_chip_smoke_blocky_kernel_phase_feeds_the_path_inputs(
     argument by argument, here on a merged plan whose instances take raw
     g2b wires (um & 1) and masked g3 wires (um & 2 == 0)."""
     import chip_smoke
-    monkeypatch.setattr(pk, "MIN_PAGE_NNZ", 1024)
+    _thresholds(monkeypatch, MIN_PAGE_NNZ=1024)
     n, rows, cols, vals = _merged_matrix(dtype)
     _ex, port = _tune(n, rows, cols, vals)
     calls = []
@@ -316,11 +344,10 @@ def test_chip_smoke_blocky_kernel_phase_feeds_the_path_inputs(
     port(x)
     path = set(calls)
     calls.clear()
-    ex, fmeta, runs, fall = chip_smoke.check_blocky_plan(
+    ex = chip_smoke.check_blocky_plan(
         SimpleNamespace(csx=SimpleNamespace(executors=[port])), "cpu")
-    assert {m[9] for m in fall[1]} == {1}
-    res = chip_smoke.blocky_kernel_phase(ex, fmeta, runs, fall, x, "cpu",
-                                         timed=False)
+    assert {m[9] for m in chip_smoke.extras_of(ex.meta)["fall"][1]} == {1}
+    res = chip_smoke.fused_kernel_phase(ex, x, "cpu", timed=False)
     assert set(res) == {"k1", "k1_rlp", "lane_gather", "t1", "k2", "k3"}
     assert set(calls) == path
     assert {c[0] for c in path} == {"k1", "t1", "k2", "k3", "lane_gather"}
@@ -359,7 +386,7 @@ def test_mat_tune_blocky_bench_matrix(dtype, bar):
 # ---------------------------------------------------------------------------
 
 def test_plan_to_torch_blocky_arrays(small_thresholds, monkeypatch):
-    monkeypatch.setattr(pk, "MIN_PAGE_NNZ", 1024)
+    _thresholds(monkeypatch, MIN_PAGE_NNZ=1024)
     n, rows, cols, vals = _merged_matrix(np.float32)
     ex, port = _tune(n, rows, cols, vals)
     meta, host = ex._pages_meta, ex._pages_arrays
@@ -403,11 +430,21 @@ def test_plan_to_torch_blocky_arrays(small_thresholds, monkeypatch):
 
 
 def test_check_slice_refuses_the_run8_plan(small_thresholds, monkeypatch):
-    """The sparse-run matrix plans the dense-tile run8 style: refused."""
-    monkeypatch.setattr(pk, "MIN_PAGE_NNZ", 1024)
+    """The sparse-run matrix plans the dense-tile run8 style, which the
+    port now runs (against the COO oracle); what it still refuses on that
+    plan is SpMM, naming its queue item."""
+    _thresholds(monkeypatch, MIN_PAGE_NNZ=1024)
     n, rows, cols, vals = _merged_matrix(np.float32, n_runs=2000)
-    with pytest.raises(NotImplementedError, match="Queue 2, item 1"):
-        _tune(n, rows, cols, vals)
+    ex, port = _tune(n, rows, cols, vals)
+    assert port.meta == ex._pages_meta
+    assert "run8" in {e[5][1][5] for e in port.meta[2]
+                      if len(e) > 5 and e[5] and e[5][0] == "frun"}
+    x = np.random.default_rng(1).standard_normal(n).astype(np.float32)
+    want = _oracle(n, rows, cols, vals, x)
+    got = port(x).double().numpy()
+    assert np.abs(got - want).max() / np.abs(want).max() < 1e-5
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        port(np.ones((n, 2), np.float32))
 
 
 _DF = ("dfused", (8, 4, 32, (), 0, 0, "lp"))
@@ -415,9 +452,10 @@ _FR = (1, 1, 8, None, None, ("frun", (8, 4, 32, (), 0, "rlp8"), 0))
 
 
 @pytest.mark.parametrize("runs,blocks,extras,item", [
-    ((), (), (("dfused", (8, 4, 32, (), 0, 0, "sl")),), "Queue 2, item 1"),
-    ((_FR[:5] + (("frun", (8, 4, 32, (), 0, "run8"), 0),),), (), (_DF,),
-     "Queue 2, item 1"),
+    ((), (), (("dfused", (8, 4, 32, (), 0, 0, "sl")),
+              ("dsfused", 8, 4, 32, (), False, "lp")), "Queue 1 item 13"),
+    ((_FR[:5] + (("frun", (8, 4, 32, (), 0, "run8"), 0),),), (),
+     (_DF, ("dscatterT", (), False)), "Queue 1 item 8"),
     (((1, 1, 8, (15, 3, 128, 32), None),),
      ((14, 4, 2, (15, 4, 512, 32), None, ("fblk", (), 0)),), (_DF,),
      "Queue 1 item 10"),

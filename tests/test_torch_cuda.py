@@ -6,18 +6,16 @@ not installed; there, skip the JAX-based ``tests/conftest.py``:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-K1 (styles lp and rlp{W}), T1, K2, the lane gather, the DIA kernel, the
-delta-pages product and the unit-page gather must equal their plain
-versions bit for bit; K3 must agree to 1e-6 of the largest value (both sum
-in the same order, without FMA).
+K1 (styles lp, rlp{W}, sl and run{W}), T1, K2, the lane gather, the DIA
+kernel, the delta-pages product and the unit-page gather must equal their
+plain versions bit for bit; K3 must agree to 1e-6 of the largest value
+(both sum in the same order, without FMA).
 """
 
 import numpy as np
 import pytest
 import torch
 
-import sparsex_tpu.ops.pallas_kernels as pk
-from sparsex_tpu.ops import route as route_mod
 from sparsex_tpu_torch.ops import fused as tf
 from sparsex_tpu_torch.ops import pallas_kernels as tpk
 from sparsex_tpu_torch.ops import route as troute
@@ -81,6 +79,29 @@ def test_k1_rlp_cuda_matches_plain(dev, W, q8, dtype):
     torch.cuda.synchronize()
     assert tf.launches["k1_rlp"] == before + 1
     assert torch.equal(got, tf.k1_plain(*args, q8, f"rlp{W}"))
+
+
+@pytest.mark.parametrize("style", ["sl", "run2", "run16", "run128"])
+@pytest.mark.parametrize("q", [1, 3, 16])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_k1_dense_cuda_matches_plain(dev, style, q, dtype):
+    """The dense-tile styles: windows of q pages (plo counts pages),
+    offsets past the window where q < 16 read 0; run{W} up to W = 128,
+    seven roll passes."""
+    rng = np.random.default_rng(q * 7 + len(style))
+    T, npages = 40, 64
+    mg = _pack(rng.integers(0, min(1 << 14, q * 1024 + 512), (T, 8, L)),
+               rng.integers(-1, L, (T, 8, L)))
+    plo = rng.integers(0, npages - q + 1, T).astype(np.int32)
+    vals = rng.standard_normal((T, 8, L)).astype(dtype)
+    x2 = rng.standard_normal((npages, 8, L)).astype(dtype)
+    args = _on(dev, plo, mg, vals, x2)
+    key = tf.k1_key(style)
+    before = tf.launches[key]
+    got = tf.k1(*args, q, style)
+    torch.cuda.synchronize()
+    assert tf.launches[key] == before + 1
+    assert torch.equal(got, tf.k1_plain(*args, q, style))
 
 
 @pytest.mark.parametrize("K,R", [(1, 4736), (3, 200)])
@@ -180,9 +201,9 @@ def test_delta_pages_cuda_matches_plain(dev, dtype):
     n, m = 1 << 16, 50000
     rows = rng.integers(0, n, m)
     cols = np.clip(rows + rng.integers(-5000, 5000, m), 0, n - 1)
-    rep, _left = pk.build_delta_pages(cols, rows,
-                                      rng.standard_normal(m).astype(dtype),
-                                      n, n)
+    rep, _left = tpk.build_delta_pages(cols, rows,
+                                       rng.standard_normal(m).astype(dtype),
+                                       n, n)
     q, npages = rep.pop("q"), rep.pop("npages")
     assert (rep["rows"] == n).any() and rep["sl"].dtype == np.int16
     x = rng.standard_normal(n).astype(dtype)
@@ -227,10 +248,9 @@ def _api_cuda_vs_cpu(build, n, dtype, kernels, **options):
     """Tune ``build(n)`` on the card and on the CPU, run one SpMV on each and
     check that every kernel in ``kernels`` launched on the card."""
     import sparsex_tpu_torch as spt
-    from sparsex_tpu.config import Config
 
     rows, cols, vals = build(n)
-    cfg = Config.reset()
+    cfg = spt.Config.reset()
     cfg.set("spx.tpu.value_dtype", dtype)
     cfg.set("spx.preproc.xform", "all")
     cfg.set("spx.preproc.sampling", "portion")
@@ -255,8 +275,8 @@ def _api_cuda_vs_cpu(build, n, dtype, kernels, **options):
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_api_cuda_matches_cpu(dev, dtype):
     """The headline slice on the card against the same slice on the CPU."""
-    import bench
-    _api_cuda_vs_cpu(bench.build_matrix, 1 << 17, dtype,
+    import chip_smoke
+    _api_cuda_vs_cpu(chip_smoke.build_matrix, 1 << 17, dtype,
                      ("k1", "t1", "k2", "k3"))
 
 
@@ -264,9 +284,23 @@ def test_api_cuda_matches_cpu(dev, dtype):
 def test_api_cuda_blocky_matches_cpu(dev, dtype):
     """The blocky slice (fused runs, merged plan) on the card against the
     same slice on the CPU."""
-    import bench
-    _api_cuda_vs_cpu(bench.build_blocky_matrix, 1 << 18, dtype,
+    import chip_smoke
+    _api_cuda_vs_cpu(chip_smoke.build_blocky_matrix, 1 << 18, dtype,
                      ("k1", "k1_rlp", "t1", "k2", "k3", "lane_gather"))
+
+
+@pytest.mark.parametrize("build,kernels", [
+    ("lane_skew_matrix", ("k1_sl", "t1", "k2", "k3")),
+    ("wide_run_matrix", ("k1", "k1_run", "lane_gather", "t1", "k2", "k3")),
+])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_api_cuda_dense_matches_cpu(dev, build, kernels, dtype):
+    """The dense-tile K1 styles on their paths at 2^18 rows: the sl delta
+    pipeline, and a run16 fused run table in a merged plan."""
+    import chip_smoke
+    fn = getattr(chip_smoke, build)
+    _api_cuda_vs_cpu(fn if build == "lane_skew_matrix"
+                     else (lambda n: fn(n, 16)), 1 << 18, dtype, kernels)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
@@ -286,7 +320,7 @@ def test_api_cuda_paged_matches_cpu(dev, monkeypatch, build, n, kernels,
                                     dtype):
     """The legacy paged variant without a fused segment: nothing fuses
     under a raised ``spx.tpu.min_fused_nnz`` and nothing is routed."""
-    import bench
-    monkeypatch.setattr(route_mod, "MIN_ELEMS", 1 << 30)
-    _api_cuda_vs_cpu(getattr(bench, build), n, dtype, kernels,
+    import chip_smoke
+    monkeypatch.setattr(troute, "MIN_ELEMS", 1 << 30)
+    _api_cuda_vs_cpu(getattr(chip_smoke, build), n, dtype, kernels,
                      **{"spx.tpu.min_fused_nnz": str(1 << 30)})

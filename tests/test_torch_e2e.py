@@ -1,7 +1,8 @@
 """The fused slice of sparsex_tpu_torch end to end on the CPU.
 
 The same plan (``sparsex_tpu.ops.fused.build_fused_delta`` +
-``pad_dias_for_k3``) runs through the port's executor path
+``pad_dias_for_k3``, which the port's copies reproduce:
+tests/test_torch_plan.py) runs through the port's executor path
 (``check_slice``, ``plan_to_torch``, ``local_contrib``) on CPU tensors (the
 plain kernel versions) and through the reference's, with
 its Pallas kernels in interpret mode; both are held against a float64 COO
@@ -24,15 +25,26 @@ from sparsex_tpu.ops import route as route_mod
 import sparsex_tpu_torch as spt
 from sparsex_tpu_torch.ops import convert, kernels
 from sparsex_tpu_torch.ops import fused as tf
+from sparsex_tpu_torch.ops import pallas_kernels as tpk
+from sparsex_tpu_torch.ops import route as troute
 
 torch.set_num_threads(1)
 
 
 @pytest.fixture(autouse=True)
 def small_thresholds(monkeypatch):
-    monkeypatch.setattr(fused, "MIN_FUSED_NNZ", 256)
-    monkeypatch.setattr(pk, "MIN_PAGE_NNZ", 64)
-    monkeypatch.setattr(route_mod, "MIN_ELEMS", 64)
+    """Small planner thresholds, set alike on both packages so that they
+    plan the same arrays; the port's Config reset around the test, as
+    tests/conftest.py resets the reference's."""
+    for mod in (fused, tf):
+        monkeypatch.setattr(mod, "MIN_FUSED_NNZ", 256)
+    for mod in (pk, tpk):
+        monkeypatch.setattr(mod, "MIN_PAGE_NNZ", 64)
+    for mod in (route_mod, troute):
+        monkeypatch.setattr(mod, "MIN_ELEMS", 64)
+    spt.Config.reset()
+    yield
+    spt.Config.reset()
 
 
 def _singles(rng, n, ncols, m):

@@ -21,6 +21,8 @@ import sparsex_tpu.ops.pallas_kernels as pk
 from sparsex_tpu.ops import route as route_mod
 from sparsex_tpu_torch.ops import convert
 from sparsex_tpu_torch.ops import fused as tf
+from sparsex_tpu_torch.ops import pallas_kernels as tpk
+from sparsex_tpu_torch.ops import route as troute
 
 torch.set_num_threads(1)
 L = 128
@@ -214,9 +216,13 @@ def test_g2b_lane_offset_round_trip(A2R):
 
 @pytest.fixture
 def small_thresholds(monkeypatch):
-    monkeypatch.setattr(fused, "MIN_FUSED_NNZ", 256)
-    monkeypatch.setattr(pk, "MIN_PAGE_NNZ", 64)
-    monkeypatch.setattr(route_mod, "MIN_ELEMS", 64)
+    """Small planner thresholds, set alike on both packages."""
+    for mod in (fused, tf):
+        monkeypatch.setattr(mod, "MIN_FUSED_NNZ", 256)
+    for mod in (pk, tpk):
+        monkeypatch.setattr(mod, "MIN_PAGE_NNZ", 64)
+    for mod in (route_mod, troute):
+        monkeypatch.setattr(mod, "MIN_ELEMS", 64)
 
 
 def test_plan_to_torch_round_trip(small_thresholds):

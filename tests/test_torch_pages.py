@@ -34,16 +34,37 @@ from jax.experimental.pallas import tpu as pltpu
 
 import chip_smoke
 import sparsex_tpu.ops.pallas_kernels as pk
+from sparsex_tpu.config import Config as RefConfig
+from sparsex_tpu.csx import CsxMatrix as RefCsxMatrix
 from sparsex_tpu.ops import kernels as ref_kernels
 from sparsex_tpu.ops import route as route_mod
 import sparsex_tpu_torch as spt
 from sparsex_tpu_torch.ops import fused as tf
 from sparsex_tpu_torch.ops import kernels as tk
 from sparsex_tpu_torch.ops import pallas_kernels as tpk
+from sparsex_tpu_torch.ops import route as troute
 from sparsex_tpu_torch.ops.kernels import check_slice
 
 torch.set_num_threads(1)
 L = 128
+
+
+@pytest.fixture(autouse=True)
+def fresh_port_config():
+    """The port's Config is its own singleton: reset it around every test,
+    as tests/conftest.py resets the reference's."""
+    spt.Config.reset()
+    yield
+    spt.Config.reset()
+
+
+def _thresholds(monkeypatch, page_nnz, route_elems):
+    """The planners' thresholds, set alike on both packages so that they
+    plan the same arrays."""
+    for mod in (pk, tpk):
+        monkeypatch.setattr(mod, "MIN_PAGE_NNZ", page_nnz)
+    for mod in (route_mod, troute):
+        monkeypatch.setattr(mod, "MIN_ELEMS", route_elems)
 
 
 def _t(a):
@@ -217,22 +238,28 @@ def combined_matrix(n=1 << 15, seed=4):
 
 
 def _tune(n, rows, cols, vals, dtype, **options):
-    cfg = spt.Config.instance()
-    cfg.set("spx.tpu.value_dtype", dtype)
-    cfg.set("spx.preproc.xform", "all")
-    for key, value in options.items():
-        cfg.set(key, value)
+    """The port's matrix on the CPU and the reference executor of the same
+    matrix, both tuned under the same options."""
+    options = {"spx.tpu.value_dtype": dtype, "spx.preproc.xform": "all",
+               **options}
+    for cfg in (spt.Config.instance(), RefConfig.instance()):
+        for key, value in options.items():
+            cfg.set(key, value)
     rowptr = np.zeros(n + 1, dtype=np.int64)
     rowptr[1:] = np.cumsum(np.bincount(rows, minlength=n))
-    return spt.mat_tune(spt.input_load_csr(rowptr, cols, vals.astype(dtype),
-                                           n, n), device="cpu")
+    A = spt.mat_tune(spt.input_load_csr(rowptr, cols, vals.astype(dtype),
+                                        n, n), device="cpu")
+    ref = RefCsxMatrix.from_coo(n, n, rows, cols, vals.astype(dtype))
+    ref = ref.executors[0]
+    ref._maybe_build_pages()
+    return A, ref
 
 
 def _extras(meta):
     return {e[0]: e[1:] for e in meta[5:] if e}
 
 
-def _check_path(A, n, rows, cols, vals, dtype, bar):
+def _check_path(A, ref, n, rows, cols, vals, dtype, bar):
     """matvec_kernel at alpha=1/beta=0 and alpha=2/beta=0.5 against the
     float64 COO oracle, and at alpha=1 against the reference executor in
     interpret mode; no kernel launch on the CPU."""
@@ -249,8 +276,8 @@ def _check_path(A, n, rows, cols, vals, dtype, bar):
     _close(y.numpy(), want, bar)
     _close(y2.numpy(), 2.0 * want + 0.5 * y0, bar)
     with pltpu.force_tpu_interpret_mode():
-        ref = np.asarray(A.csx.reference.executors[0](jnp.asarray(x)))
-    _close(y.numpy(), ref, bar)
+        yr = np.asarray(ref(jnp.asarray(x)))
+    _close(y.numpy(), yr, bar)
 
 
 @pytest.mark.parametrize("dtype,bar", [("float32", 1e-5),
@@ -260,15 +287,16 @@ def test_hpcg_stencil_plain_table_variant(monkeypatch, dtype, bar):
     diagonals and nothing else, run by the DIA kernel's plain version."""
     monkeypatch.setattr(pk, "dia_pallas_ok", lambda: True)
     n, rows, cols, vals = chip_smoke.hpcg_matrix(16)
-    A = _tune(n, rows, cols, vals, dtype,
-              **{"spx.preproc.sampling": "none"})
-    ref = A.csx.reference.executors[0]
+    A, ref = _tune(n, rows, cols, vals, dtype,
+                   **{"spx.preproc.sampling": "none"})
     assert ref._pages_meta is None
     meta = A.csx.executors[0].meta
-    assert meta is ref.meta and meta[2:4] == ((), ())
+    assert A.csx.executors[0].variant == "plain"
+    assert meta == ref.meta and meta[2:4] == ((), ())
     assert [(anti, len(offs)) for anti, offs, _ in meta[4]] == [(False, 27)]
     assert ref.arrays["delta"] is None
-    _check_path(A, n, rows, cols, vals, dtype, bar)
+    assert A.csx.executors[0].arrays["delta"] is None
+    _check_path(A, ref, n, rows, cols, vals, dtype, bar)
 
 
 @pytest.mark.parametrize("dtype,bar", [("float32", 1e-5),
@@ -279,14 +307,13 @@ def test_paged_variant_without_fused_segment(monkeypatch, dtype, bar):
     variant with the paged delta stream, a paged run table, a plain run
     table, a paged block table and a standalone DIA table."""
     monkeypatch.setattr(pk, "dia_pallas_ok", lambda: True)
-    monkeypatch.setattr(pk, "MIN_PAGE_NNZ", 1024)
-    monkeypatch.setattr(route_mod, "MIN_ELEMS", 1 << 30)
+    _thresholds(monkeypatch, 1024, 1 << 30)
     n, rows, cols, vals = combined_matrix()
-    A = _tune(n, rows, cols, vals, dtype,
-              **{"spx.preproc.sampling": "none",
-                 "spx.tpu.min_fused_nnz": str(rows.size + 1)})
+    A, ref = _tune(n, rows, cols, vals, dtype,
+                   **{"spx.preproc.sampling": "none",
+                      "spx.tpu.min_fused_nnz": str(rows.size + 1)})
     meta = A.csx.executors[0].meta
-    assert meta is A.csx.reference.executors[0]._pages_meta
+    assert meta == ref._pages_meta
     assert set(_extras(meta)) == {"dpages"}
     assert [e[:3] for e in meta[4]] == [(False, (-13, -1, 0, 1, 8), 5)]
     runs = {e[2]: e for e in meta[2]}
@@ -296,21 +323,20 @@ def test_paged_variant_without_fused_segment(monkeypatch, dtype, bar):
     assert blk[1:3] == (4, 2) and blk[3]
     dp = A.csx.executors[0].arrays["delta_pages"]
     assert dp["sl"].dtype == torch.int16 and dp["rows"].dtype == torch.int64
-    _check_path(A, n, rows, cols, vals, dtype, bar)
+    _check_path(A, ref, n, rows, cols, vals, dtype, bar)
 
 
 def test_paged_tables_keep_their_unit_order(monkeypatch):
     """A paged table's units are reordered by the planner; the port uploads
     the reordered rows, cols and vals and its tail past T*g units takes
     the clipped gather."""
-    monkeypatch.setattr(pk, "MIN_PAGE_NNZ", 1024)
-    monkeypatch.setattr(route_mod, "MIN_ELEMS", 1 << 30)
+    _thresholds(monkeypatch, 1024, 1 << 30)
     n, rows, cols, vals = combined_matrix()
-    A = _tune(n, rows, cols, vals, "float64",
-              **{"spx.preproc.sampling": "none",
-                 "spx.tpu.min_fused_nnz": str(rows.size + 1)})
+    A, ref = _tune(n, rows, cols, vals, "float64",
+                   **{"spx.preproc.sampling": "none",
+                      "spx.tpu.min_fused_nnz": str(rows.size + 1)})
     ex = A.csx.executors[0]
-    host = A.csx.reference.executors[0]._pages_arrays
+    host = ref._pages_arrays
     for entry, h, d in zip(ex.meta[3], host["blocks"], ex.arrays["blocks"]):
         np.testing.assert_array_equal(d["rows"].numpy(), h["rows"])
         np.testing.assert_array_equal(d["vals"].numpy(), h["vals"])
@@ -329,13 +355,11 @@ def test_plan_to_torch_checks_the_page_windows(monkeypatch):
     """The CUDA page kernels read x2 unchecked, so the upload refuses a
     window outside the page grid and a delta row past the sentinel."""
     from sparsex_tpu_torch.ops import convert
-    monkeypatch.setattr(pk, "MIN_PAGE_NNZ", 1024)
-    monkeypatch.setattr(route_mod, "MIN_ELEMS", 1 << 30)
+    _thresholds(monkeypatch, 1024, 1 << 30)
     n, rows, cols, vals = combined_matrix()
-    A = _tune(n, rows, cols, vals, "float32",
-              **{"spx.preproc.sampling": "none",
-                 "spx.tpu.min_fused_nnz": str(rows.size + 1)})
-    ref = A.csx.reference.executors[0]
+    _A, ref = _tune(n, rows, cols, vals, "float32",
+                    **{"spx.preproc.sampling": "none",
+                       "spx.tpu.min_fused_nnz": str(rows.size + 1)})
     meta, host = ref._pages_meta, ref._pages_arrays
     for table in (host["delta_pages"], host["runs"][1]["plan"],
                   host["blocks"][0]["plan"]):
@@ -370,8 +394,7 @@ def test_chip_smoke_pages_phase_feeds_the_path_inputs(monkeypatch, kinds):
     """chip_smoke's plan check passes on both variants, its kernel phase
     calls each wrapper with exactly the inputs the port's SpMV gives it,
     and the launch counts it derives from the plan are the SpMV's calls."""
-    monkeypatch.setattr(pk, "MIN_PAGE_NNZ", 1024)
-    monkeypatch.setattr(route_mod, "MIN_ELEMS", 1 << 30)
+    _thresholds(monkeypatch, 1024, 1 << 30)
     if kinds == ("hpcg",):
         n, rows, cols, vals = chip_smoke.hpcg_matrix(16)
         opts = {"spx.preproc.sampling": "none"}
@@ -379,7 +402,7 @@ def test_chip_smoke_pages_phase_feeds_the_path_inputs(monkeypatch, kinds):
         n, rows, cols, vals = combined_matrix()
         opts = {"spx.preproc.sampling": "none",
                 "spx.tpu.min_fused_nnz": str(rows.size + 1)}
-    A = _tune(n, rows, cols, vals, "float64", **opts)
+    A, _ref = _tune(n, rows, cols, vals, "float64", **opts)
     calls = []
     names = {"dia": "dia", "delta_pages": "delta_pages",
              "gather": "paged_gather"}
