@@ -41,7 +41,15 @@ this script imports nothing of the JAX package or its benchmark):
     the delta-pages product with its scatter-add and the DIA kernel on the
     5 diagonals;
   - ``build_blocky_matrix(1 << 22)`` (13.6M nonzeros): the paged delta
-    stream and the unit-page gathers of the paged run and block tables.
+    stream and the unit-page gathers of the paged run and block tables;
+- the SpMM (``matmat_kernel``, X of shape (n, k) from a numpy seed) on the
+  matrix each path has tuned: timed at k = 8 (one k-batched chunk) on
+  headline 2^20, blocky 2^21, wide-run and lane-skew 2^21 in float32 and
+  float64 and on blocky 2^19 in float32 (bench.py's SpMM configuration,
+  whose SpMV is timed too); untimed checks in float32 at k = 11 on
+  headline 2^20 (chunks of 8 and 3), k = 3 on blocky 2^19 (the masked g3
+  instance), k = 2 on HPCG 128^3 and headline 2^22 (the SpMV once per
+  column).
 
 Every phase is fatal on failure:
 
@@ -70,7 +78,17 @@ Every phase is fatal on failure:
 6. a torch.profiler trace of 50 SpMVs: each kernel's device time inside
    the real SpMV, the PyTorch glue kernels around them (the four largest
    by name), and the share of the called-from-Python time the device is
-   busy.
+   busy;
+7. per SpMM (``spmm_phase``): on a fused plan each k-batched kernel
+   (``_kb``) against its plain version fed one chunk of X as the SpMM
+   feeds it (bit-equal, K3 within 1e-6); two SpMMs against the oracle
+   (alpha=1/beta=0, alpha=2/beta=0.5 with a Y) with their launch counts
+   (ceil(k/8) x the plan's per-SpMV counts under the ``_kb`` keys and no
+   other launch, or k SpMVs on a plan without a fused segment); when timed,
+   the SpMM called from Python and replayed from a CUDA graph, Gnnz*k/s,
+   SpMV-equivalents (graph time over k x the path's SpMV graph time), each
+   kb kernel alone beside its bound and k x its kb = 0 time per SpMV, and
+   a profile of 20 SpMMs.
 
 The card's name and power limit (nvidia-smi) come two lines before the
 last; the line before the last is a JSON object ``{"kernels": [...]}``
@@ -105,6 +123,7 @@ HPCG_NX = 128           # the HPCG stencil's grid edge: 2^21 rows
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 SOURCE = {"lane_gather": "sparsex_tpu_torch/csrc/route.cu",
+          "lane_gather_kb": "sparsex_tpu_torch/csrc/route.cu",
           "dia": "sparsex_tpu_torch/csrc/dia.cu",
           "delta_pages": "sparsex_tpu_torch/csrc/pages.cu",
           "paged_gather": "sparsex_tpu_torch/csrc/pages.cu"}
@@ -121,7 +140,19 @@ REPLACES = {
     "dia": "sparsex_tpu/ops/pallas_kernels.py:40",
     "delta_pages": "sparsex_tpu/ops/pallas_kernels.py:233",
     "paged_gather": "sparsex_tpu/ops/pallas_kernels.py:389",
+    # the k-batched (kb > 0) pallas_calls of the same builders
+    "k1_kb": "sparsex_tpu/ops/fused.py:1063",
+    "k1_rlp_kb": "sparsex_tpu/ops/fused.py:1063",
+    "k1_sl_kb": "sparsex_tpu/ops/fused.py:1063",
+    "k1_run_kb": "sparsex_tpu/ops/fused.py:1063",
+    "t1_kb": "sparsex_tpu/ops/fused.py:1343",
+    "k2_kb": "sparsex_tpu/ops/fused.py:1282",
+    "k3_kb": "sparsex_tpu/ops/fused.py:1545",
+    "lane_gather_kb": "sparsex_tpu/ops/route.py:461",
 }
+# the SpMM phases: X (ncols, k) from a numpy seed; timed kernel replays of
+# one SpMM take fewer loops (a plain version at kb = 8 runs for ms)
+MM_LOOPS, MM_OUTER = 16, 3
 
 
 def fail(msg):
@@ -174,12 +205,12 @@ def graph_time_ms(fn, loops=LOOPS, outer=OUTER):
     return cuda_time_ms(graph.replay, loops=1, outer=outer) / loops
 
 
-def paired_ms(kernel, plain):
+def paired_ms(kernel, plain, loops=LOOPS, outer=OUTER):
     """(kernel ms, plain ms) of device time per call, timed in the order
     plain, kernel, kernel, plain and averaged, so a clock that drifts
     during the run weighs on both alike."""
-    p1, k1, k2, p2 = (graph_time_ms(f) for f in (plain, kernel, kernel,
-                                                  plain))
+    p1, k1, k2, p2 = (graph_time_ms(f, loops, outer)
+                      for f in (plain, kernel, kernel, plain))
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -224,15 +255,32 @@ def paged_tables(meta):
             if len(e) > 3 and e[3] and not (len(e) > 5 and e[5])]
 
 
-def expected_counts(meta):
-    """Kernel launches of one SpMV, derived from the plan: one K1 per delta
-    part and per fused run table, under the key of the kernel its style
-    runs (``k1`` lp, ``k1_rlp``, ``k1_sl``, ``k1_run``); per route instance
-    one T1 and one K2 (and one lane gather for a merged plan's G1), one K3
-    per 8 instances; one DIA kernel per standalone DIA table, one
-    delta-pages product for the paged delta stream, one unit-page gather
-    per paged table."""
+def expected_counts(meta, k=0):
+    """Kernel launches of one SpMV (``k`` = 0), derived from the plan: one
+    K1 per delta part and per fused run table, under the key of the kernel
+    its style runs (``k1`` lp, ``k1_rlp``, ``k1_sl``, ``k1_run``); per route
+    instance one T1 and one K2 (and one lane gather for a merged plan's
+    G1), one K3 per 8 instances; one DIA kernel per standalone DIA table,
+    one delta-pages product for the paged delta stream, one unit-page
+    gather per paged table.  Of one SpMM of ``k`` columns: on a fused plan
+    ceil(k / 8) times those counts under the k-batched kernels' keys
+    (``_kb``) and no other launch; else k SpMVs."""
     from sparsex_tpu_torch.ops import fused as tf
+    from sparsex_tpu_torch.ops.kernels import fused_mm_ok
+    counts = _spmv_counts(tf, meta)
+    if not k:
+        return counts
+    if not fused_mm_ok(meta):
+        return {key: k * v for key, v in counts.items()}
+    chunks = -(-k // tf.MAX_KB)
+    out = dict.fromkeys(tf.KERNELS, 0)
+    for key, v in counts.items():   # a paged table's gather: torch glue
+        if key + "_kb" in out:
+            out[key + "_kb"] = chunks * v
+    return out
+
+
+def _spmv_counts(tf, meta):
     ex = extras_of(meta)
     dfused, fall = ex.get("dfused"), ex.get("fall")
     counts = dict.fromkeys(tf.KERNELS, 0)
@@ -414,17 +462,25 @@ def _distinct(idx, mask):
     return int(torch.unique(idx[mask]).numel())
 
 
+def _kb(t, dims):
+    """The number of columns of an operand that is k-batched past ``dims``
+    dimensions (1 for the SpMV's)."""
+    return t.shape[0] if t.dim() > dims else 1
+
+
 def _bound_k1(a, out):
     """K1: plo, mg, vals read and out written once, plus each distinct x
-    value that a slot holding a value reads; one multiply per slot and
-    log2(W) adds for the run styles."""
+    value that a slot holding a value reads, in each of the kb columns;
+    one multiply per slot and log2(W) adds for the run styles, per
+    column."""
     from sparsex_tpu_torch.ops import fused as tf
     plo, mg, vals, x2, q, style = a
     idx, ok = tf.k1_x_index(plo, mg, q, style)
     W = tf.k1_style(style)[1]
+    kb = _kb(x2, 3)
     return (_nbytes(plo, mg, vals, out)
-            + _distinct(idx, ok & (vals != 0)) * x2.element_size(),
-            vals.numel() * max(1, W.bit_length()))
+            + kb * _distinct(idx, ok & (vals != 0)) * x2.element_size(),
+            kb * vals.numel() * max(1, W.bit_length()))
 
 
 def _bound_pages(a, out):
@@ -442,29 +498,40 @@ def _bound_pages(a, out):
 
 
 def _bound_k3(a, out):
+    """K3: the E1s, g3, dv / adv and x blocks read and y written once; one
+    add per g3 wire and a multiply-add per dv / adv value, per column."""
     e1s, g3s, dv, _do, adv, _ao, xb, xrb, _ncols, _d2r = a
+    kb = _kb(out, 3)
     return (_nbytes(*e1s, *g3s, dv, adv, xb, xrb, out),
-            sum(g.numel() for g in g3s)
-            + 2 * sum(t.numel() for t in (dv, adv) if t is not None))
+            kb * (sum(g.numel() for g in g3s)
+                  + 2 * sum(t.numel() for t in (dv, adv) if t is not None)))
 
 
-# per kernel: (bytes, operations) of one call from its arguments and output
+# per kernel: (bytes, operations) of one call from its arguments and output;
+# a k-batched call reads its metadata (wires, tile streams, dv) once and its
+# values and output kb times (the operands' own sizes say so)
 BOUNDS = {
     "k1": _bound_k1, "k1_rlp": _bound_k1, "k1_sl": _bound_k1,
     "k1_run": _bound_k1,
     "t1": lambda a, out: (_nbytes(a[0], out), 0),
     "k2": lambda a, out: (_nbytes(*a[:4], out), 0),
     "k3": _bound_k3,
-    "lane_gather": lambda a, out: (_nbytes(a[0], a[1], out), a[1].numel()),
+    "lane_gather": lambda a, out: (_nbytes(a[0], a[1], out),
+                                   _kb(out, 2) * a[1].numel()),
     "dia": lambda a, out: (_nbytes(a[0], a[1], out), 2 * a[0].numel()),
     "delta_pages": _bound_pages,
     "paged_gather": _bound_pages,
 }
+BOUNDS.update({key + "_kb": BOUNDS[key] for key in
+               ("k1", "k1_rlp", "k1_sl", "k1_run", "t1", "k2", "k3",
+                "lane_gather")})
 
 
 def _library_t1(a):
     a1, A2R = a
-    return lambda: a1.view(A2R, 128, 128).transpose(1, 2).contiguous()
+    lead = a1.shape[:-2]
+    return lambda: a1.view(lead + (A2R, 128, 128)).transpose(-2, -1) \
+        .contiguous()
 
 
 def _library_paged_gather(a):
@@ -478,15 +545,17 @@ def _library_paged_gather(a):
 
 # per kernel with one: the PyTorch call that computes the same function on
 # the same inputs (indices precomputed), timed as a yardstick only
-LIBRARY = {"t1": _library_t1, "paged_gather": _library_paged_gather}
+LIBRARY = {"t1": _library_t1, "t1_kb": _library_t1,
+           "paged_gather": _library_paged_gather}
 
 
-def check_kernel(res, label, timed, name, fn, plain, args, exact=True):
+def check_kernel(res, label, timed, name, fn, plain, args, exact=True,
+                 loops=LOOPS, outer=OUTER):
     """``fn`` (a kernel wrapper) against ``plain`` on each argument tuple in
     ``args``; ``res[name]`` holds the max abs error and, when ``timed``, the
     kernel's, the plain version's and the PyTorch call's ms for all the
-    calls (one CUDA graph each), and the bound of the same work.  Returns
-    the kernel's outputs."""
+    calls (one CUDA graph each, ``loops`` x ``outer`` replays), and the
+    bound of the same work.  Returns the kernel's outputs."""
     import torch
     outs = [fn(*a) for a in args]
     if outs and outs[0].is_cuda:
@@ -500,7 +569,8 @@ def check_kernel(res, label, timed, name, fn, plain, args, exact=True):
     if not timed:
         return outs
     entry["ms"], entry["plain_ms"] = paired_ms(
-        lambda: [fn(*a) for a in args], lambda: [plain(*a) for a in args])
+        lambda: [fn(*a) for a in args], lambda: [plain(*a) for a in args],
+        loops, outer)
     nbytes = flops = 0
     for o, a in zip(outs, args):
         b, f = BOUNDS[name](a, o)
@@ -512,11 +582,12 @@ def check_kernel(res, label, timed, name, fn, plain, args, exact=True):
     entry["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     if name in LIBRARY:
         calls = [LIBRARY[name](a) for a in args]
-        entry["library_ms"] = graph_time_ms(lambda: [c() for c in calls])
+        entry["library_ms"] = graph_time_ms(lambda: [c() for c in calls],
+                                            loops, outer)
     return outs
 
 
-def fused_kernel_phase(ex, x, label, timed=True):
+def fused_kernel_phase(ex, x, label, timed=True, loops=LOOPS, outer=OUTER):
     """Every kernel of a fused path against its plain version, on the
     plan's arrays at the main path's shapes, each stage fed what
     ``local_contrib`` feeds it: K1 on every part (the delta bulk and tail,
@@ -524,8 +595,10 @@ def fused_kernel_phase(ex, x, label, timed=True):
     route instance, the merged plan's (its G1 lane gather over the merged
     source grid) or each segment's own, T1 and K2 (raw g2b wires where um &
     1); then K3 over every instance in calls of 8, the first with the DIA
-    tables that ride it (masked g3 where um & 2 is 0).  Returns {name:
-    entry} (``check_kernel``)."""
+    tables that ride it (masked g3 where um & 2 is 0).  A k-major x (kb,
+    ncols), kb <= 8, is one chunk of an SpMM (``fused_mm_contrib``'s input):
+    every kernel then runs its k-batched variant, named with ``_kb``.
+    Returns {name: entry} (``check_kernel``)."""
     import torch
     import torch.nn.functional as F
     from sparsex_tpu_torch.ops import fused as tf
@@ -538,8 +611,11 @@ def fused_kernel_phase(ex, x, label, timed=True):
     x2f = tk.shared_page_grid(meta, x, ncols)
     res = {}
 
+    sfx = "_kb" if x.dim() == 2 else ""
+
     def run(name, fn, plain, args, exact=True):
-        return check_kernel(res, label, timed, name, fn, plain, args, exact)
+        return check_kernel(res, label, timed, name + sfx, fn, plain, args,
+                            exact, loops, outer)
 
     k1_args = {}
     dfused = extras.get("dfused")
@@ -567,7 +643,8 @@ def fused_kernel_phase(ex, x, label, timed=True):
             run(key, tf.k1, tf.k1_plain, k1_args[key])
 
     def padded(src, m):   # an instance's source rows, padded to S1p
-        return F.pad(src[m[7]:m[8]], (0, 0, 0, m[1] - m[0])).contiguous()
+        return F.pad(src[..., m[7]:m[8], :],
+                     (0, 0, 0, m[1] - m[0])).contiguous()
 
     fall = extras.get("fall")
     if fall is not None:
@@ -600,7 +677,7 @@ def fused_kernel_phase(ex, x, label, timed=True):
             arrs.get("dias_fused_adv"),
             tuple(ncols - 1 - s for s in anti_offs),
             tf._to_blocks(x)[0] if dia_offs else None,
-            tf._to_blocks(torch.flip(x, (0,)))[0] if anti_offs else None)
+            tf._to_blocks(torch.flip(x, (-1,)))[0] if anti_offs else None)
     step = tf.MAX_INSTANCES
     run("k3", tf.k3, tf.k3_plain,
         [(e1s[s:s + step], g3s[s:s + step],
@@ -646,6 +723,7 @@ def pages_kernel_phase(ex, x, label, timed=True):
 
 
 def say_kernels(res, label):
+    unit = "SpMM" if "spmm" in label else "SpMV"
     for name, r in res.items():
         line = f"kernel {name} [{label}]: max abs err {r['max_abs_err']:.3e}"
         if r["ms"] is not None:
@@ -655,7 +733,7 @@ def say_kernels(res, label):
                      + ("" if lib is None else
                         f", PyTorch call {lib * 1e3:.2f} us")
                      + f", bound {r['bound_ms'] * 1e3:.2f} us "
-                     f"({r['bound_by']}), per SpMV, each replayed alone "
+                     f"({r['bound_by']}), per {unit}, each replayed alone "
                      "(inputs warm in L2)")
         say(line)
 
@@ -725,7 +803,7 @@ def e2e_phase(spx, tf, mat, rows, cols, vals, x, tol, dtype_name,
 
 _KERNEL_NAME = re.compile(r"\b(k1_lp|k1_rlp|k1_sl|k1_run|t1|k2|k3|"
                           r"lane_gather|dia|delta_pages|paged_gather)"
-                          r"_kernel\b")
+                          r"(_kb)?_kernel\b")
 
 
 def profile_phase(spmv, reps=50):
@@ -754,7 +832,8 @@ def profile_phase(spmv, reps=50):
             continue
         seen = True
         m = _KERNEL_NAME.search(ev.name)
-        key = ("k1" if m.group(1) == "k1_lp" else m.group(1)) if m else "glue"
+        key = (("k1" if m.group(1) == "k1_lp" else m.group(1))
+               + (m.group(2) or "")) if m else "glue"
         us[key] += ev.time_range.elapsed_us() / reps
         if not m:
             name = ev.name[:70]
@@ -796,15 +875,123 @@ def report(label, mat, res, timing, profiled):
             "profile_glue_us": glue}
 
 
-def kernel_entries(res, counts, prof, label):
+def kernel_entries(res, counts, prof, label, extra=None):
+    """The ``kernels`` JSON entries of one timed path: ``ms_in_spmv`` is the
+    profile's device time per SpMV (per SpMM on an SpMM path); ``extra``
+    adds keys per kernel name."""
     return [{"name": f"{name}[{label}]", "route": "cuda",
              "source": SOURCE.get(name, FUSED_SOURCE),
              "replaces": REPLACES[name], "launches": counts[name],
              "max_abs_err": r["max_abs_err"], "ms": r["ms"],
              "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-             "ms_in_spmv": None if prof is None else prof[name] * 1e-3}
+             "ms_in_spmv": None if prof is None else prof[name] * 1e-3,
+             **(extra or {}).get(name, {})}
             for name, r in res.items()]
+
+
+# ---------------------------------------------------------------------------
+# the SpMM end to end
+# ---------------------------------------------------------------------------
+
+def spmm_phase(spx, tf, mat, rows, cols, vals, k, label, tol, timed, spmv):
+    """One SpMM of X (ncols, k) from a numpy seed through ``matmat_kernel``.
+
+    On a fused plan (``fused_mm_ok``) first each k-batched kernel against
+    its plain version, fed one chunk of X as the SpMM feeds it
+    (``fused_kernel_phase`` on the k-major X.T[:8]).  Then two SpMMs
+    (alpha=1/beta=0, alpha=2/beta=0.5 with a Y) against the float64 COO
+    oracle, with the launch counts of that run (``expected_counts(meta,
+    k)``: ceil(k/8) x the plan's per-SpMV counts under the ``_kb`` keys and
+    nothing else on a fused plan, k SpMVs otherwise).  When ``timed``: the
+    SpMM called from Python and replayed from a CUDA graph, Gnnz*k/s,
+    SpMV-equivalents (graph time / (k x the path's SpMV graph time,
+    ``spmv[1]``)), each kb kernel beside k x its kb = 0 time per SpMV
+    (``spmv[0]``), and a profile of 20 SpMMs.  Returns (summary, kernel
+    entries), both empty when not timed."""
+    import torch
+    from sparsex_tpu_torch.ops.kernels import fused_mm_ok
+    ex = mat.csx.executors[0]
+    n = mat.nrows
+    lab = f"{label} spmm k={k}"
+    X = torch.as_tensor(np.random.default_rng(3).standard_normal((n, k)),
+                        dtype=ex.dtype, device=mat.device)
+    Y0 = torch.as_tensor(np.random.default_rng(4).standard_normal((n, k)),
+                         dtype=ex.dtype, device=mat.device)
+    res = {}
+    if fused_mm_ok(ex.meta):
+        res = fused_kernel_phase(ex, X.T[:tf.MAX_KB].contiguous(), lab,
+                                 timed, MM_LOOPS, MM_OUTER)
+    xh = X.double().cpu().numpy()
+    v64 = vals.astype(np.float64)
+    want = np.stack([np.bincount(rows, weights=v64 * xh[cols, j],
+                                 minlength=n) for j in range(k)], axis=1)
+    want2 = 2.0 * want + 0.5 * Y0.double().cpu().numpy()
+    tf.launches.clear()
+    Y = spx.matmat_kernel(1.0, mat, X, 0.0, None)
+    Y2 = spx.matmat_kernel(2.0, mat, X, 0.5, Y0)
+    torch.cuda.synchronize()
+    counts = tf.launch_counts()
+    expect = {key: 2 * v for key, v in expected_counts(ex.meta, k).items()}
+    if counts != expect:
+        fail(f"[{lab}] launch counts {counts} over two SpMMs, expected "
+             f"{expect}")
+    errs = []
+    for got, ref in ((Y, want), (Y2, want2)):
+        g = got.double().cpu().numpy()
+        if g.shape != (n, k) or not np.isfinite(g).all():
+            fail(f"[{lab}] SpMM result has shape {g.shape} or non-finite "
+                 "values")
+        errs.append(_mixed_rel_err(g, ref))
+    say(f"spmm [{lab}]: oracle rel err {errs[0]:.3e} (alpha=1, beta=0), "
+        f"{errs[1]:.3e} (alpha=2, beta=0.5); bar {tol:g}; launches per 2 "
+        f"SpMMs { {key: v for key, v in counts.items() if v} }")
+    if not max(errs) < tol:
+        fail(f"[{lab}] SpMM diverges from the oracle: {errs} vs {tol:g}")
+    del Y, Y2, want, want2
+    if not timed:
+        return {}, []
+
+    def spmm():
+        return spx.matmat_kernel(1.0, mat, X, 0.0, None)
+
+    ms = cuda_time_ms(spmm, 2 * MM_LOOPS)
+    graph_ms = graph_time_ms(spmm, 2 * MM_LOOPS)
+    prof, glue = profile_phase(spmm, reps=20)
+    spmv_res, spmv_graph_ms = spmv
+    col_loop = {name: {"k_x_spmv_kernel_ms":
+                       k * spmv_res[name[:-3]]["ms"]}
+                for name in res if spmv_res.get(name[:-3], {}).get("ms")}
+    for name, r in res.items():
+        if name in col_loop:
+            say(f"kernel {name} [{lab}]: {r['ms'] * 1e3:.2f} us alone per "
+                f"SpMM vs {k} x its kb = 0 kernel "
+                f"{col_loop[name]['k_x_spmv_kernel_ms'] * 1e3:.2f} us; "
+                f"bound {r['bound_ms'] * 1e3:.2f} us; in the SpMM "
+                + ("not measured" if prof is None
+                   else f"{prof[name]:.2f} us"))
+    if prof is not None:
+        dev_us = sum(prof.values())
+        say(f"[{lab}] profile (20 SpMMs): device {dev_us:.2f} us per SpMM = "
+            + ", ".join(f"{key} {v:.2f}" for key, v in prof.items() if v)
+            + f"; busy {100 * dev_us / (ms * 1e3):.1f}% of the "
+            f"{ms * 1e3:.2f} us called from Python; largest glue "
+            + "; ".join(f"{v:.2f} {key}" for key, v in glue))
+    nnzk = mat.nnz * k
+    equiv = graph_ms / (k * spmv_graph_ms)
+    say(f"[{lab}] SpMM end to end: {ms * 1e3:.2f} us "
+        f"({nnzk / (ms * 1e-3) / 1e9:.2f} Gnnz*k/s) called from Python; "
+        f"{graph_ms * 1e3:.2f} us ({nnzk / (graph_ms * 1e-3) / 1e9:.2f} "
+        f"Gnnz*k/s) replayed from a CUDA graph = {equiv:.3f} "
+        f"SpMV-equivalents (k x {spmv_graph_ms * 1e3:.2f} us)")
+    summary = {"us_per_spmm": ms * 1e3,
+               "gnnzk_per_s": nnzk / (ms * 1e-3) / 1e9,
+               "graph_us_per_spmm": graph_ms * 1e3,
+               "graph_gnnzk_per_s": nnzk / (graph_ms * 1e-3) / 1e9,
+               "spmv_equivalents": equiv, "oracle_rel_err": errs,
+               "launches_per_2_spmm": counts, "profile_device_us": prof,
+               "profile_glue_us": glue}
+    return summary, kernel_entries(res, counts, prof, lab, col_loop)
 
 
 def x_for(mat, n, dtype_name):
@@ -816,11 +1003,12 @@ def x_for(mat, n, dtype_name):
 
 
 def run_path(spx, tf, label, n, rows, cols, vals, dtype_name, tol, check,
-             phase, timed=True):
+             phase, timed=True, spmm=()):
     """One path in one value type: tune, check the plan, each kernel
     against its plain version, the SpMV against the oracle with its launch
-    counts, and when ``timed`` the times and a profile.  Returns (summary,
-    kernel entries), both empty when not timed."""
+    counts, and when ``timed`` the times and a profile; then on the same
+    tuned matrix one ``spmm_phase`` per (k, timed) in ``spmm``.  Returns
+    ({label: summary}, kernel entries) of the timed parts."""
     import torch
     t0 = time.perf_counter()
     mat = tune(spx, rows, cols, vals, n, dtype_name, label)
@@ -828,11 +1016,18 @@ def run_path(spx, tf, label, n, rows, cols, vals, dtype_name, tol, check,
     x = x_for(mat, n, dtype_name)
     res = phase(ex, x, label, timed)
     timing = e2e_phase(spx, tf, mat, rows, cols, vals, x, tol, label, timed)
-    out = ({}, [])
+    summary, entries = {}, []
     if timed:
         profiled = profile_phase(timing[-1])
-        out = (report(label, mat, res, timing, profiled),
-               kernel_entries(res, timing[0], profiled[0], label))
+        summary[label] = report(label, mat, res, timing, profiled)
+        entries += kernel_entries(res, timing[0], profiled[0], label)
+    for k, mm_timed in spmm:
+        s, e = spmm_phase(spx, tf, mat, rows, cols, vals, k, label, tol,
+                          mm_timed, (res, timing[3]))
+        if mm_timed:
+            summary[f"{label} spmm k={k}"] = s
+            entries += e
+    out = (summary, entries)
     del mat, ex, x, timing
     torch.cuda.empty_cache()
     say(f"[{label}] path done in {time.perf_counter() - t0:.1f} s")
@@ -998,42 +1193,48 @@ def main():
     tols = (("float32", CHECK_TOL), ("float64", 1e-6))
     kernels_out, summary = [], {}
     warm_up()
+    # the SpMMs of a path: (k, timed, value types); k = 8 is one full
+    # k-batched chunk (bench.py's SpMM figure), k = 11 two chunks (8 + 3)
+    both, f32 = ("float32", "float64"), ("float32",)
+    mm8 = ((8, True, both),)
     # (label, rows of the matrix, its builder, plan check, kernel phase,
-    # value types to run, timed)
+    # value types to run, timed, SpMMs)
     paths = (
         ("", N, lambda: build_matrix(N), check_plan, fused_kernel_phase,
-         tols, True),
+         tols, True, mm8 + ((11, False, f32),)),
         ("blocky ", N_BLOCKY, lambda: build_blocky_matrix(N_BLOCKY),
-         check_blocky_plan, fused_kernel_phase, tols, True),
+         check_blocky_plan, fused_kernel_phase, tols, True, mm8),
         ("blocky 2^19 ", N_BLOCKY_CHECK,
          lambda: build_blocky_matrix(N_BLOCKY_CHECK),
-         check_masked_blocky_plan, fused_kernel_phase, tols[:1], False),
+         check_masked_blocky_plan, fused_kernel_phase, tols[:1], True,
+         ((8, True, f32), (3, False, f32))),
         ("wide-run 2^21 W=16 ", N_DENSE, lambda: wide_run_matrix(N_DENSE, 16),
-         check_dense_plan("run16"), fused_kernel_phase, tols, True),
+         check_dense_plan("run16"), fused_kernel_phase, tols, True, mm8),
         ("lane-skew 2^21 ", N_DENSE, lambda: lane_skew_matrix(N_DENSE),
-         check_dense_plan("sl"), fused_kernel_phase, tols, True),
+         check_dense_plan("sl"), fused_kernel_phase, tols, True, mm8),
         ("wide-run 2^19 W=128 ", N_RUN128,
          lambda: wide_run_matrix(N_RUN128, 128), check_dense_plan("run128"),
-         fused_kernel_phase, tols[:1], False),
+         fused_kernel_phase, tols[:1], False, ()),
         ("hpcg 128^3 ", HPCG_NX ** 3, lambda: hpcg_matrix(HPCG_NX)[1:],
          lambda m, lb: check_pages_plan(m, "hpcg", lb), pages_kernel_phase,
-         tols, True),
+         tols, True, ((2, False, f32),)),
         ("headline 2^22 ", N_BIG, lambda: build_matrix(N_BIG),
          lambda m, lb: check_pages_plan(m, "headline", lb),
-         pages_kernel_phase, tols, True),
+         pages_kernel_phase, tols, True, ((2, False, f32),)),
         ("blocky 2^22 ", N_BIG, lambda: build_blocky_matrix(N_BIG),
          lambda m, lb: check_pages_plan(m, "blocky", lb),
-         pages_kernel_phase, tols, True),
+         pages_kernel_phase, tols, True, ()),
     )
-    for prefix, n, build, check, phase, types, timed in paths:
+    for prefix, n, build, check, phase, types, timed, mms in paths:
         rows, cols, vals = build()
         for dtype_name, tol in types:
             label = prefix + dtype_name
             s, k = run_path(spx, tf, label, n, rows, cols, vals, dtype_name,
-                            tol, check, phase, timed)
-            if timed:
-                summary[label] = s
-                kernels_out += k
+                            tol, check, phase, timed,
+                            [(kk, t) for kk, t, dts in mms
+                             if dtype_name in dts])
+            summary.update(s)
+            kernels_out += k
         del rows, cols, vals
 
     say("summary: " + json.dumps(summary))

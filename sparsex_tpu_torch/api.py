@@ -13,6 +13,9 @@ reference                               sparsex_tpu_torch
 ``spx_matvec_mult``                     ``matvec_mult(alpha, A, x, device=)``
 ``spx_matvec_kernel``                   ``matvec_kernel(alpha, A, x, beta,
                                         y, device=)``
+``matmat_mult`` (SpMM, api.py:209)      ``matmat_mult(alpha, A, X, device=)``
+``matmat_kernel`` (api.py:218)          ``matmat_kernel(alpha, A, X, beta,
+                                        Y, device=)``
 ``spx_option_set / get``                ``option_set / option_get``
 =====================================  =====================================
 
@@ -153,6 +156,21 @@ def matvec_kernel(alpha: float, mat: Matrix, x, beta: float, y,
     return mat.csx.matvec(x, alpha=alpha, beta=beta, y=y)
 
 
+def matmat_mult(alpha: float, mat: Matrix, X, device=None):
+    """SpMM: Y = alpha*A*X with X of shape (ncols, k) (the reference's
+    multi-RHS extension of ``spx_matvec_mult``, api.py:209-215)."""
+    _on(mat, device)
+    return mat.csx.matmat(X, alpha=alpha, beta=0.0)
+
+
+def matmat_kernel(alpha: float, mat: Matrix, X, beta: float, Y,
+                  device=None):
+    """SpMM: Y = alpha*A*X + beta*Y (multi-RHS ``spx_matvec_kernel``,
+    api.py:218-220)."""
+    _on(mat, device)
+    return mat.csx.matmat(X, alpha=alpha, beta=beta, Y=Y)
+
+
 __all__ = ["OP_REORDER", "INDEX_ZERO_BASED", "INDEX_ONE_BASED", "Input",
            "Matrix", "input_load_csr", "input_load_mmf", "mat_tune",
-           "matvec_mult", "matvec_kernel"]
+           "matvec_mult", "matvec_kernel", "matmat_mult", "matmat_kernel"]

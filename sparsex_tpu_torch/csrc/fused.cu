@@ -1,5 +1,6 @@
 // The fused CSX SpMV pipeline for Hopper (sm_90a): K1 (the lane-placed
-// styles lp and rlp{W}, the dense-tile styles sl and run{W}), T1, K2 and K3.
+// styles lp and rlp{W}, the dense-tile styles sl and run{W}), T1, K2 and K3,
+// and their k-batched (SpMM) variants at the end of the file.
 //
 // Each kernel replaces one Pallas TPU kernel of sparsex_tpu/ops/fused.py and
 // reads exactly the plan arrays its counterpart reads (the host planners of
@@ -289,6 +290,288 @@ __global__ void k3_kernel(K3Args a, T* __restrict__ y) {
   y[row] = total;
 }
 
+// ===========================================================================
+// The k-batched (SpMM) variants: kb <= MAX_KB columns of x per launch, x
+// and every output k-major (column c at c * its column stride).  Each
+// replaces the kb > 0 pallas_call of the same builder (fused.py:1063/:1098
+// K1, :1343 T1, :1282 K2, :1545 K3).  On the TPU the k axis is the
+// innermost grid axis and Mosaic's revisit optimisation keeps the metadata
+// blocks in VMEM across it; a CUDA grid has no revisit, so here a block
+// reads its metadata once (K1: mg/vals, K2: the colour's wires, K3: its dv
+// and adv, and its g3 wires from device memory once, from L1 for the
+// further columns) and loops over the kb columns itself.
+// Bound: the metadata bytes once plus kb x (the x values the slots read +
+// the output).  Column c is computed with the same intrinsics in the same
+// order as the kb = 1 kernel, so it is bit-equal to it; per-column values
+// live in MAX_KB-wide register arrays under fully unrolled `c < kb` loops.
+// ===========================================================================
+constexpr int MAX_KB = 8;        // columns per launch (exec.MM_FUSED_KB)
+
+// K1 lp / sl: a thread resolves its G1 wire, window offset and value once,
+// then forms one product per column.  xs = the page grid's values per
+// column, n_elems = T * 1024 = the output's.
+template <typename T, bool DENSE>
+__device__ __forceinline__ void k1_route_kb(const int32_t* __restrict__ plo,
+                                            const int32_t* __restrict__ mg,
+                                            const T* __restrict__ vals,
+                                            const T* __restrict__ x2,
+                                            T* __restrict__ out,
+                                            long long n_elems, int q, int kb,
+                                            long long xs) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n_elems) return;
+  const long long row = e >> 7;
+  const int g1 = (int)(((uint32_t)mg[e]) >> 16) - 1;
+  long long i = -1;
+  T v = T(0);
+  if (g1 >= 0) {
+    const long long src = (row << 7) + g1;
+    i = k1_x_index<DENSE>(plo, row, mg[src] & 0x3FFF, g1, q);
+    if (i >= 0) v = vals[src];
+  }
+#pragma unroll
+  for (int c = 0; c < MAX_KB; ++c)
+    if (c < kb)
+      out[c * n_elems + e] = i >= 0 ? mul_rn(x2[c * xs + i], v) : T(0);
+}
+
+template <typename T>
+__global__ void k1_lp_kb_kernel(const int32_t* __restrict__ plo,
+                                const int32_t* __restrict__ mg,
+                                const T* __restrict__ vals,
+                                const T* __restrict__ x2,
+                                T* __restrict__ out, long long n_elems,
+                                int q8, int kb, long long xs) {
+  k1_route_kb<T, false>(plo, mg, vals, x2, out, n_elems, q8, kb, xs);
+}
+
+template <typename T>
+__global__ void k1_sl_kb_kernel(const int32_t* __restrict__ plo,
+                                const int32_t* __restrict__ mg,
+                                const T* __restrict__ vals,
+                                const T* __restrict__ x2,
+                                T* __restrict__ out, long long n_elems, int q,
+                                int kb, long long xs) {
+  k1_route_kb<T, true>(plo, mg, vals, x2, out, n_elems, q, kb, xs);
+}
+
+// K1 rlp{W} / run{W}: as k1_roll, every column's products side by side in
+// shared memory (K1_ROWS x MAX_KB x 128 values, 16 KB in f64), so one
+// barrier pair per roll pass serves all kb columns.  os = T * 1024.
+template <typename T, bool DENSE>
+__device__ __forceinline__ void k1_roll_kb(const int32_t* __restrict__ plo,
+                                           const int32_t* __restrict__ mg,
+                                           const T* __restrict__ vals,
+                                           const T* __restrict__ x2,
+                                           T* __restrict__ out, int q, int W,
+                                           int kb, long long xs,
+                                           long long os) {
+  __shared__ T p[K1_ROWS][MAX_KB][L];
+  const int r = threadIdx.x >> 7;
+  const int l = threadIdx.x & (L - 1);
+  const long long row = (long long)blockIdx.x * K1_ROWS + r;   // t * 8 + s
+  const long long e = (row << 7) + l;
+  const int m = mg[e];
+  const long long i = k1_x_index<DENSE>(plo, row, m & 0x3FFF, l, q);
+  const T v = vals[e];
+  T acc[MAX_KB];
+#pragma unroll
+  for (int c = 0; c < MAX_KB; ++c)
+    acc[c] = c < kb ? mul_rn(i >= 0 ? x2[c * xs + i] : T(0), v) : T(0);
+  for (int d = 1; d < W; d <<= 1) {
+#pragma unroll
+    for (int c = 0; c < MAX_KB; ++c)
+      if (c < kb) p[r][c][l] = acc[c];
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < MAX_KB; ++c)
+      if (c < kb) acc[c] = add_rn(acc[c], p[r][c][(l - d) & (L - 1)]);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int c = 0; c < MAX_KB; ++c)
+    if (c < kb) p[r][c][l] = acc[c];
+  __syncthreads();
+  const int g1 = (int)(((uint32_t)m) >> 16) - 1;
+#pragma unroll
+  for (int c = 0; c < MAX_KB; ++c)
+    if (c < kb) out[c * os + e] = g1 >= 0 ? p[r][c][g1] : T(0);
+}
+
+template <typename T>
+__global__ void k1_rlp_kb_kernel(const int32_t* __restrict__ plo,
+                                 const int32_t* __restrict__ mg,
+                                 const T* __restrict__ vals,
+                                 const T* __restrict__ x2,
+                                 T* __restrict__ out, int q8, int W, int kb,
+                                 long long xs, long long os) {
+  k1_roll_kb<T, false>(plo, mg, vals, x2, out, q8, W, kb, xs, os);
+}
+
+template <typename T>
+__global__ void k1_run_kb_kernel(const int32_t* __restrict__ plo,
+                                 const int32_t* __restrict__ mg,
+                                 const T* __restrict__ vals,
+                                 const T* __restrict__ x2,
+                                 T* __restrict__ out, int q, int W, int kb,
+                                 long long xs, long long os) {
+  k1_roll_kb<T, true>(plo, mg, vals, x2, out, q, W, kb, xs, os);
+}
+
+// T1: no metadata, so the k axis is a grid axis: the kb x A2R input blocks
+// are contiguous, block z = c * A2R + a.
+template <typename T>
+__global__ void t1_kb_kernel(const T* __restrict__ in, T* __restrict__ out) {
+  __shared__ T tile[32][33];
+  const size_t base = (size_t)blockIdx.z * L * L;
+  const int c0 = blockIdx.x * 32;
+  const int j0 = blockIdx.y * 32;
+  for (int k = threadIdx.y; k < 32; k += blockDim.y)
+    tile[k][threadIdx.x] = in[base + (size_t)(j0 + k) * L + c0 + threadIdx.x];
+  __syncthreads();
+  for (int k = threadIdx.y; k < 32; k += blockDim.y)
+    out[base + (size_t)(c0 + k) * L + j0 + threadIdx.x] = tile[threadIdx.x][k];
+}
+
+// K2: one block per colour c stages its g2a wires (int8) and, per output
+// (d, l), the C1 offset b * 128 + g its g2c -> g2b chain resolves to
+// (int16, -1 = 0) in shared memory once; then per column it gathers C1 from
+// that column's A1T and writes the column's E1.  Shared memory: A2R * 128
+// values + A2R * 128 B + D2R * 256 B, at most 176 KB in f64.
+template <typename T>
+__global__ void k2_kb_kernel(const T* __restrict__ a1t,
+                             const int8_t* __restrict__ g2a,
+                             const int8_t* __restrict__ g2b,
+                             const int8_t* __restrict__ g2c,
+                             T* __restrict__ e1, int A2R, int W2, int D2R,
+                             int kb) {
+  extern __shared__ __align__(16) unsigned char k2kb_smem[];
+  T* c1 = reinterpret_cast<T*>(k2kb_smem);
+  int16_t* src = reinterpret_cast<int16_t*>(c1 + A2R * L);
+  int8_t* ga = reinterpret_cast<int8_t*>(src + D2R * L);
+  const int c = blockIdx.x;
+  const int8_t* gac = g2a + (size_t)c * A2R * L;
+  for (int i = threadIdx.x; i < A2R * L; i += blockDim.x) ga[i] = gac[i];
+  const int8_t* gb = g2b + (size_t)c * W2 * L;
+  const int8_t* gc = g2c + (size_t)c * D2R * L;
+  for (int i = threadIdx.x; i < D2R * L; i += blockDim.x) {
+    const int d = i >> 7;
+    const int g = gc[i];
+    int s = -1;
+    if (g >= 0 && g < W2) {
+      const int b = gb[g * L + d];
+      if (b >= 0 && b < A2R) s = b * L + g;
+    }
+    src[i] = (int16_t)s;
+  }
+  for (int k = 0; k < kb; ++k) {
+    __syncthreads();   // the wires are staged; column k-1 is done with c1
+    const T* a = a1t + (size_t)k * A2R * L * L;
+    for (int i = threadIdx.x; i < A2R * L; i += blockDim.x) {
+      const int w = ga[i];
+      c1[i] = w >= 0 ? a[((size_t)(i >> 7) * L + c) * L + w] : T(0);
+    }
+    __syncthreads();
+    T* oc = e1 + ((size_t)k * L + c) * D2R * L;
+    for (int i = threadIdx.x; i < D2R * L; i += blockDim.x) {
+      const int s = src[i];
+      oc[i] = s >= 0 ? c1[s] : T(0);
+    }
+  }
+}
+
+// K3: y rows of 8 adjacent row strips p0..p0+7 of destination block i per
+// block (1024 threads, thread (strip, l) owns row i*16384 + p*128 + l).  A
+// strip's E1 values are a strided column of E1, one value per 32-B sector,
+// and the 8 strips of a block share those sectors: the block stages them,
+// one column at a time (n_inst x 8 x 132 values, at most 66 KB in f64), 8
+// consecutive threads reading one sector, so every sector is read once
+// (block by strip, as k3_kernel, reads each 8 times).  The g3 wires (l
+// fastest, coalesced) come from device memory for the first column and
+// from L1 for the others; each dv / adv value is read once and applied to
+// all kb column sums, kept in registers.  xs / xrs: values per column of
+// the x / reversed-x blocks.
+constexpr int K3_STRIPS = 8;
+constexpr int K3_ROW = L + 4;    // padded se rows: a warp's staging stores
+                                 // (8 strips x 4 lanes) hit 32 banks
+
+struct K3KbArgs {
+  K3Args a;
+  int kb;
+  long long xs;
+  long long xrs;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(K3_STRIPS * L)
+    k3_kb_kernel(K3KbArgs b, T* __restrict__ y) {
+  extern __shared__ __align__(16) unsigned char k3kb_smem[];
+  T* se = reinterpret_cast<T*>(k3kb_smem);   // [n_inst][K3_STRIPS][K3_ROW]
+  const K3Args& a = b.a;
+  const int kb = b.kb;
+  const int i = blockIdx.x / (L / K3_STRIPS);
+  const int p0 = (blockIdx.x % (L / K3_STRIPS)) * K3_STRIPS;
+  const int l = threadIdx.x % L;
+  const int strip = threadIdx.x / L;
+  const int p = p0 + strip;
+  const int n_se = a.n_inst * K3_STRIPS * L;
+  const size_t e1c = (size_t)L * a.D2R * L;         // E1 values per column
+  T total[MAX_KB];
+#pragma unroll
+  for (int c = 0; c < MAX_KB; ++c) {
+    total[c] = T(0);
+    if (c < kb) {                  // uniform over the block: the barriers hold
+      for (int t = threadIdx.x; t < n_se; t += blockDim.x) {
+        const int st = t % K3_STRIPS;
+        const int ll = (t / K3_STRIPS) % L;
+        const int s = t / (K3_STRIPS * L);
+        se[(s * K3_STRIPS + st) * K3_ROW + ll] = static_cast<const T*>(a.e1[s])[
+            c * e1c + ((size_t)ll * a.D2R + i) * L + p0 + st];
+      }
+      __syncthreads();
+      for (int s = 0; s < a.n_inst; ++s) {
+        const int K = a.K[s];
+        const int8_t* g = a.g3[s] + ((size_t)i * K * L + p) * L + l;
+        const T* ses = se + (s * K3_STRIPS + strip) * K3_ROW;
+        for (int k = 0; k < K; ++k) {
+          const int w = g[(size_t)k * L * L];
+          total[c] = add_rn(total[c], w >= 0 ? ses[w] : T(0));
+        }
+      }
+      __syncthreads();             // the next column overwrites se
+    }
+  }
+  const long long row = (long long)i * TILE3 + p * L + l;
+  const T* x = static_cast<const T*>(a.x);
+  const T* dv = static_cast<const T*>(a.dv);
+  for (int d = 0; d < a.nd; ++d) {
+    const long long j = row + a.doff[d];
+    const bool inb = j >= 0 && j < a.nx;
+    const T dvv = dv[(((size_t)i * a.nd + d) * L + p) * L + l];
+#pragma unroll
+    for (int c = 0; c < MAX_KB; ++c)
+      if (c < kb)
+        total[c] = add_rn(total[c],
+                          mul_rn(dvv, inb ? x[c * b.xs + j] : T(0)));
+  }
+  const T* xr = static_cast<const T*>(a.xr);
+  const T* adv = static_cast<const T*>(a.adv);
+  for (int d = 0; d < a.na; ++d) {
+    const long long j = row + a.aoff[d];
+    const bool inb = j >= 0 && j < a.nx;
+    const T av = adv[(((size_t)i * a.na + d) * L + p) * L + l];
+#pragma unroll
+    for (int c = 0; c < MAX_KB; ++c)
+      if (c < kb)
+        total[c] = add_rn(total[c],
+                          mul_rn(av, inb ? xr[c * b.xrs + j] : T(0)));
+  }
+  const long long yc = (long long)a.D2R * TILE3;     // y values per column
+#pragma unroll
+  for (int c = 0; c < MAX_KB; ++c)
+    if (c < kb) y[c * yc + row] = total[c];
+}
+
 template <typename T, bool DENSE>
 int launch_k1(const void* plo, const void* mg, const void* vals, const void* x2,
               void* out, long long n_tiles, int q, void* stream) {
@@ -379,6 +662,121 @@ int launch_k3(const void* const* e1, const void* const* g3, const int* K,
   return (int)cudaGetLastError();
 }
 
+// --- the k-batched launchers (kb = 1 .. MAX_KB) ---------------------------
+
+template <typename T, bool DENSE>
+int launch_k1_kb(const void* plo, const void* mg, const void* vals,
+                 const void* x2, void* out, long long n_tiles, int q, int kb,
+                 long long xs, void* stream) {
+  if (q < 1 || (DENSE && q > 16) || kb < 1 || kb > MAX_KB)
+    return (int)cudaErrorInvalidValue;
+  const long long n = n_tiles * 8 * L;
+  if (n == 0) return (int)cudaGetLastError();
+  const int threads = 256;
+  const long long blocks = (n + threads - 1) / threads;
+  if (DENSE)
+    k1_sl_kb_kernel<T><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)plo, (const int32_t*)mg, (const T*)vals,
+        (const T*)x2, (T*)out, n, q, kb, xs);
+  else
+    k1_lp_kb_kernel<T><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)plo, (const int32_t*)mg, (const T*)vals,
+        (const T*)x2, (T*)out, n, q, kb, xs);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool DENSE>
+int launch_k1_roll_kb(const void* plo, const void* mg, const void* vals,
+                      const void* x2, void* out, long long n_tiles, int q,
+                      int W, int kb, long long xs, void* stream) {
+  if (W < 2 || W > L || (W & (W - 1))) return (int)cudaErrorInvalidValue;
+  if (q < 1 || (DENSE && q > 16) || kb < 1 || kb > MAX_KB)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = n_tiles * 8 / K1_ROWS;
+  if (blocks == 0) return (int)cudaGetLastError();
+  const long long os = n_tiles * 8 * L;
+  if (DENSE)
+    k1_run_kb_kernel<T><<<(unsigned)blocks, K1_ROWS * L, 0,
+                          (cudaStream_t)stream>>>(
+        (const int32_t*)plo, (const int32_t*)mg, (const T*)vals,
+        (const T*)x2, (T*)out, q, W, kb, xs, os);
+  else
+    k1_rlp_kb_kernel<T><<<(unsigned)blocks, K1_ROWS * L, 0,
+                          (cudaStream_t)stream>>>(
+        (const int32_t*)plo, (const int32_t*)mg, (const T*)vals,
+        (const T*)x2, (T*)out, q, W, kb, xs, os);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_t1_kb(const void* in, void* out, int A2R, int kb, void* stream) {
+  if (kb < 1 || kb > MAX_KB) return (int)cudaErrorInvalidValue;
+  dim3 grid(L / 32, L / 32, A2R * kb);
+  dim3 block(32, 8);
+  t1_kb_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>((const T*)in,
+                                                            (T*)out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_k2_kb(const void* a1t, const void* g2a, const void* g2b,
+                 const void* g2c, void* e1, int A2R, int W2, int D2R, int kb,
+                 void* stream) {
+  if (kb < 1 || kb > MAX_KB) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)A2R * L * sizeof(T) + (size_t)D2R * L * 2
+                      + (size_t)A2R * L;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        k2_kb_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  k2_kb_kernel<T><<<L, 512, smem, (cudaStream_t)stream>>>(
+      (const T*)a1t, (const int8_t*)g2a, (const int8_t*)g2b,
+      (const int8_t*)g2c, (T*)e1, A2R, W2, D2R, kb);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_k3_kb(const void* const* e1, const void* const* g3, const int* K,
+                 int n_inst, const void* dv, const void* doff, int nd,
+                 const void* adv, const void* aoff, int na, const void* x,
+                 const void* xr, long long nx, int D2R, void* y, int kb,
+                 long long xs, long long xrs, void* stream) {
+  if (n_inst < 0 || n_inst > MAX_INST || kb < 1 || kb > MAX_KB)
+    return (int)cudaErrorInvalidValue;
+  K3KbArgs b = {};
+  for (int s = 0; s < n_inst; ++s) {
+    b.a.e1[s] = e1[s];
+    b.a.g3[s] = (const int8_t*)g3[s];
+    b.a.K[s] = K[s];
+  }
+  b.a.n_inst = n_inst;
+  b.a.dv = dv;
+  b.a.doff = (const int32_t*)doff;
+  b.a.nd = nd;
+  b.a.adv = adv;
+  b.a.aoff = (const int32_t*)aoff;
+  b.a.na = na;
+  b.a.x = x;
+  b.a.xr = xr;
+  b.a.nx = nx;
+  b.a.D2R = D2R;
+  b.kb = kb;
+  b.xs = xs;
+  b.xrs = xrs;
+  const size_t smem = (size_t)n_inst * K3_STRIPS * K3_ROW * sizeof(T);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        k3_kb_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  k3_kb_kernel<T><<<D2R * (L / K3_STRIPS), K3_STRIPS * L, smem,
+                    (cudaStream_t)stream>>>(b, (T*)y);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 #define SPX_FUSED_LAUNCHERS(SFX, T)                                            \
@@ -423,6 +821,54 @@ int launch_k3(const void* const* e1, const void* const* g3, const int* K,
                               void* stream) {                                  \
     return launch_k3<T>(e1, g3, K, n_inst, dv, doff, nd, adv, aoff, na, x, xr, \
                         nx, D2R, y, stream);                                   \
+  }                                                                            \
+  extern "C" int spx_k1_kb_##SFX(const void* plo, const void* mg,              \
+                                 const void* vals, const void* x2, void* out,  \
+                                 long long n_tiles, int q8, int kb,            \
+                                 long long xs, void* stream) {                 \
+    return launch_k1_kb<T, false>(plo, mg, vals, x2, out, n_tiles, q8, kb, xs, \
+                                  stream);                                     \
+  }                                                                            \
+  extern "C" int spx_k1_sl_kb_##SFX(const void* plo, const void* mg,           \
+                                    const void* vals, const void* x2,          \
+                                    void* out, long long n_tiles, int q,       \
+                                    int kb, long long xs, void* stream) {      \
+    return launch_k1_kb<T, true>(plo, mg, vals, x2, out, n_tiles, q, kb, xs,   \
+                                 stream);                                      \
+  }                                                                            \
+  extern "C" int spx_k1_rlp_kb_##SFX(const void* plo, const void* mg,          \
+                                     const void* vals, const void* x2,         \
+                                     void* out, long long n_tiles, int q8,     \
+                                     int W, int kb, long long xs,              \
+                                     void* stream) {                           \
+    return launch_k1_roll_kb<T, false>(plo, mg, vals, x2, out, n_tiles, q8, W, \
+                                       kb, xs, stream);                        \
+  }                                                                            \
+  extern "C" int spx_k1_run_kb_##SFX(const void* plo, const void* mg,          \
+                                     const void* vals, const void* x2,         \
+                                     void* out, long long n_tiles, int q,      \
+                                     int W, int kb, long long xs,              \
+                                     void* stream) {                           \
+    return launch_k1_roll_kb<T, true>(plo, mg, vals, x2, out, n_tiles, q, W,   \
+                                      kb, xs, stream);                         \
+  }                                                                            \
+  extern "C" int spx_t1_kb_##SFX(const void* in, void* out, int A2R, int kb,   \
+                                 void* stream) {                               \
+    return launch_t1_kb<T>(in, out, A2R, kb, stream);                          \
+  }                                                                            \
+  extern "C" int spx_k2_kb_##SFX(const void* a1t, const void* g2a,             \
+                                 const void* g2b, const void* g2c, void* e1,   \
+                                 int A2R, int W2, int D2R, int kb,             \
+                                 void* stream) {                               \
+    return launch_k2_kb<T>(a1t, g2a, g2b, g2c, e1, A2R, W2, D2R, kb, stream);  \
+  }                                                                            \
+  extern "C" int spx_k3_kb_##SFX(                                              \
+      const void* const* e1, const void* const* g3, const int* K, int n_inst,  \
+      const void* dv, const void* doff, int nd, const void* adv,               \
+      const void* aoff, int na, const void* x, const void* xr, long long nx,   \
+      int D2R, void* y, int kb, long long xs, long long xrs, void* stream) {   \
+    return launch_k3_kb<T>(e1, g3, K, n_inst, dv, doff, nd, adv, aoff, na, x,  \
+                           xr, nx, D2R, y, kb, xs, xrs, stream);               \
   }
 
 SPX_FUSED_LAUNCHERS(f32, float)

@@ -42,6 +42,38 @@ __global__ void lane_gather_kernel(const T* __restrict__ x,
   out[e] = acc;
 }
 
+// The k-batched variant (replaces the kb > 0 pallas_call, route.py:461):
+// x and out are k-major, kb <= MAX_KB columns of n = R * 128 values each.
+// On the TPU the wire block stays in VMEM across the innermost k grid axis;
+// here a thread reads its K wires once and applies each to all kb column
+// sums (register arrays under fully unrolled `c < kb` loops), in the same
+// order as the kb = 1 kernel, so column c is bit-equal to it.  Bound: the
+// wires once plus kb x (x + out).
+constexpr int MAX_KB = 8;        // columns per launch (exec.MM_FUSED_KB)
+
+template <typename T>
+__global__ void lane_gather_kb_kernel(const T* __restrict__ x,
+                                      const int8_t* __restrict__ idx,
+                                      T* __restrict__ out, long long n_elems,
+                                      int K, int kb) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n_elems) return;
+  const long long base = (e >> 7) << 7;
+  T acc[MAX_KB];
+#pragma unroll
+  for (int c = 0; c < MAX_KB; ++c) acc[c] = T(0);
+  for (int k = 0; k < K; ++k) {
+    const int w = idx[(long long)k * n_elems + e];
+#pragma unroll
+    for (int c = 0; c < MAX_KB; ++c)
+      if (c < kb)
+        acc[c] = add_rn(acc[c], w >= 0 ? x[c * n_elems + base + w] : T(0));
+  }
+#pragma unroll
+  for (int c = 0; c < MAX_KB; ++c)
+    if (c < kb) out[c * n_elems + e] = acc[c];
+}
+
 template <typename T>
 int launch_lane_gather(const void* x, const void* idx, void* out, long long R,
                        int K, void* stream) {
@@ -51,6 +83,20 @@ int launch_lane_gather(const void* x, const void* idx, void* out, long long R,
   const long long blocks = (n + threads - 1) / threads;
   lane_gather_kernel<T><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       (const T*)x, (const int8_t*)idx, (T*)out, n, K);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_lane_gather_kb(const void* x, const void* idx, void* out,
+                          long long R, int K, int kb, void* stream) {
+  if (kb < 1 || kb > MAX_KB) return (int)cudaErrorInvalidValue;
+  const long long n = R * L;
+  if (n == 0) return (int)cudaGetLastError();
+  const int threads = 256;
+  const long long blocks = (n + threads - 1) / threads;
+  lane_gather_kb_kernel<T><<<(unsigned)blocks, threads, 0,
+                             (cudaStream_t)stream>>>(
+      (const T*)x, (const int8_t*)idx, (T*)out, n, K, kb);
   return (int)cudaGetLastError();
 }
 
@@ -64,4 +110,16 @@ extern "C" int spx_lane_gather_f32(const void* x, const void* idx, void* out,
 extern "C" int spx_lane_gather_f64(const void* x, const void* idx, void* out,
                                    long long R, int K, void* stream) {
   return launch_lane_gather<double>(x, idx, out, R, K, stream);
+}
+
+extern "C" int spx_lane_gather_kb_f32(const void* x, const void* idx,
+                                      void* out, long long R, int K, int kb,
+                                      void* stream) {
+  return launch_lane_gather_kb<float>(x, idx, out, R, K, kb, stream);
+}
+
+extern "C" int spx_lane_gather_kb_f64(const void* x, const void* idx,
+                                      void* out, long long R, int K, int kb,
+                                      void* stream) {
+  return launch_lane_gather_kb<double>(x, idx, out, R, K, kb, stream);
 }

@@ -94,11 +94,8 @@ class CsxMatrix:
 
     def matvec(self, x, alpha=1.0, beta=0.0, y=None):
         """y = alpha*A*x + beta*y (``spx_matvec_kernel`` semantics, ref
-        ``csx.py:108-120``), as a tensor on the matrix's device."""
-        if np.ndim(x) != 1:
-            raise NotImplementedError(
-                "x must be a vector: SpMM is not ported yet; see ROADMAP.md "
-                "Queue 1 item 9")
+        ``csx.py:108-127``), as a tensor on the matrix's device; an x of
+        shape (ncols, k) gives the SpMM (nrows, k), as in the reference."""
         if np.shape(x)[0] != self.ncols:
             seterror(ErrorCode.SPX_ERR_VEC_DIM,
                      f"x has {np.shape(x)[0]} entries, expected {self.ncols}")
@@ -110,6 +107,19 @@ class CsxMatrix:
     def mult(self, x, alpha=1.0):
         """y = alpha*A*x (``spx_matvec_mult`` parity: y zeroed first)."""
         return self.matvec(x, alpha=alpha, beta=0.0)
+
+    def matmat(self, X, alpha=1.0, beta=0.0, Y=None):
+        """SpMM: Y = alpha*A*X + beta*Y with X (ncols, k), as a tensor
+        (nrows, k) on the matrix's device (ref ``csx.py:227-244``, with its
+        shape checks)."""
+        if np.ndim(X) != 2 or np.shape(X)[0] != self.ncols:
+            seterror(ErrorCode.SPX_ERR_VEC_DIM,
+                     f"X must be ({self.ncols}, k), got {tuple(np.shape(X))}")
+        if Y is not None and tuple(np.shape(Y)) != (self.nrows,
+                                                    np.shape(X)[1]):
+            seterror(ErrorCode.SPX_ERR_VEC_DIM,
+                     f"Y must be ({self.nrows}, {np.shape(X)[1]})")
+        return self.matvec(X, alpha=alpha, beta=beta, y=Y)
 
     def csx_size(self) -> int:
         return sum(t.csx_size() for t in self.shards)

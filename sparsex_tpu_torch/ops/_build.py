@@ -139,6 +139,30 @@ def _bind(lib: ctypes.CDLL) -> None:
                       ctypes.POINTER(i), i, vp, vp, i, vp, vp, i, vp, vp,
                       ll, i, vp, vp]
         f.restype = i
+        # the k-batched variants: the same arguments plus kb and the
+        # values per column of x (and of the reversed x for K3)
+        for name in ("k1_kb", "k1_sl_kb"):
+            f = getattr(lib, f"spx_{name}_{sfx}")
+            f.argtypes = [vp, vp, vp, vp, vp, ll, i, i, ll, vp]
+            f.restype = i
+        for name in ("k1_rlp_kb", "k1_run_kb"):
+            f = getattr(lib, f"spx_{name}_{sfx}")
+            f.argtypes = [vp, vp, vp, vp, vp, ll, i, i, i, ll, vp]
+            f.restype = i
+        f = getattr(lib, f"spx_lane_gather_kb_{sfx}")
+        f.argtypes = [vp, vp, vp, ll, i, i, vp]
+        f.restype = i
+        f = getattr(lib, f"spx_t1_kb_{sfx}")
+        f.argtypes = [vp, vp, i, i, vp]
+        f.restype = i
+        f = getattr(lib, f"spx_k2_kb_{sfx}")
+        f.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, vp]
+        f.restype = i
+        f = getattr(lib, f"spx_k3_kb_{sfx}")
+        f.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(vp),
+                      ctypes.POINTER(i), i, vp, vp, i, vp, vp, i, vp, vp,
+                      ll, i, vp, i, ll, ll, vp]
+        f.restype = i
         f = getattr(lib, f"spx_dia_{sfx}")
         f.argtypes = [vp, vp, vp, i, ll, vp, vp]
         f.restype = i

@@ -16,6 +16,7 @@ from typing import Tuple
 import torch
 
 L = 128                          # lanes per row of every tile grid
+MAX_KB = 8   # columns per k-batched kernel launch (exec.py:59 MM_FUSED_KB)
 
 launches: Counter = Counter()
 
@@ -41,6 +42,17 @@ def _value_dtype(name: str, t: torch.Tensor) -> None:
     if t.dtype not in _SFX:
         raise TypeError(f"{name}: value dtype {t.dtype} is not supported "
                         "(float32 and float64 only)")
+
+
+def _batch(name: str, t: torch.Tensor, dims: int) -> int:
+    """0 for a ``dims``-dimensional operand, kb for a k-batched one with a
+    leading axis of kb <= MAX_KB columns; anything else raises."""
+    if t.dim() == dims:
+        return 0
+    if t.dim() == dims + 1 and 1 <= t.shape[0] <= MAX_KB:
+        return t.shape[0]
+    raise ValueError(f"{name}: shape {tuple(t.shape)} is neither {dims}-D "
+                     f"nor a batch of 1..{MAX_KB} such operands")
 
 
 def _route(device: torch.device) -> str:

@@ -32,11 +32,13 @@ import torch
 
 from sparsex_tpu_torch.logger import log_warning
 from sparsex_tpu_torch.ops.convert import plan_to_torch
+from sparsex_tpu_torch.ops.fused import MAX_KB as MM_FUSED_KB
 from sparsex_tpu_torch.ops.fused import (build_fused_delta, build_fused_run,
                                          merge_segment_plan, min_fused_nnz,
                                          pad_dias_for_k3,
                                          plan_partial_segment)
-from sparsex_tpu_torch.ops.kernels import (check_slice, local_contrib,
+from sparsex_tpu_torch.ops.kernels import (check_slice, fused_mm_contrib,
+                                           fused_mm_ok, local_contrib,
                                            static_meta, tables_to_arrays)
 from sparsex_tpu_torch.ops.pallas_kernels import (build_delta_pages,
                                                   build_unit_pages)
@@ -636,11 +638,15 @@ class CsxExecutor:
                    torch.device(device), variant)
 
     def __call__(self, x, alpha=1.0, beta=0.0, y=None):
-        """``alpha * A @ x + beta * y``; the epilogue is elided when alpha
-        is 1 and when beta is 0 or y is absent (exec.py:894-907)."""
+        """``alpha * A @ x + beta * y`` for x (ncols,), or the SpMM for X
+        (ncols, k) (:meth:`matmat`); the epilogue is elided when alpha is 1
+        and when beta is 0 or y is absent (exec.py:894-907)."""
         x = self._as_vector(x, "x")
-        acc = local_contrib(self.meta, self.arrays, x,
-                            nrows_part=self.nrows, ncols=self.ncols)
+        if x.dim() == 2:
+            acc = self.matmat(x)
+        else:
+            acc = local_contrib(self.meta, self.arrays, x,
+                                nrows_part=self.nrows, ncols=self.ncols)
         apply_alpha = not (isinstance(alpha, (int, float))
                            and float(alpha) == 1.0)
         apply_beta = not (y is None or (isinstance(beta, (int, float))
@@ -650,6 +656,36 @@ class CsxExecutor:
         if apply_beta:
             acc = acc + beta * self._as_vector(y, "y")
         return acc
+
+    def matmat(self, X: torch.Tensor) -> torch.Tensor:
+        """``A @ X`` for X (ncols, k) on the plan's device: (nrows, k).
+
+        A fused plan (:func:`fused_mm_ok`) runs the reference's k-batched
+        path (exec.py:86-101): chunks of ``MM_FUSED_KB`` columns of the
+        k-major X.T through :func:`fused_mm_contrib`, whose kernels read the
+        metadata once per chunk.  Any other plan (the legacy paged and the
+        plain-table variants) runs the SpMV once per column, as the
+        reference's column loop does (:102-118); the DIA tables run inside
+        each column's SpMV, where the reference adds them in one XLA slab
+        pass (:120-130), which has no kernel of its own.  The reference's
+        v5e-measured ``MM_COLUMN_LOOP_MAX`` (:851-876) is not carried over:
+        the k-batched kernels run for every k."""
+        k = X.shape[1]
+        if self.variant == "paged" and fused_mm_ok(self.meta):
+            xt = X.T.contiguous()
+            outs = [fused_mm_contrib(self.meta, self.arrays,
+                                     xt[c0:c0 + MM_FUSED_KB],
+                                     nrows_part=self.nrows, ncols=self.ncols)
+                    for c0 in range(0, k, MM_FUSED_KB)]
+        else:
+            outs = [local_contrib(self.meta, self.arrays,
+                                  X[:, j].contiguous(), nrows_part=self.nrows,
+                                  ncols=self.ncols)[None]
+                    for j in range(k)]
+        if not outs:
+            return X.new_zeros((self.nrows, 0))
+        out = torch.cat(outs) if len(outs) > 1 else outs[0]   # (k, nrows)
+        return out.T.contiguous()
 
     def _as_vector(self, v, name: str) -> torch.Tensor:
         """``v`` as a tensor of the plan's dtype on the plan's device."""
@@ -664,4 +700,5 @@ class CsxExecutor:
         a = np.asarray(v)
         if a.dtype.kind not in "fiu":
             raise TypeError(f"{name}: dtype {a.dtype} is not numeric")
-        return torch.as_tensor(a, dtype=self.dtype, device=self.device)
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=self.dtype,
+                               device=self.device)

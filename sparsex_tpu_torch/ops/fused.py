@@ -13,12 +13,16 @@ Counterpart of ``sparsex_tpu/ops/fused.py``, both halves:
   ``rlp{W}``, the dense-tile styles ``sl`` and ``run{W}``), ``t1``,
   ``k2``, ``k3``, each launching a CUDA kernel of ``csrc/fused.cu`` on a
   CUDA tensor and running its plain PyTorch version (``k1_plain`` ...) only
-  on a CPU tensor;
+  on a CPU tensor.  Given k-batched operands (a leading axis of kb <=
+  ``MAX_KB`` columns, the reference's ``kb`` > 0 builders) each launches
+  its ``_kb`` kernel, which reads the plan's metadata once for the kb
+  columns; the plain versions take the same leading axis;
 - the glue with the reference's names and static-meta tuples:
   ``_to_blocks``, ``_k1_x2``, ``fused_delta_a1``, ``_e1s_from_a1``,
   ``fused_delta_e1s``, ``fused_run_a1``, ``fused_run_e1s``, ``merged_e1s``
   (each merged instance's G1 is the lane gather of ``ops/route.py``) and
-  ``k3_combine``, plus the residual adds ``add_products`` / ``add_totals``.
+  ``k3_combine``, plus the residual adds ``add_products`` / ``add_totals``;
+  each takes x as a vector or k-major (k, ncols), as the reference's does.
 
 Every wrapper adds one to ``launches[name]`` each time it launches its CUDA
 kernel, and nowhere else, so a caller can show which kernels a run used.
@@ -38,9 +42,9 @@ import torch.nn.functional as F
 
 from sparsex_tpu_torch.config import Config
 from sparsex_tpu_torch.ops import route
-from sparsex_tpu_torch.ops._launch import (_check, _launch, _offsets_tensor,
-                                           _route, _stream, _value_dtype,
-                                           launches)
+from sparsex_tpu_torch.ops._launch import (MAX_KB, _batch, _check, _launch,
+                                           _offsets_tensor, _route, _stream,
+                                           _value_dtype, launches)
 from sparsex_tpu_torch.ops.pallas_kernels import (DELTA_TILE, PAGE,
                                                   build_delta_pages,
                                                   build_unit_pages,
@@ -1041,17 +1045,21 @@ def k1_plain(plo, mg, vals, x2, q: int, style: str = "lp"):
     - 1`` and the products ``p = x * vals``, x read as :func:`k1_x_index`
     says (0 outside the window).  The run styles ``rlp{W}`` / ``run{W}``
     first add ``roll(p, d)`` along the lanes for d = 1, 2, .. < W
-    (circular), leaving each W-lane run's total at its last lane."""
+    (circular), leaving each W-lane run's total at its last lane.  A
+    k-batched ``x2`` (kb, npages, 8, 128) gives (kb, T, 8, 128), column by
+    column the same arithmetic."""
     _dense, W = k1_style(style)
     idx, ok = k1_x_index(plo, mg, q, style)
     zero = torch.zeros((), dtype=vals.dtype, device=vals.device)
-    prod = torch.where(ok, x2.reshape(-1)[idx], zero) * vals
+    xs = x2.reshape(*x2.shape[:-3], -1)
+    prod = torch.where(ok, xs[..., idx], zero) * vals
     d = 1
     while d < W:
-        prod = prod + torch.roll(prod, d, dims=2)
+        prod = prod + torch.roll(prod, d, dims=-1)
         d *= 2
     g1 = ((mg >> 16) & 0xFFFF) - 1
-    g = torch.gather(prod, 2, g1.clamp(min=0).to(torch.int64))
+    g = torch.gather(prod, -1, g1.clamp(min=0).to(torch.int64)
+                     .expand(prod.shape))
     return torch.where(g1 >= 0, g, zero)
 
 
@@ -1060,7 +1068,9 @@ def k1(plo, mg, vals, x2, q: int, style: str = "lp"):
     page grid (npages, 8, 128): for the lane-placed styles a multiple of
     the window's q8 pages, for the dense-tile styles (q <= 16) at least q
     pages.  Every tile's window must lie inside ``x2``
-    (``ops/convert.py`` checks the plan's)."""
+    (``ops/convert.py`` checks the plan's).  A k-batched grid (kb, npages,
+    8, 128), kb <= MAX_KB, gives (kb, T, 8, 128) from the ``_kb`` kernel,
+    which reads mg and vals once for all kb columns."""
     dense, W = k1_style(style)
     _value_dtype("vals", vals)
     T = mg.shape[0]
@@ -1069,28 +1079,33 @@ def k1(plo, mg, vals, x2, q: int, style: str = "lp"):
     _check("mg", mg, torch.int32, (T, 8, L), dev)
     _check("vals", vals, None, (T, 8, L), dev)
     _check("x2", x2, vals.dtype, None, dev)
-    if x2.dim() != 3 or tuple(x2.shape[1:]) != (8, L):
+    kb = _batch("x2", x2, 3)
+    npages = x2.shape[-3]
+    if tuple(x2.shape[-2:]) != (8, L):
         raise ValueError(f"x2: shape {tuple(x2.shape)} is not a page grid")
     if dense:
         qk = q       # the dense kernel's window: q pages anywhere in x2
-        if not 1 <= q <= 16 or x2.shape[0] < q:
-            raise ValueError(f"x2: {x2.shape[0]} pages for a dense window "
+        if not 1 <= q <= 16 or npages < q:
+            raise ValueError(f"x2: {npages} pages for a dense window "
                              f"of q={q} (1..16) pages")
     else:
         qk = _q8(q)  # the lane-placed kernel's: aligned q8-page blocks
-        if x2.shape[0] % qk:
+        if npages % qk:
             raise ValueError(f"x2: shape {tuple(x2.shape)} is not a grid of "
                              f"q8={qk}-page windows")
     if _route(dev) == "cpu":
         return k1_plain(plo, mg, vals, x2, q, style)
-    out = torch.empty_like(vals)
-    ptrs = (plo.data_ptr(), mg.data_ptr(), vals.data_ptr(), x2.data_ptr(),
-            out.data_ptr(), T, qk)
-    key = _K1_KEYS[(dense, W > 0)]
+    out = torch.empty(x2.shape[:-3] + (T, 8, L), dtype=vals.dtype,
+                      device=dev)
+    args = [plo.data_ptr(), mg.data_ptr(), vals.data_ptr(), x2.data_ptr(),
+            out.data_ptr(), T, qk]
     if W:
-        _launch(key, vals.dtype, *ptrs, W, _stream(dev))
-    else:
-        _launch(key, vals.dtype, *ptrs, _stream(dev))
+        args.append(W)
+    key = _K1_KEYS[(dense, W > 0)]
+    if kb:
+        key += "_kb"
+        args += [kb, npages * PAGE]
+    _launch(key, vals.dtype, *args, _stream(dev))
     return out
 
 
@@ -1099,18 +1114,25 @@ def k1(plo, mg, vals, x2, q: int, style: str = "lp"):
 # ---------------------------------------------------------------------------
 
 def t1_plain(a1, A2R: int):
-    """Block ``a`` = ``a1[a*128:(a+1)*128].T`` (``fused.py:_build_t1``)."""
-    return a1.view(A2R, L, L).transpose(1, 2).contiguous()
+    """Block ``a`` = ``a1[a*128:(a+1)*128].T`` (``fused.py:_build_t1``); a
+    k-batched (kb, A2R*128, 128) gives (kb, A2R, 128, 128)."""
+    return a1.view(*a1.shape[:-2], A2R, L, L).transpose(-2, -1).contiguous()
 
 
 def t1(a1, A2R: int):
     _value_dtype("a1", a1)
-    _check("a1", a1, None, (A2R * L, L))
+    kb = _batch("a1", a1, 2)
+    _check("a1", a1, None, a1.shape[:-2] + (A2R * L, L))
     if _route(a1.device) == "cpu":
         return t1_plain(a1, A2R)
-    out = torch.empty((A2R, L, L), dtype=a1.dtype, device=a1.device)
-    _launch("t1", a1.dtype, a1.data_ptr(), out.data_ptr(), A2R,
-            _stream(a1.device))
+    out = torch.empty(a1.shape[:-2] + (A2R, L, L), dtype=a1.dtype,
+                      device=a1.device)
+    if kb:
+        _launch("t1_kb", a1.dtype, a1.data_ptr(), out.data_ptr(), A2R, kb,
+                _stream(a1.device))
+    else:
+        _launch("t1", a1.dtype, a1.data_ptr(), out.data_ptr(), A2R,
+                _stream(a1.device))
     return out
 
 
@@ -1120,38 +1142,52 @@ def t1(a1, A2R: int):
 
 def k2_plain(a1t, g2a, g2b, g2c, W2: int, D2R: int):
     """``E1[c,d,l]`` from A1T (A2R, 128, 128) through the raw g2a/g2b/g2c
-    wires (``fused.py:_build_k2``; ``route._route_instance_np``)."""
-    A2R = a1t.shape[0]
+    wires (``fused.py:_build_k2``; ``route._route_instance_np``); a
+    k-batched (kb, A2R, 128, 128) gives (kb, 128, D2R, 128)."""
+    A2R = a1t.shape[-3]
     zero = torch.zeros((), dtype=a1t.dtype, device=a1t.device)
-    B = a1t.permute(1, 0, 2)                          # [c, b, j]
+
+    def take(src, idx):   # gather along the lanes, wires shared by columns
+        return torch.gather(src, -1, idx.expand(src.shape[:-1]
+                                                + idx.shape[-1:]))
+
+    B = a1t.transpose(-3, -2)                         # [c, b, j]
     ga = g2a.to(torch.int64)
-    C1 = torch.where(ga >= 0, torch.gather(B, 2, ga.clamp(min=0)), zero)
-    C1T = C1.transpose(1, 2)[:, :W2]                  # [c, w, b]
+    C1 = torch.where(ga >= 0, take(B, ga.clamp(min=0)), zero)
+    C1T = C1.transpose(-2, -1)[..., :W2, :]           # [c, w, b]
     gb = g2b[:, :, :D2R].to(torch.int64)              # [c, w, d]
     D1 = torch.where((gb >= 0) & (gb < A2R),
-                     torch.gather(C1T, 2, gb.clamp(0, A2R - 1)), zero)
-    D1T = D1.transpose(1, 2)                          # [c, d, w]
+                     take(C1T, gb.clamp(0, A2R - 1)), zero)
+    D1T = D1.transpose(-2, -1)                        # [c, d, w]
     gc = g2c.to(torch.int64)                          # [c, d, l]
     return torch.where((gc >= 0) & (gc < W2),
-                       torch.gather(D1T, 2, gc.clamp(0, W2 - 1)), zero)
+                       take(D1T, gc.clamp(0, W2 - 1)), zero)
 
 
 def k2(a1t, g2a, g2b, g2c, W2: int, D2R: int):
+    """K2 for one route instance; a k-batched ``a1t`` (kb, A2R, 128, 128)
+    runs the ``_kb`` kernel, which reads the wires once for all kb
+    columns."""
     _value_dtype("a1t", a1t)
-    A2R = a1t.shape[0]
+    kb = _batch("a1t", a1t, 3)
+    A2R = a1t.shape[-3]
     dev = a1t.device
     if not 1 <= A2R <= L or not 1 <= W2 <= L or not 1 <= D2R <= L:
         raise ValueError(f"k2: A2R={A2R}, W2={W2}, D2R={D2R} outside 1..128")
-    _check("a1t", a1t, None, (A2R, L, L), dev)
+    _check("a1t", a1t, None, a1t.shape[:-3] + (A2R, L, L), dev)
     _check("g2a", g2a, torch.int8, (L, A2R, L), dev)
     _check("g2b", g2b, torch.int8, (L, W2, L), dev)
     _check("g2c", g2c, torch.int8, (L, D2R, L), dev)
     if _route(dev) == "cpu":
         return k2_plain(a1t, g2a, g2b, g2c, W2, D2R)
-    out = torch.empty((L, D2R, L), dtype=a1t.dtype, device=dev)
-    _launch("k2", a1t.dtype, a1t.data_ptr(), g2a.data_ptr(),
-            g2b.data_ptr(), g2c.data_ptr(), out.data_ptr(), A2R, W2, D2R,
-            _stream(dev))
+    out = torch.empty(a1t.shape[:-3] + (L, D2R, L), dtype=a1t.dtype,
+                      device=dev)
+    args = [a1t.data_ptr(), g2a.data_ptr(), g2b.data_ptr(), g2c.data_ptr(),
+            out.data_ptr(), A2R, W2, D2R]
+    if kb:
+        _launch("k2_kb", a1t.dtype, *args, kb, _stream(dev))
+    else:
+        _launch("k2", a1t.dtype, *args, _stream(dev))
     return out
 
 
@@ -1160,12 +1196,18 @@ def k2(a1t, g2a, g2b, g2c, W2: int, D2R: int):
 # ---------------------------------------------------------------------------
 
 def _shifted(x, o: int, n: int, nx: int):
-    """``w[r] = x[r + o]`` for r in [0, n), 0 where ``r + o`` is outside
-    [0, nx)."""
+    """``w[..., r] = x[..., r + o]`` for r in [0, n), 0 where ``r + o`` is
+    outside [0, nx)."""
     lo = max(0, -o)
     start = o + lo
-    xp = F.pad(x[:nx], (lo, max(0, start + n - (nx + lo))))
-    return xp[start: start + n]
+    xp = F.pad(x[..., :nx], (lo, max(0, start + n - (nx + lo))))
+    return xp[..., start: start + n]
+
+
+def _k3_ref(e1s, xb, xrb):
+    """The first value operand of a K3 call, which sets its dtype, device
+    and batch."""
+    return next((t for t in (xb, xrb, *e1s) if t is not None), None)
 
 
 def k3_plain(e1s, g3s, dv, dia_offsets, adv, anti_offsets, xb, xrb,
@@ -1173,20 +1215,26 @@ def k3_plain(e1s, g3s, dv, dia_offsets, adv, anti_offsets, xb, xrb,
     """``y[i,p,l] = sum_inst sum_k E1[g3[i,k,p,l], i, p]`` (0 where the wire
     is negative) ``+ sum_d dv[i,d,p,l] * x[row + o_d]`` ``+ sum_a
     adv[i,a,p,l] * xr[row + o'_a]``, in the Pallas kernel's order
-    (``fused.py:_build_k3``).  Returns (D2R, 128, 128)."""
-    ref = next(t for t in (xb, xrb, *e1s) if t is not None)
+    (``fused.py:_build_k3``).  Returns (D2R, 128, 128), or (kb, D2R, 128,
+    128) for k-batched E1s (kb, 128, D2R, 128) and x blocks (kb, nb, 128,
+    128), column by column the same sums."""
+    ref = _k3_ref(e1s, xb, xrb)
+    lead = ref.shape[:-3] if ref.dim() == 4 else ()
     zero = torch.zeros((), dtype=ref.dtype, device=ref.device)
-    total = torch.zeros((D2R, L, L), dtype=ref.dtype, device=ref.device)
+    total = torch.zeros(lead + (D2R, L, L), dtype=ref.dtype,
+                        device=ref.device)
     for e1, g3 in zip(e1s, g3s):
-        E2 = e1.permute(1, 2, 0)                      # [i, p, c]
+        E2 = e1.movedim(-3, -1)                       # [i, p, c]
         for k in range(g3.shape[1]):
             idx = g3[:, k].to(torch.int64)
             total = total + torch.where(
-                idx >= 0, torch.gather(E2, 2, idx.clamp(min=0)), zero)
+                idx >= 0, torch.gather(E2, -1, idx.clamp(min=0)
+                                       .expand(total.shape)), zero)
     n = D2R * TILE3
     for xs, offs, vals in ((xb, dia_offsets, dv), (xrb, anti_offsets, adv)):
         for d, o in enumerate(offs):
-            w = _shifted(xs.reshape(-1), int(o), n, ncols).view(D2R, L, L)
+            w = _shifted(xs.reshape(lead + (-1,)), int(o), n,
+                         ncols).view(lead + (D2R, L, L))
             total = total + vals[:, d] * w
     return total
 
@@ -1206,17 +1254,21 @@ def k3(e1s, g3s, dv, dia_offsets, adv, anti_offsets, xb, xrb,
     ``dv`` (D2R, D, 128, 128) with static ``dia_offsets``; ``adv`` likewise
     with ``anti_offsets`` already rebased to the reversed-x frame; ``xb`` /
     ``xrb`` the x / reversed-x blocks (``_to_blocks``), read as 0 outside
-    [0, ncols)."""
+    [0, ncols).  k-batched E1s (kb, 128, D2R, 128) and x blocks (kb, nb,
+    128, 128) give (kb, D2R, 128, 128) from the ``_kb`` kernel, which reads
+    g3, dv and adv once for all kb columns."""
     if len(e1s) != len(g3s) or len(e1s) > MAX_INSTANCES:
         raise ValueError(f"k3: {len(e1s)} E1 / {len(g3s)} g3 operands "
                          f"(at most {MAX_INSTANCES} instances)")
-    ref = next((t for t in (xb, xrb, *e1s) if t is not None), None)
+    ref = _k3_ref(e1s, xb, xrb)
     if ref is None:
         raise ValueError("k3: nothing to combine")
     _value_dtype("k3 operands", ref)
     dev, dt = ref.device, ref.dtype
+    kb = _batch("k3 operands", ref, 3)
+    lead = ref.shape[:1] if kb else ()
     for e1, g3 in zip(e1s, g3s):
-        _check("e1", e1, dt, (L, D2R, L), dev)
+        _check("e1", e1, dt, lead + (L, D2R, L), dev)
         _check("g3", g3, torch.int8, None, dev)
         if g3.dim() != 4 or g3.shape[0] != D2R or g3.shape[2:] != (L, L):
             raise ValueError(f"g3: shape {tuple(g3.shape)}, expected "
@@ -1226,13 +1278,16 @@ def k3(e1s, g3s, dv, dia_offsets, adv, anti_offsets, xb, xrb,
         if offs:
             _check(name, vals, dt, (D2R, len(offs), L, L), dev)
             _check(name + " x", xs, dt, None, dev)
-            if xs.numel() < ncols:
-                raise ValueError(f"{name}: x blocks hold {xs.numel()} < "
-                                 f"ncols={ncols} values")
+            if xs.dim() != len(lead) + 3 or xs.shape[:len(lead)] != lead:
+                raise ValueError(f"{name}: x blocks of shape "
+                                 f"{tuple(xs.shape)} for a batch {lead}")
+            if xs[(0,) * len(lead)].numel() < ncols:
+                raise ValueError(f"{name}: x blocks hold fewer than "
+                                 f"ncols={ncols} values a column")
     if _route(dev) == "cpu":
         return k3_plain(e1s, g3s, dv, dia_offsets, adv, anti_offsets, xb,
                         xrb, ncols, D2R)
-    y = torch.empty((D2R, L, L), dtype=dt, device=dev)
+    y = torch.empty(lead + (D2R, L, L), dtype=dt, device=dev)
     Ks = (ctypes.c_int * MAX_INSTANCES)(*[g.shape[1] for g in g3s])
     nd, na = len(dia_offsets), len(anti_offsets)
     doff = _offsets_tensor(tuple(dia_offsets), str(dev)) if nd else None
@@ -1241,11 +1296,15 @@ def k3(e1s, g3s, dv, dia_offsets, adv, anti_offsets, xb, xrb,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    _launch("k3", dt, _ptr_array(e1s), _ptr_array(g3s), Ks, len(e1s),
+    args = [_ptr_array(e1s), _ptr_array(g3s), Ks, len(e1s),
             ptr(dv) if nd else None, ptr(doff), nd,
             ptr(adv) if na else None, ptr(aoff), na,
             ptr(xb) if nd else None, ptr(xrb) if na else None, ncols, D2R,
-            y.data_ptr(), _stream(dev))
+            y.data_ptr()]
+    if kb:
+        # values per column of the x and reversed-x blocks
+        args += [kb, xb[0].numel() if nd else 0, xrb[0].numel() if na else 0]
+    _launch("k3_kb" if kb else "k3", dt, *args, _stream(dev))
     return y
 
 
@@ -1253,13 +1312,17 @@ def k3(e1s, g3s, dv, dia_offsets, adv, anti_offsets, xb, xrb,
 # glue (same names and static metas as sparsex_tpu/ops/fused.py)
 # ---------------------------------------------------------------------------
 
+# The glue takes x as a vector (ncols,) for the SpMV or k-major (k, ncols),
+# k <= MAX_KB, for the SpMM, as the reference's does: every operand and
+# result then carries the same leading k axis (``...`` below).
+
 def _to_blocks(x):
     """x (n,) -> ((nb, 128, 128) blocks, nb); zero-pads only when ragged
-    (``fused.py:1568``)."""
-    n = x.shape[0]
+    (``fused.py:1568``).  k-major x (k, n) gives (k, nb, 128, 128)."""
+    n = x.shape[-1]
     nb = max(-(-n // TILE3), 1)
     xp = F.pad(x, (0, nb * TILE3 - n)) if nb * TILE3 != n else x
-    return xp.reshape(nb, L, L), nb
+    return xp.reshape(x.shape[:-1] + (nb, L, L)), nb
 
 
 def k1_window(q: int, npages: int, style: str) -> Tuple[int, int]:
@@ -1277,51 +1340,52 @@ def k1_window(q: int, npages: int, style: str) -> Tuple[int, int]:
 def _k1_x2(x, ncols: int, q: int, npages: int, style: str, x2):
     """The page grid a K1 part of ``style`` reads; reuses a caller-shared
     grid when it is large enough and a multiple of the window's alignment
-    (``fused.py:1591``)."""
+    (``fused.py:1591``).  k-major x gives a (k, npages, 8, L) grid."""
     align, npages_pad = k1_window(q, npages, style)
-    if (x2 is not None and x2.shape[0] >= npages_pad
-            and x2.shape[0] % align == 0):
+    if (x2 is not None and x2.dim() == x.dim() + 2
+            and x2.shape[-3] >= npages_pad and x2.shape[-3] % align == 0):
         return x2
     return page_grid(x, ncols, npages_pad)
 
 
 def fused_delta_a1(meta, arrays, x, ncols: int, x2=None):
     """K1 only: the delta segment's (T*8, L) routed grid, in the plan's
-    style ``meta[6]`` (``lp``, or ``sl`` where lane placement failed).
-    Hybrid plans (``meta[7]`` set, bulk and tail both ``lp``) run K1 twice
-    and re-interleave the two outputs fold-major through the static slice
-    list (``fused.py:1627``, :1647-1663)."""
+    style ``meta[6]`` (``lp``, or ``sl`` where lane placement failed);
+    (k, T*8, L) for k-major x.  Hybrid plans (``meta[7]`` set, bulk and
+    tail both ``lp``) run K1 twice and re-interleave the two outputs
+    fold-major through the static slice list (``fused.py:1627``,
+    :1647-1663)."""
     T, q, npages = meta[:3]
     style = meta[6] if len(meta) > 6 else "sl"
     pm = meta[7] if len(meta) > 7 else None
     k1_style(style)
-    if x.dim() != 1:
-        raise NotImplementedError("k-batched (SpMM) K1 is not ported yet; "
-                                  "see ROADMAP.md Queue 2, item 6")
+    lead = x.shape[:-1]
     if pm is None:
         x2 = _k1_x2(x, ncols, q, npages, style, x2)
         a1 = k1(arrays["plo"], arrays["mg"], arrays["vals"], x2, q, style)
-        return a1.reshape(T * 8, L)
+        return a1.reshape(lead + (T * 8, L))
     (T2, q2, npages2, style2), inter = pm
     k1_style(style2)
     # one shared page grid, aligned for the LARGER window
     x2 = _k1_x2(x, ncols, max(q, q2), max(npages, npages2), "lp", x2)
     a1a = k1(arrays["plo"], arrays["mg"], arrays["vals"], x2, q, style)
     a1b = k1(arrays["plo2"], arrays["mg2"], arrays["vals2"], x2, q2, style2)
-    segs = [(a1a if pid == 0 else a1b)[lo:hi] for pid, lo, hi in inter]
-    a1 = torch.cat(segs) if len(segs) > 1 else segs[0]
-    return a1.reshape(-1, L)
+    segs = [(a1a if pid == 0 else a1b)[..., lo:hi, :, :]
+            for pid, lo, hi in inter]
+    a1 = torch.cat(segs, dim=-3) if len(segs) > 1 else segs[0]
+    return a1.reshape(lead + (-1, L))
 
 
 def _e1s_from_a1(inst, arrays, A1, D2R: int):
-    """Per-instance T1 + K2 over slices of the A1 grid: the instance's rows
-    ``a0:a1``, zero-padded from S1c to S1p (``fused.py:777``).  Returns the
-    ``(e1, g3, K, um3)`` list for :func:`k3_combine`."""
+    """Per-instance T1 + K2 over slices of the A1 grid (S, L), or k-major
+    (k, S, L): the instance's rows ``a0:a1``, zero-padded from S1c to S1p
+    (``fused.py:777``).  Returns the ``(e1, g3, K, um3)`` list for
+    :func:`k3_combine`."""
     out = []
     for i, meta_i in enumerate(inst):
         S1c, S1p, A2R, _D2Ri, _Dp, K, W2, a0, a1 = meta_i[:9]
         um = meta_i[9] if len(meta_i) > 9 else 0
-        Ai = A1[a0:a1]
+        Ai = A1[..., a0:a1, :]
         if S1p != S1c:
             Ai = F.pad(Ai, (0, 0, 0, S1p - S1c))
         A1T = t1(Ai.contiguous(), A2R)
@@ -1340,15 +1404,12 @@ def fused_delta_e1s(meta, arrays, x, ncols: int, nrows_part: int, x2=None):
 
 def fused_run_a1(meta, arrays, x, ncols: int, x2=None):
     """K1 (style ``rlp{W}`` or ``run{W}``) only: the run segment's (T*8, L)
-    grid (``fused.py:764``); ``meta = (T, q, npages, inst, n_res,
-    style)``."""
+    grid, (k, T*8, L) for k-major x (``fused.py:764``); ``meta = (T, q,
+    npages, inst, n_res, style)``."""
     T, q, npages = meta[:3]
-    if x.dim() != 1:
-        raise NotImplementedError("k-batched (SpMM) K1 is not ported yet; "
-                                  "see ROADMAP.md Queue 2, item 6")
     x2 = _k1_x2(x, ncols, q, npages, meta[5], x2)
     a1 = k1(arrays["plo"], arrays["mg"], arrays["vals"], x2, q, meta[5])
-    return a1.reshape(T * 8, L)
+    return a1.reshape(x.shape[:-1] + (T * 8, L))
 
 
 def fused_run_e1s(meta, arrays, x, ncols: int, nrows_part: int, x2=None):
@@ -1359,15 +1420,16 @@ def fused_run_e1s(meta, arrays, x, ncols: int, nrows_part: int, x2=None):
 
 def merged_e1s(inst_meta, arrays, src_global, nrows_part: int):
     """Per-instance G1 + T1 + K2 over the concatenated RAW source grid
-    (S, L) of every fused segment (``fused.py:882``).  G1 is the lane
-    gather, run per instance: merged instances may overlap in source rows
-    and colour them independently, so their G1 wires are never unioned."""
+    (S, L), or k-major (k, S, L), of every fused segment
+    (``fused.py:882``).  G1 is the lane gather, run per instance: merged
+    instances may overlap in source rows and colour them independently, so
+    their G1 wires are never unioned."""
     D2R = _d2r(nrows_part)
     out = []
     for i, meta_i in enumerate(inst_meta):
         S1c, S1p, A2R, _D2Ri, _Dp, K, W2, a0, a1 = meta_i[:9]
         um = meta_i[9] if len(meta_i) > 9 else 0
-        Si = src_global[a0:a1]
+        Si = src_global[..., a0:a1, :]
         if S1p != S1c:
             Si = F.pad(Si, (0, 0, 0, S1p - S1c))
         A1 = route.lane_gather(Si.contiguous(), arrays[f"g1_{i}"][None])
@@ -1382,7 +1444,8 @@ def k3_combine(e1_g3, dia_pack, x, nrows_part: int, ncols: int):
     """One K3 over every routed instance + every DIA table: y written once
     (``fused.py:1774``).  More than MAX_INSTANCES instances split into
     several K3 calls, the first carrying the DIA tables; anti-diagonal
-    offsets ``s`` rebase to ``ncols-1-s`` over the reversed x."""
+    offsets ``s`` rebase to ``ncols-1-s`` over the reversed x.  k-major x
+    (k, ncols) with k-major E1s gives (k, nrows_part)."""
     if len(e1_g3) > MAX_INSTANCES:
         head = k3_combine(e1_g3[:MAX_INSTANCES], dia_pack, x, nrows_part,
                           ncols)
@@ -1393,37 +1456,43 @@ def k3_combine(e1_g3, dia_pack, x, nrows_part: int, ncols: int):
     D2R = _d2r(nrows_part)
     xb = _to_blocks(x)[0] if dia_offsets else None
     if anti_offsets:
-        xrb = _to_blocks(torch.flip(x, (0,)))[0]
+        xrb = _to_blocks(torch.flip(x, (-1,)))[0]
         anti_rebased = tuple(ncols - 1 - s for s in anti_offsets)
     else:
         xrb, anti_rebased = None, ()
     y3 = k3([e for e, _, _, _ in e1_g3], [g for _, g, _, _ in e1_g3],
             dv, tuple(dia_offsets), adv, anti_rebased, xb, xrb, ncols, D2R)
-    acc = y3.reshape(-1)
-    return acc[:nrows_part] if acc.shape[0] != nrows_part else acc
+    acc = y3.reshape(x.shape[:-1] + (-1,))
+    return acc[..., :nrows_part] if acc.shape[-1] != nrows_part else acc
 
 
 def add_totals(acc, totals, dest):
     """``acc[dest] += totals`` in place, destinations outside [0, len(acc))
-    dropped — the reference's ``.at[dest].add(..., mode="drop")``."""
-    n = acc.shape[0]
+    dropped — the reference's ``.at[dest].add(..., mode="drop")``.  A
+    k-major acc (k, n) takes (k, m) totals along its last axis."""
+    n = acc.shape[-1]
     ok = (dest >= 0) & (dest < n)
     totals = torch.where(ok, totals, torch.zeros((), dtype=totals.dtype,
                                                   device=totals.device))
-    return acc.index_add_(0, dest.clamp(0, n - 1), totals)
+    return acc.index_add_(acc.dim() - 1, dest.clamp(0, n - 1), totals)
 
 
 def add_products(acc, vals, cols, dest, x, ncols: int):
     """``acc[dest] += vals * x[cols]`` in place, columns clamped to
-    [0, ncols) (the reference's ``take(mode="clip")``)."""
-    return add_totals(acc, vals * x[cols.clamp(0, ncols - 1)], dest)
+    [0, ncols) (the reference's ``take(mode="clip")``); k-major x and acc
+    take the same products column by column."""
+    return add_totals(acc, vals * x[..., cols.clamp(0, ncols - 1)], dest)
 
 
 # the CUDA kernels whose launches ``launches`` counts (K1 under one key
 # per style family: lp, rlp{W}, sl, run{W}; the lane gather is launched
-# from ``ops/route.py``, the last three from ``ops/pallas_kernels.py``)
+# from ``ops/route.py``, dia / delta_pages / paged_gather from
+# ``ops/pallas_kernels.py``), then the k-batched (SpMM) variants, each
+# under its kernel's key + ``_kb``
+KB_KERNELS = ("k1_kb", "k1_rlp_kb", "k1_sl_kb", "k1_run_kb", "t1_kb",
+              "k2_kb", "k3_kb", "lane_gather_kb")
 KERNELS = ("k1", "k1_rlp", "k1_sl", "k1_run", "t1", "k2", "k3",
-           "lane_gather", "dia", "delta_pages", "paged_gather")
+           "lane_gather", "dia", "delta_pages", "paged_gather") + KB_KERNELS
 
 
 def launch_counts() -> Dict[str, int]:
@@ -1437,4 +1506,5 @@ __all__: List[str] = [
     "t1_plain", "k2", "k2_plain", "k3", "k3_plain", "k3_combine", "fused_delta_a1",
     "fused_delta_e1s", "fused_run_a1", "fused_run_e1s", "merged_e1s",
     "add_products", "add_totals", "launches", "launch_counts", "KERNELS",
+    "KB_KERNELS", "MAX_KB",
 ]

@@ -27,6 +27,12 @@ end:
 - the shared K3 with the ``k3dias`` DIA tables, then the ``k3_post`` adds
   (:718-734).
 
+A k-major x (k, ncols) runs the same composition with every kernel in its
+k-batched variant (``fused_mm_ok`` / ``fused_mm_contrib``,
+kernels.py:739-916): plans with a fused segment only, no paged delta or
+standalone DIA table; a paged run or block table's units are gathered by
+a clipped take there, as the reference's SpMM does.
+
 Every other table class or extra raises ``NotImplementedError`` naming the
 ROADMAP.md queue item that ports it; nothing runs silently by another
 route.  ``static_meta`` and ``tables_to_arrays`` are the port's copies of
@@ -41,7 +47,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from sparsex_tpu_torch.ops.fused import (add_products, add_totals,
+from sparsex_tpu_torch.ops.fused import (MAX_KB, add_products, add_totals,
                                          fused_delta_a1, fused_delta_e1s,
                                          fused_run_a1, fused_run_e1s,
                                          k1_style, k3_combine, merged_e1s)
@@ -181,8 +187,9 @@ def _steps(width: int, step: int, device: str):
 
 def _unit_totals(vals2d, cols_u, steps, x, ncols: int):
     """Per-unit run totals ``sum_j vals2d[u, j] * x[cols_u[u] + steps[j]]``,
-    columns clamped to [0, ncols)."""
-    return (vals2d * x[(cols_u[:, None] + steps).clamp(0, ncols - 1)]).sum(1)
+    columns clamped to [0, ncols); (k, U) for k-major x."""
+    return (vals2d * x[..., (cols_u[:, None] + steps).clamp(
+        0, ncols - 1)]).sum(-1)
 
 
 def _run_steps(entry, device):
@@ -254,10 +261,11 @@ def _gather_units(t, entry, cols_u, steps, x, ncols: int, x2):
     """(U, width) x values of a run or block table (kernels.py:471-491):
     through the unit-page gather for the pageable prefix of a paged table
     (its units reordered by the planner), a clipped take for the rest and
-    for a plain table."""
+    for a plain table.  k-major x (k, ncols) gives (k, U, width) by the
+    clipped take alone, as the reference's SpMM does (kernels.py:855)."""
     plan_sig = entry[3] if len(entry) > 3 else None
-    if plan_sig is None or "plan" not in t:
-        return x[(cols_u[:, None] + steps).clamp(0, ncols - 1)]
+    if plan_sig is None or "plan" not in t or x.dim() == 2:
+        return x[..., (cols_u[:, None] + steps).clamp(0, ncols - 1)]
     T, _q, g, _npages = plan_sig
     xg = paged_gather(plan_sig, t["plan"], x, ncols, steps.shape[0], x2=x2)
     U = cols_u.shape[0]
@@ -272,7 +280,7 @@ def merged_source(meta, arrs, x, ncols: int, x2f):
     K1 output (the delta bulk and tail, or a fused run table), trimmed to
     its bound width (K1 outputs are padded to whole tile groups; the plan's
     bounds use the unpadded grids), concatenated in the plan's segment
-    order (kernels.py:684-691)."""
+    order (kernels.py:684-691); (k, S, L) for k-major x."""
     extras = {e[0]: e[1:] for e in meta[5:] if e}
     segs, _inst, bounds, _res = extras["fall"]
     fall_pieces = []
@@ -283,8 +291,39 @@ def merged_source(meta, arrs, x, ncols: int, x2f):
         else:
             a1 = fused_run_a1(meta[2][seg[1]][5][1],
                               arrs["runs"][seg[1]]["frun"], x, ncols, x2=x2f)
-        fall_pieces.append(a1[: bounds[i + 1] - bounds[i]])
-    return torch.cat(fall_pieces) if len(fall_pieces) > 1 else fall_pieces[0]
+        fall_pieces.append(a1[..., : bounds[i + 1] - bounds[i], :])
+    return (torch.cat(fall_pieces, dim=-2) if len(fall_pieces) > 1
+            else fall_pieces[0])
+
+
+def fused_mm_ok(meta) -> bool:
+    """Whether :func:`fused_mm_contrib` covers this paged meta
+    (kernels.py:739): at least one fused segment (the k-batched kernels
+    exist for them), and no fblk or legacy paged delta segment (those run
+    the SpMV once per column)."""
+    run_meta, block_meta = meta[2], meta[3]
+    extras = {e[0] for e in meta[5:] if e}
+    has_fused = ("dfused" in extras
+                 or any(_kind(e) == "frun" for e in run_meta))
+    if not has_fused:
+        return False
+    if any(_kind(e) == "fblk" for e in block_meta):
+        return False
+    return "dpages" not in extras and "dscatter" not in extras
+
+
+def fused_mm_contrib(meta, arrs, xt, *, nrows_part: int, ncols: int):
+    """k-major SpMM over the fused pipeline (kernels.py:758): ``xt`` (k,
+    ncols), k <= MAX_KB, gives (k, nrows_part).  It is
+    :func:`local_contrib` on the k-major x: every kernel runs its
+    k-batched variant, which reads the plan's metadata once for the k
+    columns; the residual, tail and plain tables run k-major torch glue
+    (gathers along the last axis, batched ``index_add_`` along axis 1).
+    Caller gate: :func:`fused_mm_ok`."""
+    if xt.dim() != 2 or not 1 <= xt.shape[0] <= MAX_KB:
+        raise ValueError(f"xt: shape {tuple(xt.shape)}, expected (k, "
+                         f"{ncols}) with 1 <= k <= {MAX_KB}")
+    return local_contrib(meta, arrs, xt, nrows_part=nrows_part, ncols=ncols)
 
 
 def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int):
@@ -293,10 +332,12 @@ def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int):
     either their per-segment T1 + K2 route instances or the merged plan's
     (per-instance G1 lane gather + T1 + K2); the standalone DIA tables and
     the paged delta stream; the plain and paged tables' adds; one K3 with
-    the DIA tables that ride it, then the residual and spill adds."""
-    if x.dim() != 1:
-        _refuse("this call (only the 1-D SpMV is ported)",
-                "Queue 1 item 9 (SpMM)" if x.dim() == 2 else "Queue 1")
+    the DIA tables that ride it, then the residual and spill adds.  A
+    k-major x (k, ncols) of a :func:`fused_mm_ok` plan gives (k,
+    nrows_part) through the same composition (:func:`fused_mm_contrib`)."""
+    if x.dim() not in (1, 2):
+        raise ValueError(f"x: shape {tuple(x.shape)} is neither (ncols,) nor "
+                         "k-major (k, ncols)")
     run_meta = meta[2]
     extras = {e[0]: e[1:] for e in meta[5:] if e}
     dfused = extras.get("dfused")
@@ -307,8 +348,13 @@ def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int):
     acc = None            # the plain tables' adds, made before K3
 
     def zeros():
-        return torch.zeros(nrows_part, dtype=x.dtype, device=x.device)
+        return torch.zeros(x.shape[:-1] + (nrows_part,), dtype=x.dtype,
+                           device=x.device)
 
+    lead = x.shape[:-1]   # () for the SpMV, (k,) for k-major x
+    if lead and not fused_mm_ok(meta):
+        raise ValueError("k-major x needs a plan with a fused segment and no "
+                         "segment that runs once per column (fused_mm_ok)")
     x2f = shared_page_grid(meta, x, ncols)
     if fall is not None:  # every fused segment's K1 feeds the merged plan
         k3_pending += merged_e1s(fall[1], arrs["fall"],
@@ -370,11 +416,11 @@ def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int):
         contrib = t["vals"] * _gather_units(t, entry, t["cols"], steps, x,
                                             ncols, x2)
         if rstep == 0:     # horizontal: one partial per unit
-            add_totals(acc, contrib.sum(1), t["rows"])
+            add_totals(acc, contrib.sum(-1), t["rows"])
         else:              # one destination row per element
             ridx = (t["rows"][:, None] + _steps(entry[2], rstep, str(
                 x.device))).clamp(0, nrows_part - 1)
-            add_totals(acc, contrib.reshape(-1), ridx.reshape(-1))
+            add_totals(acc, contrib.reshape(lead + (-1,)), ridx.reshape(-1))
 
     for entry, t in zip(meta[3], arrs["blocks"]):
         if _kind(entry) == "cvt":  # a pseudo-run table in the run loop
@@ -386,10 +432,10 @@ def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int):
         _enc, br, bc = entry[:3]
         xg = _gather_units(t, entry, t["cols"], _steps(bc, 1, str(x.device)),
                            x, ncols, x2)
-        contrib = (t["vals"] * xg[:, None, :]).sum(2)
+        contrib = (t["vals"] * xg.unsqueeze(-2)).sum(-1)
         ridx = (t["rows"][:, None] + _steps(br, 1, str(x.device))).clamp(
             0, nrows_part - 1)
-        add_totals(acc, contrib.reshape(-1), ridx.reshape(-1))
+        add_totals(acc, contrib.reshape(lead + (-1,)), ridx.reshape(-1))
 
     if fall is not None:  # the merged plan's residuals (its e1s are queued)
         fa = arrs["fall"]
@@ -422,6 +468,6 @@ def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int):
     return acc
 
 
-__all__ = ["check_slice", "dia_contrib", "dia_tables", "local_contrib",
-           "merged_source", "paged_grid", "shared_page_grid", "static_meta",
-           "tables_to_arrays"]
+__all__ = ["check_slice", "dia_contrib", "dia_tables", "fused_mm_contrib",
+           "fused_mm_ok", "local_contrib", "merged_source", "paged_grid",
+           "shared_page_grid", "static_meta", "tables_to_arrays"]

@@ -375,10 +375,12 @@ def gather(plo, sl, x2, q: int):
 
 
 def page_grid(x, ncols: int, npages: int):
-    """x as an (npages, 8, L) page grid, zero-padded past ``ncols``."""
+    """x as an (npages, 8, L) page grid, zero-padded past ``ncols``; a
+    k-major x (k, ncols) gives (k, npages, 8, L)."""
+    shape = x.shape[:-1] + (npages, 8, L)
     if npages * PAGE == ncols:
-        return x.reshape(npages, 8, L)
-    return F.pad(x[:ncols], (0, npages * PAGE - ncols)).reshape(npages, 8, L)
+        return x.reshape(shape)
+    return F.pad(x[..., :ncols], (0, npages * PAGE - ncols)).reshape(shape)
 
 
 def pad_x_pages(x, ncols: int, q: int, npages: int):

@@ -21,8 +21,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from sparsex_tpu_torch.ops._launch import (L, _check, _launch, _route,
-                                           _stream, _value_dtype)
+from sparsex_tpu_torch.ops._launch import (L, _batch, _check, _launch,
+                                           _route, _stream, _value_dtype)
 
 # ---------------------------------------------------------------------------
 # the planner (copied from sparsex_tpu/ops/route.py:45-421)
@@ -414,24 +414,28 @@ def apply_scatter_plan_np(metas, arrays, src: np.ndarray,
 
 def lane_gather_plain(x, idx):
     """``out[r, j] = sum_k (idx[k,r,j] >= 0 ? x[r, idx[k,r,j]] : 0)``, summed
-    from 0 in wire order (``route.py:_build_lane_gather``)."""
+    from 0 in wire order (``route.py:_build_lane_gather``); a k-batched x
+    (kb, R, 128) takes the same wires in every column."""
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     acc = torch.zeros_like(x)
     for k in range(idx.shape[0]):
         w = idx[k].to(torch.int64)
-        acc = acc + torch.where(w >= 0, torch.gather(x, 1, w.clamp(min=0)),
-                                zero)
+        acc = acc + torch.where(w >= 0, torch.gather(
+            x, -1, w.clamp(min=0).expand(x.shape)), zero)
     return acc
 
 
 def lane_gather(x, idx):
     """The lane gather of ``x`` (R, 128) through ``idx`` (K, R, 128) int8
-    wires; returns (R, 128)."""
+    wires; returns (R, 128).  A k-batched x (kb, R, 128), kb <= MAX_KB,
+    runs the ``_kb`` kernel, which reads the wires once for all kb
+    columns."""
     _value_dtype("x", x)
-    if x.dim() != 2 or x.shape[1] != L:
+    kb = _batch("x", x, 2)
+    if x.shape[-1] != L:
         raise ValueError(f"x: shape {tuple(x.shape)}, expected (R, {L})")
     _check("x", x)
-    R = x.shape[0]
+    R = x.shape[-2]
     if idx.dim() != 3 or idx.shape[0] < 1:
         raise ValueError(f"idx: shape {tuple(idx.shape)}, expected "
                          f"(K, {R}, {L}) with K >= 1")
@@ -439,8 +443,11 @@ def lane_gather(x, idx):
     if _route(x.device) == "cpu":
         return lane_gather_plain(x, idx)
     out = torch.empty_like(x)
-    _launch("lane_gather", x.dtype, x.data_ptr(), idx.data_ptr(),
-            out.data_ptr(), R, idx.shape[0], _stream(x.device))
+    args = [x.data_ptr(), idx.data_ptr(), out.data_ptr(), R, idx.shape[0]]
+    if kb:
+        _launch("lane_gather_kb", x.dtype, *args, kb, _stream(x.device))
+    else:
+        _launch("lane_gather", x.dtype, *args, _stream(x.device))
     return out
 
 

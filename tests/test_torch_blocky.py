@@ -431,8 +431,8 @@ def test_plan_to_torch_blocky_arrays(small_thresholds, monkeypatch):
 
 def test_check_slice_refuses_the_run8_plan(small_thresholds, monkeypatch):
     """The sparse-run matrix plans the dense-tile run8 style, which the
-    port now runs (against the COO oracle); what it still refuses on that
-    plan is SpMM, naming its queue item."""
+    port now runs (against the COO oracle), its SpMM too: a 2-column X gives
+    the oracle's result, where it was refused before SpMM was ported."""
     _thresholds(monkeypatch, MIN_PAGE_NNZ=1024)
     n, rows, cols, vals = _merged_matrix(np.float32, n_runs=2000)
     ex, port = _tune(n, rows, cols, vals)
@@ -443,8 +443,11 @@ def test_check_slice_refuses_the_run8_plan(small_thresholds, monkeypatch):
     want = _oracle(n, rows, cols, vals, x)
     got = port(x).double().numpy()
     assert np.abs(got - want).max() / np.abs(want).max() < 1e-5
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        port(np.ones((n, 2), np.float32))
+    X = np.stack([x, np.ones(n, np.float32)], axis=1)
+    got2 = port(X).double().numpy()
+    want2 = np.stack([want, _oracle(n, rows, cols, vals, X[:, 1])], axis=1)
+    assert got2.shape == (n, 2)
+    assert np.abs(got2 - want2).max() / np.abs(want2).max() < 1e-5
 
 
 _DF = ("dfused", (8, 4, 32, (), 0, 0, "lp"))

@@ -9,7 +9,10 @@ not installed; there, skip the JAX-based ``tests/conftest.py``:
 K1 (styles lp, rlp{W}, sl and run{W}), T1, K2, the lane gather, the DIA
 kernel, the delta-pages product and the unit-page gather must equal their
 plain versions bit for bit; K3 must agree to 1e-6 of the largest value
-(both sum in the same order, without FMA).
+(both sum in the same order, without FMA).  The k-batched (SpMM) variants
+of K1, T1, K2, K3 and the lane gather, at kb = 1, 3 and 8, must equal
+their plain versions the same way, and each column c the kb = 0 kernel on
+column c.
 """
 
 import numpy as np
@@ -324,3 +327,155 @@ def test_api_cuda_paged_matches_cpu(dev, monkeypatch, build, n, kernels,
     monkeypatch.setattr(troute, "MIN_ELEMS", 1 << 30)
     _api_cuda_vs_cpu(getattr(chip_smoke, build), n, dtype, kernels,
                      **{"spx.tpu.min_fused_nnz": str(1 << 30)})
+
+
+# ---------------------------------------------------------------------------
+# the k-batched (SpMM) variants
+# ---------------------------------------------------------------------------
+
+def _launched(key, fn):
+    """``fn()``'s result, asserting one launch under ``key``."""
+    before = tf.launches[key]
+    out = fn()
+    torch.cuda.synchronize()
+    assert tf.launches[key] == before + 1
+    return out
+
+
+def _columns_equal(batched, per_column):
+    for c, want in enumerate(per_column):
+        assert torch.equal(batched[c], want), f"column {c}"
+
+
+@pytest.mark.parametrize("style,q", [
+    ("lp", 1), ("lp", 4), ("lp", 32), ("rlp2", 4), ("rlp8", 1),
+    ("sl", 3), ("sl", 16), ("run16", 3), ("run128", 1)])
+@pytest.mark.parametrize("kb", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_k1_kb_cuda_matches_plain(dev, style, q, kb, dtype):
+    """Lane-placed windows of q8 pages, dense windows of q pages (offsets
+    past either read 0); (kb, npages, 8, 128) grids give (kb, T, 8, 128)."""
+    rng = np.random.default_rng(q * 31 + kb + len(style))
+    T, npages = 40, 64
+    dense = tf.k1_style(style)[0]
+    hi = min(1 << 14, q * 1024 + 512) if dense else q * 8 + 8
+    mg = _pack(rng.integers(0, hi, (T, 8, L)),
+               rng.integers(-1, L, (T, 8, L)))
+    plo = rng.integers(0, npages - q + 1 if dense else npages // q,
+                       T).astype(np.int32)
+    vals = rng.standard_normal((T, 8, L)).astype(dtype)
+    x2 = rng.standard_normal((kb, npages, 8, L)).astype(dtype)
+    args = _on(dev, plo, mg, vals, x2)
+    got = _launched(tf.k1_key(style) + "_kb",
+                    lambda: tf.k1(*args, q, style))
+    assert got.shape == (kb, T, 8, L)
+    assert torch.equal(got, tf.k1_plain(*args, q, style))
+    _columns_equal(got, [tf.k1(*args[:3], args[3][c], q, style)
+                         for c in range(kb)])
+
+
+@pytest.mark.parametrize("kb", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_t1_kb_cuda_matches_plain(dev, kb, dtype):
+    a1 = np.random.default_rng(kb).standard_normal(
+        (kb, 13 * L, L)).astype(dtype)
+    (t,) = _on(dev, a1)
+    got = _launched("t1_kb", lambda: tf.t1(t, 13))
+    assert torch.equal(got, tf.t1_plain(t, 13))
+    _columns_equal(got, [tf.t1(t[c], 13) for c in range(kb)])
+
+
+@pytest.mark.parametrize("A2R,W2,D2R,masked", [
+    (46, 128, 64, False),
+    (13, 16, 5, True),
+    (128, 64, 128, False),     # 176 KB of shared memory in f64
+])
+@pytest.mark.parametrize("kb", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_k2_kb_cuda_matches_plain(dev, A2R, W2, D2R, masked, kb, dtype):
+    rng = np.random.default_rng(A2R + kb)
+    lo = -1 if masked else 0
+    a1t = rng.standard_normal((kb, A2R, L, L)).astype(dtype)
+    g2a = rng.integers(lo, L, (L, A2R, L)).astype(np.int8)
+    g2b = rng.integers(lo, L, (L, W2, L)).astype(np.int8)
+    g2c = rng.integers(lo, L, (L, D2R, L)).astype(np.int8)
+    args = _on(dev, a1t, g2a, g2b, g2c)
+    got = _launched("k2_kb", lambda: tf.k2(*args, W2, D2R))
+    assert torch.equal(got, tf.k2_plain(*args, W2, D2R))
+    _columns_equal(got, [tf.k2(args[0][c], *args[1:], W2, D2R)
+                         for c in range(kb)])
+
+
+@pytest.mark.parametrize("n_inst,um3,dia,anti", [
+    (1, True, (-13, -1, 0, 1, 8), ()),
+    (2, False, (-20000, 300, 16390), (5, 40000)),
+    (8, True, (), (0,)),       # 64 KB of staged E1 in f64 at kb = 8
+    (3, False, (), ()),
+])
+@pytest.mark.parametrize("kb", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_k3_kb_cuda_matches_plain(dev, n_inst, um3, dia, anti, kb, dtype):
+    rng = np.random.default_rng(n_inst * 10 + kb)
+    D2R, ncols, K = 3, 40000, 2
+    e1s = _on(dev, *[rng.standard_normal((kb, L, D2R, L)).astype(dtype)
+                     for _ in range(n_inst)])
+    g3s = _on(dev, *[rng.integers(0 if um3 else -1, L, (D2R, K, L, L))
+                     .astype(np.int8) for _ in range(n_inst)])
+    dv, adv, x = _on(dev, rng.standard_normal((D2R, len(dia), L, L))
+                     .astype(dtype),
+                     rng.standard_normal((D2R, len(anti), L, L))
+                     .astype(dtype),
+                     rng.standard_normal((kb, ncols)).astype(dtype))
+    xb = tf._to_blocks(x)[0]
+    xrb = tf._to_blocks(torch.flip(x, (-1,)))[0]
+
+    def args(c=None):
+        pick = (lambda t: t) if c is None else (lambda t: t[c])
+        return ([pick(e) for e in e1s], g3s, dv, dia, adv, anti, pick(xb),
+                pick(xrb), ncols, D2R)
+
+    got = _launched("k3_kb", lambda: tf.k3(*args()))
+    want = tf.k3_plain(*args())
+    assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+    _columns_equal(got, [tf.k3(*args(c)) for c in range(kb)])
+
+
+@pytest.mark.parametrize("K,R", [(1, 4736), (3, 200)])
+@pytest.mark.parametrize("kb", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_lane_gather_kb_cuda_matches_plain(dev, K, R, kb, dtype):
+    rng = np.random.default_rng(K * 10 + kb)
+    x = rng.standard_normal((kb, R, L)).astype(dtype)
+    idx = rng.integers(-1, L, (K, R, L)).astype(np.int8)
+    xt, it = _on(dev, x, idx)
+    got = _launched("lane_gather_kb", lambda: troute.lane_gather(xt, it))
+    assert torch.equal(got, troute.lane_gather_plain(xt, it))
+    _columns_equal(got, [troute.lane_gather(xt[c].contiguous(), it)
+                         for c in range(kb)])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_api_cuda_spmm_matches_cpu(dev, dtype):
+    """The blocky slice's SpMM (k = 11: chunks of 8 and 3) on the card runs
+    only the k-batched kernels, and matches the same SpMM on the CPU."""
+    import chip_smoke
+    import sparsex_tpu_torch as spt
+
+    n, k = 1 << 18, 11
+    rows, cols, vals = chip_smoke.build_blocky_matrix(n)
+    cfg = spt.Config.reset()
+    cfg.set("spx.tpu.value_dtype", dtype)
+    cfg.set("spx.preproc.xform", "all")
+    cfg.set("spx.preproc.sampling", "portion")
+    inp = chip_smoke.csr_input(spt, rows, cols, vals, n)
+    A, B = spt.mat_tune(inp), spt.mat_tune(inp, device="cpu")
+    X = np.random.default_rng(0).standard_normal((n, k)).astype(dtype)
+    tf.launches.clear()
+    Y = spt.matmat_mult(1.0, A, X)
+    torch.cuda.synchronize()
+    counts = tf.launch_counts()
+    assert all(counts[key] == 0 for key in tf.KERNELS
+               if key not in tf.KB_KERNELS), counts
+    assert counts["k1_rlp_kb"] > 0 and counts["k3_kb"] == 2, counts
+    want = spt.matmat_mult(1.0, B, X)
+    assert (Y.cpu() - want).abs().max() <= 1e-6 * want.abs().max()

@@ -230,7 +230,7 @@ def test_api_matvec_kernel_cpu(dtype, bar):
 def test_api_errors():
     rng = np.random.default_rng(1)
     n = 8192
-    _rows, _cols, _vals, inp = _api_matrix(rng, n, 9000, "float32")
+    rows, cols, vals, inp = _api_matrix(rng, n, 9000, "float32")
     spt.Config.instance().set("spx.tpu.value_dtype", "float32")
     A = spt.mat_tune(inp, device="cpu")
     with pytest.raises(spt.SparsexError) as ei:
@@ -240,8 +240,14 @@ def test_api_errors():
         spt.matvec_kernel(1.0, A, np.ones(n, np.float32), 1.0,
                           np.ones(n - 1, np.float32))
     assert ei.value.code == spt.ErrorCode.SPX_ERR_VEC_DIM
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        spt.matvec_mult(1.0, A, np.ones((n, 2), np.float32))
+    # an (n, 2) x is an SpMM now, with the oracle's result
+    X = np.stack([np.ones(n), np.arange(n) % 7], axis=1).astype(np.float32)
+    Y = spt.matvec_mult(1.0, A, X)
+    want = np.zeros((n, 2))
+    np.add.at(want, rows, vals.astype(np.float64)[:, None]
+              * X.astype(np.float64)[cols])
+    assert Y.shape == (n, 2)
+    assert np.abs(Y.double().numpy() - want).max() / np.abs(want).max() < 1e-5
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         spt.matvec_mult(1.0, A, torch.ones(n, dtype=torch.bfloat16))
     spt.Config.instance().set("spx.matrix.symmetric", "true")

@@ -91,6 +91,13 @@ n = 1 << 18
 rows, cols, vals = cs.build_blocky_matrix(n)
 A = tune(n, rows, cols, vals)
 out["blocky"] = (extras(A), styles(A), spmv_err(A, n, rows, cols, vals, 2))
+# one SpMM (k = 3, the k-batched path of the merged plan)
+X = np.random.default_rng(6).standard_normal((n, 3)).astype(np.float32)
+Y = spx.matmat_kernel(1.0, A, X, 0.0, None, device="cpu")
+want = np.stack([np.bincount(rows, weights=vals.astype(np.float64)
+                             * X[:, j].astype(np.float64)[cols], minlength=n)
+                 for j in range(3)], axis=1)
+out["spmm"] = (list(Y.shape), cs._mixed_rel_err(Y.numpy(), want))
 
 n, rows, cols, vals = cs.hpcg_matrix(16)
 A = tune(n, rows, cols, vals.astype(np.float32),
@@ -162,6 +169,7 @@ def test_port_runs_and_refuses_without_jax():
     assert out["headline"][1] < tol
     assert out["blocky"][:2] == [["dfused", "fall"], ["rlp2", "rlp8"]]
     assert out["blocky"][2] < tol
+    assert out["spmm"][0] == [1 << 18, 3] and out["spmm"][1] < tol
     assert out["hpcg"][:3] == ["plain", True, [27]]
     assert out["hpcg"][3] < tol
     assert out["run16"][:2] == [["dfused", "fall"], ["run16"]]
