@@ -30,8 +30,15 @@ this script imports nothing of the JAX package or its benchmark):
     run table takes K1 style run128 (seven roll passes) on 8 route
     instances of its own besides the delta pipeline's, so that K3 runs in
     two calls (at 2^20 the table would need 16 instances, more than K3's
-    8, and the planner gives it a paged plan with an ``fs`` route, which
-    the port does not run yet);
+    8, and the planner gives it a paged plan with an ``fs`` route);
+- the partial-segment route (``fs``), which the planner takes for a paged
+  run table whose width does not divide 128 and a block table with bc not
+  dividing 128 (the paged-units kernel writes the table's partials, then
+  per route instance the G1 lane gather, T1 and K2 feed the shared K3):
+  - ``wide_run_matrix(1 << 21, 5)`` (4.72M nonzeros): a paged width-5 run
+    table with an ``fs`` route beside the delta pipeline;
+  - ``block3_matrix(3 << 19)`` (9.44M nonzeros of 3x3 blocks, as 3-D FEM
+    matrices have): a paged block table with an ``fs`` route;
 - the non-fused variants, which the fused planners refuse (more than 2^21
   rows, or nothing to fuse):
   - HPCG's 27-point stencil on a 128^3 grid (``hpcg_matrix``: 2^21 rows,
@@ -41,15 +48,19 @@ this script imports nothing of the JAX package or its benchmark):
     the delta-pages product with its scatter-add and the DIA kernel on the
     5 diagonals;
   - ``build_blocky_matrix(1 << 22)`` (13.6M nonzeros): the paged delta
-    stream and the unit-page gathers of the paged run and block tables;
+    stream and the paged run and block tables, whose partials the
+    paged-units kernel forms and scatter-adds itself (the unit-page
+    gather it replaced is held against its plain version on the same
+    windows, off the path);
 - the SpMM (``matmat_kernel``, X of shape (n, k) from a numpy seed) on the
   matrix each path has tuned: timed at k = 8 (one k-batched chunk) on
   headline 2^20, blocky 2^21, wide-run and lane-skew 2^21 in float32 and
   float64 and on blocky 2^19 in float32 (bench.py's SpMM configuration,
   whose SpMV is timed too); untimed checks in float32 at k = 11 on
   headline 2^20 (chunks of 8 and 3), k = 3 on blocky 2^19 (the masked g3
-  instance), k = 2 on HPCG 128^3 and headline 2^22 (the SpMV once per
-  column).
+  instance), k = 8 on both fs paths (fs-run: k-batched, the fs table by
+  row scatter; fs-block: the SpMV once per column), k = 2 on HPCG 128^3
+  and headline 2^22 (the SpMV once per column).
 
 Every phase is fatal on failure:
 
@@ -59,9 +70,10 @@ Every phase is fatal on failure:
 3. each kernel of the path against its plain PyTorch version on that
    plan's arrays, at every shape the path gives it, each stage fed what the
    SpMV feeds it: K1 (every style), T1, K2, the lane gather, the DIA
-   kernel, the delta-pages product and the unit-page gather bit-equal, K3
-   within 1e-6 of the largest value (its sums are ordered as the plain
-   version's, but the bar leaves room for the order to change);
+   kernel, the delta-pages product, the unit-page gather and the
+   paged-units kernel bit-equal, K3 and the paged-units kernel's scatter
+   epilogue (atomic adds, as ``index_add_``'s) within 1e-6 of the largest
+   value;
 4. the SpMV end to end against a float64 COO oracle (``CHECK_TOL`` in
    float32, 1e-6 in float64) at alpha=1/beta=0 and alpha=2/beta=0.5, with
    the launch counts, derived from the plan, showing that each kernel ran
@@ -116,6 +128,7 @@ N_BLOCKY_CHECK = 1 << 19
 N_DENSE = 1 << 21       # the wide-run (W = 16) and lane-skew matrices
 N_RUN128 = 1 << 19      # the width-128 wide-run check
 N_BIG = 1 << 22         # past the fused planners' 2^21-row cap
+N_FS_BLOCK = 3 << 19    # the 3x3-block matrix: 2^19 block rows
 HPCG_NX = 128           # the HPCG stencil's grid edge: 2^21 rows
 # the card's peaks for the bounds (H100 SXM: 3.35 TB/s of HBM3; 67 TFLOP/s
 # in float32 and 34 in float64 outside the tensor cores, NVIDIA's data
@@ -126,7 +139,8 @@ SOURCE = {"lane_gather": "sparsex_tpu_torch/csrc/route.cu",
           "lane_gather_kb": "sparsex_tpu_torch/csrc/route.cu",
           "dia": "sparsex_tpu_torch/csrc/dia.cu",
           "delta_pages": "sparsex_tpu_torch/csrc/pages.cu",
-          "paged_gather": "sparsex_tpu_torch/csrc/pages.cu"}
+          "paged_gather": "sparsex_tpu_torch/csrc/pages.cu",
+          "paged_units": "sparsex_tpu_torch/csrc/pages.cu"}
 FUSED_SOURCE = "sparsex_tpu_torch/csrc/fused.cu"
 REPLACES = {
     "k1": "sparsex_tpu/ops/fused.py:962",
@@ -140,6 +154,8 @@ REPLACES = {
     "dia": "sparsex_tpu/ops/pallas_kernels.py:40",
     "delta_pages": "sparsex_tpu/ops/pallas_kernels.py:233",
     "paged_gather": "sparsex_tpu/ops/pallas_kernels.py:389",
+    # the unit-page gather with the multiply and unit sums around it
+    "paged_units": "sparsex_tpu/ops/pallas_kernels.py:389",
     # the k-batched (kb > 0) pallas_calls of the same builders
     "k1_kb": "sparsex_tpu/ops/fused.py:1063",
     "k1_rlp_kb": "sparsex_tpu/ops/fused.py:1063",
@@ -255,32 +271,44 @@ def paged_tables(meta):
             if len(e) > 3 and e[3] and not (len(e) > 5 and e[5])]
 
 
+def fs_tables(meta):
+    """(kind, index, entry) of every run or block table routed through a
+    partial segment (``fs`` at ``entry[4]``)."""
+    return [(kind, i, e) for kind, metas in (("runs", meta[2]),
+                                             ("blocks", meta[3]))
+            for i, e in enumerate(metas)
+            if len(e) > 4 and e[4] and e[4][0] == "fs"]
+
+
 def expected_counts(meta, k=0):
     """Kernel launches of one SpMV (``k`` = 0), derived from the plan: one
     K1 per delta part and per fused run table, under the key of the kernel
     its style runs (``k1`` lp, ``k1_rlp``, ``k1_sl``, ``k1_run``); per route
     instance one T1 and one K2 (and one lane gather for a merged plan's
-    G1), one K3 per 8 instances; one DIA kernel per standalone DIA table,
-    one delta-pages product for the paged delta stream, one unit-page
-    gather per paged table.  Of one SpMM of ``k`` columns: on a fused plan
-    ceil(k / 8) times those counts under the k-batched kernels' keys
-    (``_kb``) and no other launch; else k SpMVs."""
+    G1) and per instance of a partial-segment route (``fs``) one lane
+    gather, T1 and K2; one K3 per 8 instances; one DIA kernel per
+    standalone DIA table, one delta-pages product for the paged delta
+    stream, one paged-units kernel per paged table (the unit-page gather
+    is no longer on any path).  Of one SpMM of ``k`` columns: on a fused
+    plan ceil(k / 8) times the counts of the fused segments under the
+    k-batched kernels' keys (``_kb``) and no other launch (a paged table's
+    gather and an ``fs`` table's scatter are torch glue there); else k
+    SpMVs."""
     from sparsex_tpu_torch.ops import fused as tf
     from sparsex_tpu_torch.ops.kernels import fused_mm_ok
-    counts = _spmv_counts(tf, meta)
     if not k:
-        return counts
+        return _spmv_counts(tf, meta)
     if not fused_mm_ok(meta):
-        return {key: k * v for key, v in counts.items()}
+        return {key: k * v for key, v in _spmv_counts(tf, meta).items()}
     chunks = -(-k // tf.MAX_KB)
     out = dict.fromkeys(tf.KERNELS, 0)
-    for key, v in counts.items():   # a paged table's gather: torch glue
+    for key, v in _spmv_counts(tf, meta, unit_tables=False).items():
         if key + "_kb" in out:
             out[key + "_kb"] = chunks * v
     return out
 
 
-def _spmv_counts(tf, meta):
+def _spmv_counts(tf, meta, unit_tables=True):
     ex = extras_of(meta)
     dfused, fall = ex.get("dfused"), ex.get("fall")
     counts = dict.fromkeys(tf.KERNELS, 0)
@@ -296,12 +324,16 @@ def _spmv_counts(tf, meta):
         n_inst += len(m[3])
     if fall is not None:
         n_inst = counts["lane_gather"] = len(fall[1])
+    if unit_tables:
+        n_fs = sum(len(e[4][1]) for _k, _i, e in fs_tables(meta))
+        counts["lane_gather"] += n_fs
+        n_inst += n_fs
+        counts["paged_units"] = len(paged_tables(meta))
     counts["t1"] = counts["k2"] = n_inst
     counts["k3"] = -(-n_inst // 8) if n_inst else int("k3dias" in ex)
     counts["dia"] = (0 if "k3dias" in ex
                      else sum(1 for _a, offs, _n in meta[4] if offs))
     counts["delta_pages"] = int("dpages" in ex)
-    counts["paged_gather"] = len(paged_tables(meta))
     return counts
 
 
@@ -403,6 +435,28 @@ def check_dense_plan(style):
     return check
 
 
+def check_fs_plan(kind):
+    """A plan check for a table routed through a partial segment: ``runs``
+    one paged run table with an ``fs`` route beside the fused delta
+    pipeline (``dfused``); ``blocks`` at least one paged block table with
+    an ``fs`` route."""
+    def check(mat, label):
+        ex = mat.csx.executors[0]
+        extras = extras_of(ex.meta)
+        fs = fs_tables(ex.meta)
+        kinds = [k for k, _i, e in fs if e[3]]
+        ok = (kinds == ["runs"] and "dfused" in extras if kind == "runs"
+              else "blocks" in kinds)
+        desc = (f"extras {sorted(extras)}; fs tables "
+                + str([(k, e[:4], len(e[4][1]), e[4][2], e[4][3])
+                       for k, _i, e in fs]) + "; " + _fused_desc(ex.meta))
+        if not ok:
+            fail(f"[{label}] no paged {kind} table with an fs route: {desc}")
+        say(f"[{label}] plan: {desc}")
+        return ex
+    return check
+
+
 def check_pages_plan(mat, kind, label):
     """The plans of the non-fused variants, as the reference planner makes
     them: ``hpcg`` the plain-table variant, one DIA table of 27 diagonals
@@ -497,6 +551,30 @@ def _bound_pages(a, out):
             vals[0].numel() if vals else 0)
 
 
+def _bound_units(a, out):
+    """The paged-units kernel (plo, sl, vals, x2, q, each): plo, sl and
+    vals read and the partials written once, plus each distinct x value
+    that a slot feeding a nonzero value reads; a multiply and an add per
+    value."""
+    from sparsex_tpu_torch.ops import pallas_kernels as tpk
+    plo, sl, vals, x2, q, _each, *scatter = a
+    su = vals.shape[-1]                    # window slots per unit
+    idx, ok = tpk.window_index(plo, sl, q)
+    used = slice(0, tpk.PAGE // su * su)   # a tile's slots that hold units
+    idx = idx.reshape(plo.shape[0], -1)[:, used].reshape(-1, su)
+    ok = ok.reshape(plo.shape[0], -1)[:, used].reshape(-1, su)
+    nz = (vals != 0).any(1) if vals.dim() == 3 else vals != 0
+    nbytes = (_nbytes(plo, sl, vals)
+              + _distinct(idx, ok & nz) * x2.element_size())
+    if scatter:   # the epilogue: dest read, each row of acc read + written
+        acc, dest = scatter
+        nbytes += _nbytes(dest) + 2 * _distinct(
+            dest, (dest >= 0) & (dest < acc.shape[0])) * acc.element_size()
+    else:
+        nbytes += _nbytes(out)
+    return nbytes, 2 * vals.numel()
+
+
 def _bound_k3(a, out):
     """K3: the E1s, g3, dv / adv and x blocks read and y written once; one
     add per g3 wire and a multiply-add per dv / adv value, per column."""
@@ -521,6 +599,7 @@ BOUNDS = {
     "dia": lambda a, out: (_nbytes(a[0], a[1], out), 2 * a[0].numel()),
     "delta_pages": _bound_pages,
     "paged_gather": _bound_pages,
+    "paged_units": _bound_units,
 }
 BOUNDS.update({key + "_kb": BOUNDS[key] for key in
                ("k1", "k1_rlp", "k1_sl", "k1_run", "t1", "k2", "k3",
@@ -543,24 +622,55 @@ def _library_paged_gather(a):
     return lambda: torch.take(flat, idx)
 
 
+def _library_paged_units(a):
+    """The glue the paged-units kernel replaced: ``torch.take`` of the
+    window values, the multiply and the unit sums (no sum for ``each``),
+    and for the scatter epilogue ``index_add_``."""
+    import torch
+    from sparsex_tpu_torch.ops import pallas_kernels as tpk
+    plo, sl, vals, x2, q, each, *scatter = a
+    su = vals.shape[-1]
+    idx = tpk.window_index(plo, sl, q)[0].reshape(plo.shape[0], -1)
+    idx = idx[:, : tpk.PAGE // su * su].reshape(-1, su)
+    flat = x2.reshape(-1)
+    if each:
+        def partials():
+            return torch.take(flat, idx) * vals
+    elif vals.dim() == 3:
+        def partials():
+            return (vals * torch.take(flat, idx).unsqueeze(-2)).sum(-1)
+    else:
+        def partials():
+            return (torch.take(flat, idx) * vals).sum(-1)
+    if not scatter:
+        return partials
+    acc, dest = scatter     # and index_add_ (every row in range here)
+    return lambda: acc.index_add_(0, dest, partials().reshape(-1))
+
+
 # per kernel with one: the PyTorch call that computes the same function on
 # the same inputs (indices precomputed), timed as a yardstick only
 LIBRARY = {"t1": _library_t1, "t1_kb": _library_t1,
-           "paged_gather": _library_paged_gather}
+           "paged_gather": _library_paged_gather,
+           "paged_units": _library_paged_units}
 
 
 def check_kernel(res, label, timed, name, fn, plain, args, exact=True,
-                 loops=LOOPS, outer=OUTER):
+                 loops=LOOPS, outer=OUTER, fresh=None):
     """``fn`` (a kernel wrapper) against ``plain`` on each argument tuple in
     ``args``; ``res[name]`` holds the max abs error and, when ``timed``, the
     kernel's, the plain version's and the PyTorch call's ms for all the
     calls (one CUDA graph each, ``loops`` x ``outer`` replays), and the
-    bound of the same work.  Returns the kernel's outputs."""
+    bound of the same work.  ``fresh`` maps an argument tuple to the one
+    each checked call gets (a kernel that adds into an operand in place
+    gets a fresh copy of it, where the timed calls keep adding into one).
+    Returns the kernel's outputs."""
     import torch
-    outs = [fn(*a) for a in args]
+    fresh = fresh or (lambda a: a)
+    outs = [fn(*fresh(a)) for a in args]
     if outs and outs[0].is_cuda:
         torch.cuda.synchronize()
-    errs = [cmp(name, label, o, plain(*a), exact)
+    errs = [cmp(name, label, o, plain(*fresh(a)), exact)
             for o, a in zip(outs, args)]
     entry = dict.fromkeys(("ms", "plain_ms", "bound_ms", "bound_by",
                            "library_ms"))
@@ -587,6 +697,58 @@ def check_kernel(res, label, timed, name, fn, plain, args, exact=True,
     return outs
 
 
+def paged_units_args(ex, x):
+    """The paged-units kernel's argument tuple for each paged table, as
+    ``local_contrib`` gives it: the plan's window stream, the table's first
+    T*g units' values, the shared page grid, q, whether each product is its
+    own partial (a diagonal or anti-diagonal run table) and, where the
+    table is scatter-added (no ``fs`` route), an accumulator of nrows
+    zeros and the partials' destination rows (the scatter epilogue)."""
+    import torch
+    from sparsex_tpu_torch.ops import kernels as tk
+    x2 = tk.paged_grid(ex.meta, x, ex.ncols)
+    routed = {(k, i) for k, i, _e in fs_tables(ex.meta)}
+    args = []
+    for kind, i, e in paged_tables(ex.meta):
+        t = ex.arrays[kind][i]
+        T, q, g, _npages = e[3]
+        each = tk._unit_layout(kind, e, x.device)[1]
+        a = (t["plan"]["plo"], t["plan"]["sl"], t["vals"][:T * g], x2, q,
+             each)
+        if (kind, i) not in routed:
+            dest = tk.unit_dest(kind, e, t, ex.nrows)
+            a += (torch.zeros(ex.nrows, dtype=x.dtype, device=x.device),
+                  dest[:dest.shape[0] // t["cols"].shape[0] * T * g])
+        args.append(a)
+    return args
+
+
+def _fresh_acc(a):
+    """A paged-units argument tuple with a zeroed copy of its accumulator:
+    the scatter epilogue adds into it in place."""
+    return a if len(a) == 6 else a[:6] + (a[6].clone().zero_(), a[7])
+
+
+def unit_kernels(res, ex, x, label, timed, loops=LOOPS, outer=OUTER):
+    """The paged-units kernel on every paged table of an SpMV (bit-equal
+    to its plain version where it writes partials, within 1e-6 where it
+    scatter-adds them, as ``index_add_`` does, in no fixed order), then the
+    unit-page gather, which left the path for it, on the same window
+    streams (held against ``gather_plain`` and ``torch.take``).  No path
+    has both forms: bit-equality is asked where every call writes
+    partials."""
+    from sparsex_tpu_torch.ops import pallas_kernels as tpk
+    args = paged_units_args(ex, x)
+    if args:
+        check_kernel(res, label, timed, "paged_units", tpk.paged_units,
+                     tpk.paged_units_plain, args,
+                     all(len(a) == 6 for a in args), loops, outer,
+                     fresh=_fresh_acc)
+        check_kernel(res, label, timed, "paged_gather", tpk.gather,
+                     tpk.gather_plain, [a[:2] + a[3:5] for a in args],
+                     loops=loops, outer=outer)
+
+
 def fused_kernel_phase(ex, x, label, timed=True, loops=LOOPS, outer=OUTER):
     """Every kernel of a fused path against its plain version, on the
     plan's arrays at the main path's shapes, each stage fed what
@@ -594,11 +756,14 @@ def fused_kernel_phase(ex, x, label, timed=True, loops=LOOPS, outer=OUTER):
     each fused run table), grouped by the kernel its style runs; then per
     route instance, the merged plan's (its G1 lane gather over the merged
     source grid) or each segment's own, T1 and K2 (raw g2b wires where um &
-    1); then K3 over every instance in calls of 8, the first with the DIA
-    tables that ride it (masked g3 where um & 2 is 0).  A k-major x (kb,
-    ncols), kb <= 8, is one chunk of an SpMM (``fused_mm_contrib``'s input):
-    every kernel then runs its k-batched variant, named with ``_kb``.
-    Returns {name: entry} (``check_kernel``)."""
+    1); the paged-units kernel on each paged table (``unit_kernels``) and,
+    per instance of a table's partial-segment route (``fs``), the G1 lane
+    gather over its partials, T1 and K2; then K3 over every instance in
+    calls of 8, the first with the DIA tables that ride it (masked g3 where
+    um & 2 is 0).  A k-major x (kb, ncols), kb <= 8, is one chunk of an
+    SpMM (``fused_mm_contrib``'s input): every kernel then runs its
+    k-batched variant, named with ``_kb``, and the unit tables take torch
+    glue.  Returns {name: entry} (``check_kernel``)."""
     import torch
     import torch.nn.functional as F
     from sparsex_tpu_torch.ops import fused as tf
@@ -647,14 +812,14 @@ def fused_kernel_phase(ex, x, label, timed=True, loops=LOOPS, outer=OUTER):
                      (0, 0, 0, m[1] - m[0])).contiguous()
 
     fall = extras.get("fall")
+    g1_args, g1_insts = [], []     # (source rows, G1 wires), (w, i, m)
     if fall is not None:
         src = tk.merged_source(meta, arrs, x, ncols, x2f)
         fa = arrs["fall"]
-        insts = [(fa, i, m) for i, m in enumerate(fall[1])]
-        a1s = run("lane_gather", troute.lane_gather,
-                  troute.lane_gather_plain,
-                  [(padded(src, m), fa[f"g1_{i}"][None])
-                   for _w, i, m in insts])
+        g1_insts = [(fa, i, m) for i, m in enumerate(fall[1])]
+        g1_args = [(padded(src, m), fa[f"g1_{i}"][None])
+                   for _w, i, m in g1_insts]
+        insts, a1s = [], []
     else:
         segs = []
         if dfused is not None:
@@ -666,6 +831,22 @@ def fused_kernel_phase(ex, x, label, timed=True, loops=LOOPS, outer=OUTER):
         insts = [(w, i, m) for _a1, w, inst in segs
                  for i, m in enumerate(inst)]
         a1s = [padded(a1, m) for a1, _w, inst in segs for m in inst]
+    if not sfx:    # the SpMV's unit tables: partials, fs routes
+        unit_kernels(res, ex, x, label, timed, loops, outer)
+        x2 = tk.paged_grid(meta, x, ncols)
+        for kind, ti, e in fs_tables(meta):
+            t = arrs[kind][ti]
+            part = tk.unit_table_partials(kind, e, t, x, ncols, ex.nrows,
+                                          x2)[0].reshape(-1)
+            src = F.pad(part, (0, e[4][3] - part.shape[0])).view(-1, 128)
+            fs = t["fscatter"]
+            for i, m in enumerate(e[4][1]):
+                g1_insts.append((fs, i, m))
+                g1_args.append((padded(src, m), fs[f"g1_{i}"][None]))
+    if g1_args:
+        insts += g1_insts
+        a1s += run("lane_gather", troute.lane_gather,
+                   troute.lane_gather_plain, g1_args)
     a1ts = run("t1", tf.t1, tf.t1_plain,
                [(a1, m[2]) for a1, (_w, _i, m) in zip(a1s, insts)])
     e1s = run("k2", tf.k2, tf.k2_plain,
@@ -691,8 +872,9 @@ def pages_kernel_phase(ex, x, label, timed=True):
     """Each kernel of a non-fused path against its plain version, on the
     plan's arrays at the main path's shapes: the DIA kernel per standalone
     DIA table (in its zero-padded x frame), the delta-pages product over
-    the shared page grid, the unit-page gather per paged table.  All three
-    must be bit-equal.  Returns {name: entry} (``check_kernel``)."""
+    the shared page grid, the paged-units kernel and the unit-page gather
+    per paged table (``unit_kernels``).  All must be bit-equal.  Returns
+    {name: entry} (``check_kernel``)."""
     from sparsex_tpu_torch.ops import kernels as tk
     from sparsex_tpu_torch.ops import pallas_kernels as tpk
 
@@ -713,11 +895,7 @@ def pages_kernel_phase(ex, x, label, timed=True):
                      tpk.delta_pages_plain, [(rep["plo"], rep["sl"],
                                               rep["vals"], x2,
                                               extras["dpages"][1])])
-    args = [(arrs[kind][i]["plan"]["plo"], arrs[kind][i]["plan"]["sl"], x2,
-             e[3][1]) for kind, i, e in paged_tables(meta)]
-    if args:
-        check_kernel(res, label, timed, "paged_gather", tpk.gather,
-                     tpk.gather_plain, args)
+    unit_kernels(res, ex, x, label, timed)
     say_kernels(res, label)
     return res
 
@@ -802,17 +980,20 @@ def e2e_phase(spx, tf, mat, rows, cols, vals, x, tol, dtype_name,
 
 
 _KERNEL_NAME = re.compile(r"\b(k1_lp|k1_rlp|k1_sl|k1_run|t1|k2|k3|"
-                          r"lane_gather|dia|delta_pages|paged_gather)"
+                          r"lane_gather|dia|delta_pages|paged_gather|"
+                          r"paged_units)"
                           r"(_kb)?_kernel\b")
 
 
-def profile_phase(spmv, reps=50):
+def profile_phase(spmv, reps=50, kb=False):
     """Device microseconds per SpMV of each kernel and of the PyTorch glue
     kernels (pads, the hybrid interleave, the residual adds), from a
     torch.profiler trace of ``reps`` SpMVs: the kernels as the main path
     runs them, each finding in L2 what the previous one left.  Returns
     ``(us, glue)``, ``glue`` the four largest glue kernels by name, or
-    ``(None, None)`` when the trace holds no device events."""
+    ``(None, None)`` when the trace holds no device events.  ``kb``: the
+    calls are k-batched, so a kernel that serves both forms under one name
+    (K2) counts under its ``_kb`` key."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -834,6 +1015,8 @@ def profile_phase(spmv, reps=50):
         m = _KERNEL_NAME.search(ev.name)
         key = (("k1" if m.group(1) == "k1_lp" else m.group(1))
                + (m.group(2) or "")) if m else "glue"
+        if kb and key + "_kb" in us:
+            key += "_kb"
         us[key] += ev.time_range.elapsed_us() / reps
         if not m:
             name = ev.name[:70]
@@ -876,9 +1059,11 @@ def report(label, mat, res, timing, profiled):
 
 
 def kernel_entries(res, counts, prof, label, extra=None):
-    """The ``kernels`` JSON entries of one timed path: ``ms_in_spmv`` is the
-    profile's device time per SpMV (per SpMM on an SpMM path); ``extra``
-    adds keys per kernel name."""
+    """The ``kernels`` JSON entries of one timed path, for each kernel that
+    the path launched (the unit-page gather, held against its plain
+    version beside the paged-units kernel, is no longer on a path):
+    ``ms_in_spmv`` is the profile's device time per SpMV (per SpMM on an
+    SpMM path); ``extra`` adds keys per kernel name."""
     return [{"name": f"{name}[{label}]", "route": "cuda",
              "source": SOURCE.get(name, FUSED_SOURCE),
              "replaces": REPLACES[name], "launches": counts[name],
@@ -887,7 +1072,7 @@ def kernel_entries(res, counts, prof, label, extra=None):
              "bound_by": r["bound_by"], "library_ms": r["library_ms"],
              "ms_in_spmv": None if prof is None else prof[name] * 1e-3,
              **(extra or {}).get(name, {})}
-            for name, r in res.items()]
+            for name, r in res.items() if counts[name]]
 
 
 # ---------------------------------------------------------------------------
@@ -957,7 +1142,7 @@ def spmm_phase(spx, tf, mat, rows, cols, vals, k, label, tol, timed, spmv):
 
     ms = cuda_time_ms(spmm, 2 * MM_LOOPS)
     graph_ms = graph_time_ms(spmm, 2 * MM_LOOPS)
-    prof, glue = profile_phase(spmm, reps=20)
+    prof, glue = profile_phase(spmm, reps=20, kb=fused_mm_ok(ex.meta))
     spmv_res, spmv_graph_ms = spmv
     col_loop = {name: {"k_x_spmv_kernel_ms":
                        k * spmv_res[name[:-3]]["ms"]}
@@ -1131,6 +1316,21 @@ def lane_skew_matrix(n, seed=0):
     return _dedup_sort(rows, cols, n, seed + 1)
 
 
+def block3_matrix(n, seed=0):
+    """n/3 block rows of 3x3 dense blocks: one on the diagonal and one at a
+    random block column, as a FEM matrix with 3 unknowns per node (3-D
+    elasticity) has.  bc = 3 does not divide 128, so the planner sends the
+    block table through a partial segment (``fs``)."""
+    rng = np.random.default_rng(seed)
+    nb = n // 3
+    r0 = np.arange(nb, dtype=np.int64)[:, None] * 3
+    c0 = np.concatenate([r0, rng.integers(0, nb, (nb, 1)) * 3], axis=1)
+    ii, jj = np.meshgrid(np.arange(3), np.arange(3), indexing="ij")
+    rows = np.broadcast_to(r0[:, :, None, None] + ii, (nb, 2, 3, 3))
+    cols = c0[:, :, None, None] + jj
+    return _dedup_sort(rows.ravel(), cols.ravel(), n, seed + 1)
+
+
 def hpcg_matrix(nx):
     """HPCG's problem matrix: the 27-point stencil on an nx^3 grid, 26 on the
     diagonal and -1 for each neighbour in the 3x3x3 cube, rows in
@@ -1212,6 +1412,12 @@ def main():
          check_dense_plan("run16"), fused_kernel_phase, tols, True, mm8),
         ("lane-skew 2^21 ", N_DENSE, lambda: lane_skew_matrix(N_DENSE),
          check_dense_plan("sl"), fused_kernel_phase, tols, True, mm8),
+        ("fs-run 2^21 W=5 ", N_DENSE, lambda: wide_run_matrix(N_DENSE, 5),
+         check_fs_plan("runs"), fused_kernel_phase, tols, True,
+         ((8, False, f32),)),
+        ("fs-block 3x2^19 ", N_FS_BLOCK, lambda: block3_matrix(N_FS_BLOCK),
+         check_fs_plan("blocks"), fused_kernel_phase, tols, True,
+         ((8, False, f32),)),
         ("wide-run 2^19 W=128 ", N_RUN128,
          lambda: wide_run_matrix(N_RUN128, 128), check_dense_plan("run128"),
          fused_kernel_phase, tols[:1], False, ()),

@@ -186,44 +186,111 @@ __global__ void t1_kernel(const T* __restrict__ in, T* __restrict__ out) {
 }
 
 // ---------------------------------------------------------------------------
-// K2 (replaces fused.py:_build_k2).  One block per outer color c, working
+// K2 (replaces fused.py:_build_k2, kb = 0 and kb > 0).  Per outer colour c,
 // from RAW g2b wires (the port removes the lane offset that the unmasked
 // Pallas kernel bakes in):
-//   C1[b, w]   = a = g2a[c,b,w];  a >= 0 ? A1T[b, c, a] : 0      (shared)
+//   C1[b, w]   = a = g2a[c,b,w];  a >= 0 ? A1T[b, c, a] : 0
 //   D1[w, d]   = b = g2b[c,w,d];  0 <= b < A2R ? C1[b, w] : 0
 //   E1[c,d,l]  = g = g2c[c,d,l];  0 <= g < W2 ? D1[g, d] : 0
-// C1 is A2R x 128 values: at most 64 KB in f32, 128 KB in f64, so above
-// 48 KB the launcher raises the dynamic shared-memory limit.  D1 is never
-// stored: each output resolves its two wires and reads C1 once.
+// Only moves data, so it is bit-equal to k2_plain.  One block per (colour,
+// K2_ROWS output rows d): it resolves the D1 entries its rows read, D1[w, d]
+// for w < W2, straight through g2b -> g2a -> A1T (C1 is never formed: an
+// entry of C1 that no D1 entry selects is never read, and a block needs no
+// row of D1 but its own), into shared memory, then writes its rows of E1,
+// 4 adjacent lanes a thread: one 4-byte load of g2c wires, 4 shared-memory
+// reads, one 16-byte (f32) or two (f64) stores.  A block per colour would
+// give 128 blocks to 132 SMs, each serialising a C1 stage and its outputs
+// behind one barrier; here D2R = 128 gives 2048 blocks of 256 threads, up to
+// 8 resident per SM, each with at most 4 independent three-load chains a
+// thread.  A1T (<= 8 MB f32) stays in L2 between the blocks of a colour.
+// What bounds it now is L2 sectors: each D1 entry gathers one g2a byte and
+// one A1T value at data-dependent places, a 32-byte sector each.  A
+// cluster of 8 blocks per colour that builds C1 once from whole A1T rows
+// and reads it through distributed shared memory reads no scattered sector,
+// but ran 2.7x slower on the H100 (its phases are long dependent chains
+// behind two cluster barriers), and blocks of 16 rows that stage the
+// colour's g2a wires (16 KB) in shared memory ran 1.26x slower (PERF.md,
+// section 6).  A k-batched A1T (kb columns, k-major)
+// resolves each wire chain once and reads kb values through it, and writes
+// kb columns of E1 through the same g2c wires.
+// Shared memory: kb x K2_ROWS x (W2 + pad) values, at most 66 KB in f64.
 // ---------------------------------------------------------------------------
+constexpr int K2_ROWS = 8;           // output rows d per block
+constexpr int K2_THREADS = 256;      // K2_ROWS x 32 threads x 4 lanes
+constexpr int K2_STRIDE = L + 4;     // D1 row stride: a warp's stores of 8
+                                     // rows x 4 w hit 32 banks (f32)
+constexpr int K2_ROUNDS = L * K2_ROWS / K2_THREADS;   // D1 entries a thread
+
 template <typename T>
-__global__ void k2_kernel(const T* __restrict__ a1t,
-                          const int8_t* __restrict__ g2a,
-                          const int8_t* __restrict__ g2b,
-                          const int8_t* __restrict__ g2c,
-                          T* __restrict__ e1, int A2R, int W2, int D2R) {
+__device__ __forceinline__ void store4(T* p, const T (&v)[4]);
+
+template <>
+__device__ __forceinline__ void store4<float>(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+template <>
+__device__ __forceinline__ void store4<double>(double* p, const double (&v)[4]) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
+  reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(K2_THREADS)
+    k2_kernel(const T* __restrict__ a1t, const int8_t* __restrict__ g2a,
+              const int8_t* __restrict__ g2b, const int8_t* __restrict__ g2c,
+              T* __restrict__ e1, int A2R, int W2, int D2R, int kb) {
   extern __shared__ __align__(16) unsigned char k2_smem[];
-  T* c1 = reinterpret_cast<T*>(k2_smem);
-  const int c = blockIdx.x;
+  T* d1 = reinterpret_cast<T*>(k2_smem);   // [kb][K2_ROWS][K2_STRIDE]
+  const int c = blockIdx.y;
+  const int d0 = blockIdx.x * K2_ROWS;
+  const int nd = min(K2_ROWS, D2R - d0);
+  const int8_t* gb = g2b + (size_t)c * W2 * L + d0;
   const int8_t* ga = g2a + (size_t)c * A2R * L;
-  for (int i = threadIdx.x; i < A2R * L; i += blockDim.x) {
-    const int b = i >> 7;
-    const int a = ga[i];
-    c1[i] = a >= 0 ? a1t[((size_t)b * L + c) * L + a] : T(0);
+  // entry i = w * K2_ROWS + dd: a warp reads 4 w rows of 8 adjacent g2b
+  // wires; the chains of a thread's K2_ROUNDS entries are independent
+  int b[K2_ROUNDS];
+#pragma unroll
+  for (int r = 0; r < K2_ROUNDS; ++r) {
+    const int i = r * K2_THREADS + threadIdx.x;
+    const int w = i / K2_ROWS, dd = i % K2_ROWS;
+    b[r] = (w < W2 && dd < nd) ? (int)gb[(size_t)w * L + dd] : -1;
+  }
+  long long src[K2_ROUNDS];
+#pragma unroll
+  for (int r = 0; r < K2_ROUNDS; ++r) {
+    const int w = (r * K2_THREADS + threadIdx.x) / K2_ROWS;
+    src[r] = -1;
+    if (b[r] >= 0 && b[r] < A2R) {
+      const int a = ga[b[r] * L + w];
+      if (a >= 0) src[r] = ((long long)b[r] * L + c) * L + a;
+    }
+  }
+  const size_t a1c = (size_t)A2R * L * L;          // A1T values per column
+  for (int k = 0; k < kb; ++k) {
+#pragma unroll
+    for (int r = 0; r < K2_ROUNDS; ++r) {
+      const int i = r * K2_THREADS + threadIdx.x;
+      const int w = i / K2_ROWS, dd = i % K2_ROWS;
+      if (w < W2)
+        d1[(k * K2_ROWS + dd) * K2_STRIDE + w] =
+            src[r] >= 0 ? a1t[k * a1c + src[r]] : T(0);
+    }
   }
   __syncthreads();
-  const int8_t* gb = g2b + (size_t)c * W2 * L;
-  const int8_t* gc = g2c + (size_t)c * D2R * L;
-  T* oc = e1 + (size_t)c * D2R * L;
-  for (int i = threadIdx.x; i < D2R * L; i += blockDim.x) {
-    const int d = i >> 7;
-    const int g = gc[i];
-    T v = T(0);
-    if (g >= 0 && g < W2) {
-      const int b = gb[g * L + d];
-      if (b >= 0 && b < A2R) v = c1[b * L + g];
-    }
-    oc[i] = v;
+  const int dd = threadIdx.x / 32;
+  if (dd >= nd) return;
+  const int l = (threadIdx.x % 32) * 4;
+  const size_t o = ((size_t)c * D2R + d0 + dd) * L + l;
+  const char4 gq = *reinterpret_cast<const char4*>(g2c + o);
+  const int g[4] = {gq.x, gq.y, gq.z, gq.w};
+  const size_t e1c = (size_t)L * D2R * L;          // E1 values per column
+  for (int k = 0; k < kb; ++k) {
+    const T* row = d1 + (k * K2_ROWS + dd) * K2_STRIDE;
+    T v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = (g[j] >= 0 && g[j] < W2) ? row[g[j]] : T(0);
+    store4(e1 + k * e1c + o, v);
   }
 }
 
@@ -294,10 +361,11 @@ __global__ void k3_kernel(K3Args a, T* __restrict__ y) {
 // The k-batched (SpMM) variants: kb <= MAX_KB columns of x per launch, x
 // and every output k-major (column c at c * its column stride).  Each
 // replaces the kb > 0 pallas_call of the same builder (fused.py:1063/:1098
-// K1, :1343 T1, :1282 K2, :1545 K3).  On the TPU the k axis is the
+// K1, :1343 T1, :1545 K3; K2's, :1282, is k2_kernel above with kb > 1).
+// On the TPU the k axis is the
 // innermost grid axis and Mosaic's revisit optimisation keeps the metadata
 // blocks in VMEM across it; a CUDA grid has no revisit, so here a block
-// reads its metadata once (K1: mg/vals, K2: the colour's wires, K3: its dv
+// reads its metadata once (K1: mg/vals, K2: its wire chains, K3: its dv
 // and adv, and its g3 wires from device memory once, from L1 for the
 // further columns) and loops over the kb columns itself.
 // Bound: the metadata bytes once plus kb x (the x values the slots read +
@@ -431,53 +499,6 @@ __global__ void t1_kb_kernel(const T* __restrict__ in, T* __restrict__ out) {
   __syncthreads();
   for (int k = threadIdx.y; k < 32; k += blockDim.y)
     out[base + (size_t)(c0 + k) * L + j0 + threadIdx.x] = tile[threadIdx.x][k];
-}
-
-// K2: one block per colour c stages its g2a wires (int8) and, per output
-// (d, l), the C1 offset b * 128 + g its g2c -> g2b chain resolves to
-// (int16, -1 = 0) in shared memory once; then per column it gathers C1 from
-// that column's A1T and writes the column's E1.  Shared memory: A2R * 128
-// values + A2R * 128 B + D2R * 256 B, at most 176 KB in f64.
-template <typename T>
-__global__ void k2_kb_kernel(const T* __restrict__ a1t,
-                             const int8_t* __restrict__ g2a,
-                             const int8_t* __restrict__ g2b,
-                             const int8_t* __restrict__ g2c,
-                             T* __restrict__ e1, int A2R, int W2, int D2R,
-                             int kb) {
-  extern __shared__ __align__(16) unsigned char k2kb_smem[];
-  T* c1 = reinterpret_cast<T*>(k2kb_smem);
-  int16_t* src = reinterpret_cast<int16_t*>(c1 + A2R * L);
-  int8_t* ga = reinterpret_cast<int8_t*>(src + D2R * L);
-  const int c = blockIdx.x;
-  const int8_t* gac = g2a + (size_t)c * A2R * L;
-  for (int i = threadIdx.x; i < A2R * L; i += blockDim.x) ga[i] = gac[i];
-  const int8_t* gb = g2b + (size_t)c * W2 * L;
-  const int8_t* gc = g2c + (size_t)c * D2R * L;
-  for (int i = threadIdx.x; i < D2R * L; i += blockDim.x) {
-    const int d = i >> 7;
-    const int g = gc[i];
-    int s = -1;
-    if (g >= 0 && g < W2) {
-      const int b = gb[g * L + d];
-      if (b >= 0 && b < A2R) s = b * L + g;
-    }
-    src[i] = (int16_t)s;
-  }
-  for (int k = 0; k < kb; ++k) {
-    __syncthreads();   // the wires are staged; column k-1 is done with c1
-    const T* a = a1t + (size_t)k * A2R * L * L;
-    for (int i = threadIdx.x; i < A2R * L; i += blockDim.x) {
-      const int w = ga[i];
-      c1[i] = w >= 0 ? a[((size_t)(i >> 7) * L + c) * L + w] : T(0);
-    }
-    __syncthreads();
-    T* oc = e1 + ((size_t)k * L + c) * D2R * L;
-    for (int i = threadIdx.x; i < D2R * L; i += blockDim.x) {
-      const int s = src[i];
-      oc[i] = s >= 0 ? c1[s] : T(0);
-    }
-  }
 }
 
 // K3: y rows of 8 adjacent row strips p0..p0+7 of destination block i per
@@ -622,16 +643,20 @@ int launch_t1(const void* in, void* out, int A2R, void* stream) {
 
 template <typename T>
 int launch_k2(const void* a1t, const void* g2a, const void* g2b, const void* g2c,
-              void* e1, int A2R, int W2, int D2R, void* stream) {
-  const size_t smem = (size_t)A2R * L * sizeof(T);
+              void* e1, int A2R, int W2, int D2R, int kb, void* stream) {
+  if (A2R < 1 || A2R > L || W2 < 1 || W2 > L || D2R < 1 || D2R > L ||
+      kb < 1 || kb > MAX_KB)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)kb * K2_ROWS * K2_STRIDE * sizeof(T);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         k2_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  k2_kernel<T><<<L, 512, smem, (cudaStream_t)stream>>>(
+  dim3 grid((D2R + K2_ROWS - 1) / K2_ROWS, L);
+  k2_kernel<T><<<grid, K2_THREADS, smem, (cudaStream_t)stream>>>(
       (const T*)a1t, (const int8_t*)g2a, (const int8_t*)g2b,
-      (const int8_t*)g2c, (T*)e1, A2R, W2, D2R);
+      (const int8_t*)g2c, (T*)e1, A2R, W2, D2R, kb);
   return (int)cudaGetLastError();
 }
 
@@ -719,25 +744,6 @@ int launch_t1_kb(const void* in, void* out, int A2R, int kb, void* stream) {
 }
 
 template <typename T>
-int launch_k2_kb(const void* a1t, const void* g2a, const void* g2b,
-                 const void* g2c, void* e1, int A2R, int W2, int D2R, int kb,
-                 void* stream) {
-  if (kb < 1 || kb > MAX_KB) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)A2R * L * sizeof(T) + (size_t)D2R * L * 2
-                      + (size_t)A2R * L;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        k2_kb_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  k2_kb_kernel<T><<<L, 512, smem, (cudaStream_t)stream>>>(
-      (const T*)a1t, (const int8_t*)g2a, (const int8_t*)g2b,
-      (const int8_t*)g2c, (T*)e1, A2R, W2, D2R, kb);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
 int launch_k3_kb(const void* const* e1, const void* const* g3, const int* K,
                  int n_inst, const void* dv, const void* doff, int nd,
                  const void* adv, const void* aoff, int na, const void* x,
@@ -811,7 +817,7 @@ int launch_k3_kb(const void* const* e1, const void* const* g3, const int* K,
   extern "C" int spx_k2_##SFX(const void* a1t, const void* g2a,                \
                               const void* g2b, const void* g2c, void* e1,      \
                               int A2R, int W2, int D2R, void* stream) {        \
-    return launch_k2<T>(a1t, g2a, g2b, g2c, e1, A2R, W2, D2R, stream);         \
+    return launch_k2<T>(a1t, g2a, g2b, g2c, e1, A2R, W2, D2R, 1, stream);      \
   }                                                                            \
   extern "C" int spx_k3_##SFX(const void* const* e1, const void* const* g3,    \
                               const int* K, int n_inst, const void* dv,        \
@@ -860,7 +866,7 @@ int launch_k3_kb(const void* const* e1, const void* const* g3, const int* K,
                                  const void* g2b, const void* g2c, void* e1,   \
                                  int A2R, int W2, int D2R, int kb,             \
                                  void* stream) {                               \
-    return launch_k2_kb<T>(a1t, g2a, g2b, g2c, e1, A2R, W2, D2R, kb, stream);  \
+    return launch_k2<T>(a1t, g2a, g2b, g2c, e1, A2R, W2, D2R, kb, stream);     \
   }                                                                            \
   extern "C" int spx_k3_kb_##SFX(                                              \
       const void* const* e1, const void* const* g3, const int* K, int n_inst,  \

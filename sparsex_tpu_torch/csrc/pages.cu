@@ -22,10 +22,33 @@
 //   delta_pages_kernel:  out[e] = vals[e] * x  (one multiply, no sum)
 //   paged_gather_kernel: out[e] = x           (a copy: bit-exact)
 //
+// paged_units_kernel takes a paged run or block table's pageable prefix a
+// step further: the gather, the multiply by the table's values and each
+// unit's sums in one pass (the reference's XLA ops around
+// _build_gather_kernel, kernels.py:471-491, :570-588, :647-665), so the
+// gathered values never cross HBM: a separate gather would write the
+// (T, 8, 128) grid and read it back to multiply and row-sum it.  Tile t's
+// slots [u*SU, (u+1)*SU) hold unit t*g + u's window offsets (g = 1024 / SU
+// units per tile, slots past g*SU unused); unit u's R partials are
+//   out[u, r] = sum_{c < C} vals[u, r, c] * x(sl[t, u*SU + r*RS + c])
+// with (R, C, RS) = (1, W, 0) for a horizontal run table (one total per
+// unit), (W, 1, 1) for a diagonal one (each product on its own row) and
+// (br, bc, 0) for a block table.  One block per tile stages the tile's
+// q-page window (q * 4 KB of f32, contiguous in x2) in shared memory with
+// 16-byte asynchronous copies, so x crosses HBM/L2 as whole lines, then each
+// thread forms one partial from shared memory: products and sums by
+// __fmul_rn / __fadd_rn from 0 in c order, as paged_units_plain adds them,
+// so the partials are bit-equal to it.  Where the table's partials are
+// scatter-added (no partial-segment route), the kernel adds each into
+// acc[dest] itself with atomicAdd (the epilogue form: dest, one int64 row per
+// partial, rows outside [0, n_acc) dropped), in place of the written
+// partials and the compare / select / clamp / index_add_ glue after them;
+// the order of the atomic adds is free, as in index_add_'s own kernel.
 // Interface: plain C launchers per value type (loaded with ctypes); each
 // launches on the caller's stream, never synchronises, allocates nothing
 // and returns cudaGetLastError().
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -35,6 +58,8 @@ constexpr int PAGE = 1024;       // x values per page = elements per tile
 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
 template <typename T, typename S>
 __device__ __forceinline__ T window_x(const int32_t* __restrict__ plo,
@@ -66,6 +91,54 @@ __global__ void paged_gather_kernel(const int32_t* __restrict__ plo,
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n_elems) return;
   out[e] = window_x(plo, sl, x2, e, win);
+}
+
+// One block per tile: win = q * 1024 values of the window, staged from
+// x2 + plo[t] * 1024 (16-byte copies when that address is 16-byte aligned,
+// which a page grid of its own always is; element copies otherwise).
+template <typename T, typename S>
+__global__ void paged_units_kernel(const int32_t* __restrict__ plo,
+                                   const S* __restrict__ sl,
+                                   const T* __restrict__ vals,
+                                   const T* __restrict__ x2,
+                                   T* __restrict__ out, T* __restrict__ acc,
+                                   const int64_t* __restrict__ dest,
+                                   long long n_acc, int win, int R, int C,
+                                   int RS, int SU, int g) {
+  extern __shared__ __align__(16) unsigned char pu_smem[];
+  T* xw = reinterpret_cast<T*>(pu_smem);
+  const long long t = blockIdx.x;
+  const T* src = x2 + (long long)plo[t] * PAGE;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    constexpr int V = 16 / sizeof(T);      // values per 16-byte copy
+    for (int i = threadIdx.x; i < win / V; i += blockDim.x)
+      __pipeline_memcpy_async(xw + i * V, src + i * V, 16);
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+  } else {
+    for (int i = threadIdx.x; i < win; i += blockDim.x) xw[i] = src[i];
+  }
+  __syncthreads();
+  const S* st = sl + t * PAGE;
+  const long long u0 = t * g;
+  for (int o = threadIdx.x; o < g * R; o += blockDim.x) {
+    const int u = o / R;
+    const int r = o - u * R;
+    const T* v = vals + ((u0 + u) * R + r) * C;
+    const S* s = st + u * SU + r * RS;
+    T sum = T(0);
+    for (int c = 0; c < C; ++c) {
+      const int off = (int)s[c];
+      sum = add_rn(sum, mul_rn(v[c], (off >= 0 && off < win) ? xw[off] : T(0)));
+    }
+    const long long p = (u0 + u) * R + r;
+    if (acc == nullptr) {
+      out[p] = sum;
+    } else {
+      const long long d = dest[p];
+      if (d >= 0 && d < n_acc) atomicAdd(acc + d, sum);
+    }
+  }
 }
 
 constexpr int THREADS = 256;
@@ -108,7 +181,69 @@ int launch_paged_gather(const void* plo, const void* sl, const void* x2,
   return (int)cudaGetLastError();
 }
 
+template <typename T, typename S>
+int launch_paged_units_as(const void* plo, const void* sl, const void* vals,
+                          const void* x2, void* out, void* acc,
+                          const void* dest, long long n_acc, long long T_tiles,
+                          int q, int R, int C, int RS, int SU, int g,
+                          void* stream) {
+  const size_t smem = (size_t)q * PAGE * sizeof(T);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        paged_units_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  paged_units_kernel<T, S><<<(unsigned)T_tiles, THREADS, smem,
+                             (cudaStream_t)stream>>>(
+      (const int32_t*)plo, (const S*)sl, (const T*)vals, (const T*)x2,
+      (T*)out, (T*)acc, (const int64_t*)dest, n_acc, q * PAGE, R, C, RS, SU,
+      g);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_paged_units(const void* plo, const void* sl, const void* vals,
+                       const void* x2, void* out, void* acc, const void* dest,
+                       long long n_acc, long long T_tiles, int q, int sl_bytes,
+                       int R, int C, int each, int SU, int g, void* stream) {
+  const int RS = each ? 1 : 0;
+  if (q < 1 || q > 16 || R < 1 || C < 1 || SU < 1 || SU > PAGE ||
+      g != PAGE / SU || (each ? (C != 1 || R != SU) : C != SU) ||
+      (acc == nullptr) == (out == nullptr) ||
+      (acc != nullptr && dest == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (T_tiles == 0) return (int)cudaGetLastError();
+  if (sl_bytes == 2)
+    return launch_paged_units_as<T, int16_t>(plo, sl, vals, x2, out, acc,
+                                             dest, n_acc, T_tiles, q, R, C,
+                                             RS, SU, g, stream);
+  if (sl_bytes == 4)
+    return launch_paged_units_as<T, int32_t>(plo, sl, vals, x2, out, acc,
+                                             dest, n_acc, T_tiles, q, R, C,
+                                             RS, SU, g, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+extern "C" int spx_paged_units_f32(
+    const void* plo, const void* sl, const void* vals, const void* x2,
+    void* out, void* acc, const void* dest, long long n_acc, long long T,
+    int q, int sl_bytes, int R, int C, int each, int SU, int g,
+    void* stream) {
+  return launch_paged_units<float>(plo, sl, vals, x2, out, acc, dest,
+      n_acc, T, q, sl_bytes, R, C, each, SU, g, stream);
+}
+
+extern "C" int spx_paged_units_f64(
+    const void* plo, const void* sl, const void* vals, const void* x2,
+    void* out, void* acc, const void* dest, long long n_acc, long long T,
+    int q, int sl_bytes, int R, int C, int each, int SU, int g,
+    void* stream) {
+  return launch_paged_units<double>(plo, sl, vals, x2, out, acc, dest,
+      n_acc, T, q, sl_bytes, R, C, each, SU, g, stream);
+}
 
 extern "C" int spx_delta_pages_f32(const void* plo, const void* sl,
                                    const void* vals, const void* x2,

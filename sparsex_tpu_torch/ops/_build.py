@@ -172,6 +172,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         f = getattr(lib, f"spx_paged_gather_{sfx}")
         f.argtypes = [vp, vp, vp, vp, ll, i, i, vp]
         f.restype = i
+        f = getattr(lib, f"spx_paged_units_{sfx}")
+        f.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, ll, i, i, i, i, i, i,
+                      i, vp]
+        f.restype = i
     lib.spx_cuda_error_string.argtypes = [i]
     lib.spx_cuda_error_string.restype = ctypes.c_char_p
 

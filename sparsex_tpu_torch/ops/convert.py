@@ -13,7 +13,8 @@ One array changes form on the way: for unmasked (``um & 1``) route
 instances the planner bakes K2's batched-transpose lane offset into
 ``g2b`` (``fused._g2b_lane_offset``), which the CUDA K2 does not use, so
 the offset is taken off again, in the delta pipeline's, each fused run
-table's and the merged plan's instances.  The planner keeps raw um2 targets
+table's, the merged plan's and each partial-segment route's (``fscatter``)
+instances.  The planner keeps raw um2 targets
 below ``ceil8(A2R)`` (``route.py:274-281``), so
 ``raw = g2b - (c % _k2_gba(A2R)) * ceil8(A2R)`` is exact.
 """
@@ -32,7 +33,8 @@ _INDEX_KEYS = frozenset((
     "res_cols", "res_dest", "left_rows", "left_cols",    # dfused / frun
     "res_cols_u", "tail_rows", "tail_cols",              # frun
     "rows", "cols", "row_ids",                           # plain tables
-    "dres_cols", "dres_dest"))                           # fall
+    "dres_cols", "dres_dest",                            # fall
+    "res_pos"))                                          # fs residuals
 
 
 def _is_index(key: str) -> bool:
@@ -166,6 +168,20 @@ def _check_pages(pages_meta, pages_arrays, nrows: int) -> None:
             raise ValueError(f"delta_pages rows outside [0, {nrows}]")
 
 
+def _upload_table(entry, t, device, dtype) -> Dict[str, object]:
+    """One run or block table's arrays; the instances of a fused run table
+    (``frun``) and of a partial-segment route (``fscatter``) take their
+    raw g2b wires."""
+    up = _upload_tree({k: v for k, v in t.items()
+                       if k not in ("frun", "fscatter")}, device, dtype)
+    if "frun" in t:
+        up["frun"] = _upload_tree(t["frun"], device, dtype, entry[5][1][3])
+    if "fscatter" in t:
+        up["fscatter"] = _upload_tree(t["fscatter"], device, dtype,
+                                      entry[4][1])
+    return up
+
+
 def plan_to_torch(pages_meta, pages_arrays, device,
                   dtype: torch.dtype) -> Dict[str, object]:
     """Device tensors of the plan, paged (``_pages_meta``) or plain-table
@@ -183,17 +199,9 @@ def plan_to_torch(pages_meta, pages_arrays, device,
     if "dfused" in extras:
         out["fused"] = _upload_tree(pages_arrays["fused"], device, dtype,
                                     extras["dfused"][0][3])
-    runs = []
-    for entry, t in zip(pages_meta[2], pages_arrays.get("runs", ())):
-        up = _upload_tree({k: v for k, v in t.items() if k != "frun"},
-                          device, dtype)
-        if "frun" in t:
-            up["frun"] = _upload_tree(t["frun"], device, dtype,
-                                      entry[5][1][3])
-        runs.append(up)
-    out["runs"] = runs
-    out["blocks"] = [_upload_tree(t, device, dtype)
-                     for t in pages_arrays.get("blocks", ())]
+    for key, col in (("runs", 2), ("blocks", 3)):
+        out[key] = [_upload_table(entry, t, device, dtype) for entry, t in
+                    zip(pages_meta[col], pages_arrays.get(key, ()))]
     if "fall" in extras:
         out["fall"] = _upload_tree(pages_arrays["fall"], device, dtype,
                                    extras["fall"][1])

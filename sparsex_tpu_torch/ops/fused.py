@@ -46,6 +46,7 @@ from sparsex_tpu_torch.ops._launch import (MAX_KB, _batch, _check, _launch,
                                            _offsets_tensor, _route, _stream,
                                            _value_dtype, launches)
 from sparsex_tpu_torch.ops.pallas_kernels import (DELTA_TILE, PAGE,
+                                                  add_totals,
                                                   build_delta_pages,
                                                   build_unit_pages,
                                                   page_grid)
@@ -1165,9 +1166,9 @@ def k2_plain(a1t, g2a, g2b, g2c, W2: int, D2R: int):
 
 
 def k2(a1t, g2a, g2b, g2c, W2: int, D2R: int):
-    """K2 for one route instance; a k-batched ``a1t`` (kb, A2R, 128, 128)
-    runs the ``_kb`` kernel, which reads the wires once for all kb
-    columns."""
+    """K2 for one route instance.  Both forms run the one ``k2_kernel``; a
+    k-batched ``a1t`` (kb, A2R, 128, 128) resolves each wire chain once for
+    all kb columns and is counted under ``k2_kb``."""
     _value_dtype("a1t", a1t)
     kb = _batch("a1t", a1t, 3)
     A2R = a1t.shape[-3]
@@ -1376,23 +1377,30 @@ def fused_delta_a1(meta, arrays, x, ncols: int, x2=None):
     return a1.reshape(lead + (-1, L))
 
 
+def _instance_e1(meta_i, i, arrays, src, D2R: int, g1: bool):
+    """One route instance over the source grid ``src`` (S, L), or k-major
+    (k, S, L): its rows ``a0:a1`` zero-padded from S1c to S1p
+    (``fused.py:777``), the G1 lane gather through ``g1_{i}`` where ``g1``,
+    T1 and K2.  Returns the ``(e1, g3, K, um3)`` entry for
+    :func:`k3_combine`."""
+    S1c, S1p, A2R, _D2Ri, _Dp, K, W2, a0, a1 = meta_i[:9]
+    um = meta_i[9] if len(meta_i) > 9 else 0
+    Si = src[..., a0:a1, :]
+    if S1p != S1c:
+        Si = F.pad(Si, (0, 0, 0, S1p - S1c))
+    Si = Si.contiguous()
+    if g1:
+        Si = route.lane_gather(Si, arrays[f"g1_{i}"][None])
+    e1 = k2(t1(Si, A2R), arrays[f"g2a_{i}"], arrays[f"g2b_{i}"],
+            arrays[f"g2c_{i}"], W2, D2R)
+    return e1, arrays[f"g3_{i}"], K, bool(um & 2)
+
+
 def _e1s_from_a1(inst, arrays, A1, D2R: int):
     """Per-instance T1 + K2 over slices of the A1 grid (S, L), or k-major
-    (k, S, L): the instance's rows ``a0:a1``, zero-padded from S1c to S1p
-    (``fused.py:777``).  Returns the ``(e1, g3, K, um3)`` list for
-    :func:`k3_combine`."""
-    out = []
-    for i, meta_i in enumerate(inst):
-        S1c, S1p, A2R, _D2Ri, _Dp, K, W2, a0, a1 = meta_i[:9]
-        um = meta_i[9] if len(meta_i) > 9 else 0
-        Ai = A1[..., a0:a1, :]
-        if S1p != S1c:
-            Ai = F.pad(Ai, (0, 0, 0, S1p - S1c))
-        A1T = t1(Ai.contiguous(), A2R)
-        e1 = k2(A1T, arrays[f"g2a_{i}"], arrays[f"g2b_{i}"],
-                arrays[f"g2c_{i}"], W2, D2R)
-        out.append((e1, arrays[f"g3_{i}"], K, bool(um & 2)))
-    return out
+    (k, S, L), whose rows K1 has already routed."""
+    return [_instance_e1(m, i, arrays, A1, D2R, False)
+            for i, m in enumerate(inst)]
 
 
 def fused_delta_e1s(meta, arrays, x, ncols: int, nrows_part: int, x2=None):
@@ -1425,19 +1433,21 @@ def merged_e1s(inst_meta, arrays, src_global, nrows_part: int):
     instances may overlap in source rows and colour them independently, so
     their G1 wires are never unioned."""
     D2R = _d2r(nrows_part)
-    out = []
-    for i, meta_i in enumerate(inst_meta):
-        S1c, S1p, A2R, _D2Ri, _Dp, K, W2, a0, a1 = meta_i[:9]
-        um = meta_i[9] if len(meta_i) > 9 else 0
-        Si = src_global[..., a0:a1, :]
-        if S1p != S1c:
-            Si = F.pad(Si, (0, 0, 0, S1p - S1c))
-        A1 = route.lane_gather(Si.contiguous(), arrays[f"g1_{i}"][None])
-        A1T = t1(A1, A2R)
-        e1 = k2(A1T, arrays[f"g2a_{i}"], arrays[f"g2b_{i}"],
-                arrays[f"g2c_{i}"], W2, D2R)
-        out.append((e1, arrays[f"g3_{i}"], K, bool(um & 2)))
-    return out
+    return [_instance_e1(m, i, arrays, src_global, D2R, True)
+            for i, m in enumerate(inst_meta)]
+
+
+def partial_segment_e1s(inst_meta, arrays, partials_flat, nrows_part: int):
+    """G1 + T1 + K2 per instance over a flat partial stream (``fs``,
+    ``fused.py:1740``): ``partials_flat`` (M_pad,), a multiple of 128
+    long, is the (M_pad / 128, 128) source grid of the instances of
+    ``plan_partial_segment``.  Returns the ``(e1, g3, K, um3)`` list for
+    :func:`k3_combine`."""
+    if partials_flat.dim() != 1 or partials_flat.shape[0] % L:
+        raise ValueError(f"partials: shape {tuple(partials_flat.shape)} is "
+                         f"not a flat stream of whole {L}-lane rows")
+    return merged_e1s(inst_meta, arrays, partials_flat.view(-1, L),
+                      nrows_part)
 
 
 def k3_combine(e1_g3, dia_pack, x, nrows_part: int, ncols: int):
@@ -1466,17 +1476,6 @@ def k3_combine(e1_g3, dia_pack, x, nrows_part: int, ncols: int):
     return acc[..., :nrows_part] if acc.shape[-1] != nrows_part else acc
 
 
-def add_totals(acc, totals, dest):
-    """``acc[dest] += totals`` in place, destinations outside [0, len(acc))
-    dropped — the reference's ``.at[dest].add(..., mode="drop")``.  A
-    k-major acc (k, n) takes (k, m) totals along its last axis."""
-    n = acc.shape[-1]
-    ok = (dest >= 0) & (dest < n)
-    totals = torch.where(ok, totals, torch.zeros((), dtype=totals.dtype,
-                                                  device=totals.device))
-    return acc.index_add_(acc.dim() - 1, dest.clamp(0, n - 1), totals)
-
-
 def add_products(acc, vals, cols, dest, x, ncols: int):
     """``acc[dest] += vals * x[cols]`` in place, columns clamped to
     [0, ncols) (the reference's ``take(mode="clip")``); k-major x and acc
@@ -1486,13 +1485,14 @@ def add_products(acc, vals, cols, dest, x, ncols: int):
 
 # the CUDA kernels whose launches ``launches`` counts (K1 under one key
 # per style family: lp, rlp{W}, sl, run{W}; the lane gather is launched
-# from ``ops/route.py``, dia / delta_pages / paged_gather from
-# ``ops/pallas_kernels.py``), then the k-batched (SpMM) variants, each
+# from ``ops/route.py``, dia / delta_pages / paged_gather / paged_units
+# from ``ops/pallas_kernels.py``), then the k-batched (SpMM) variants, each
 # under its kernel's key + ``_kb``
 KB_KERNELS = ("k1_kb", "k1_rlp_kb", "k1_sl_kb", "k1_run_kb", "t1_kb",
               "k2_kb", "k3_kb", "lane_gather_kb")
 KERNELS = ("k1", "k1_rlp", "k1_sl", "k1_run", "t1", "k2", "k3",
-           "lane_gather", "dia", "delta_pages", "paged_gather") + KB_KERNELS
+           "lane_gather", "dia", "delta_pages", "paged_gather",
+           "paged_units") + KB_KERNELS
 
 
 def launch_counts() -> Dict[str, int]:
@@ -1505,6 +1505,7 @@ __all__: List[str] = [
     "k1_key", "k1_plain", "k1_style", "k1_window", "k1_x_index", "t1",
     "t1_plain", "k2", "k2_plain", "k3", "k3_plain", "k3_combine", "fused_delta_a1",
     "fused_delta_e1s", "fused_run_a1", "fused_run_e1s", "merged_e1s",
+    "partial_segment_e1s",
     "add_products", "add_totals", "launches", "launch_counts", "KERNELS",
     "KB_KERNELS", "MAX_KB",
 ]

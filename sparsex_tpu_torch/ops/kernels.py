@@ -18,9 +18,14 @@ end:
   scatter-add (:403-422, without ``dscatter``);
 - the plain delta singles (gather + segment sum, :454-459);
 - ``frun`` fused run tables (:541-569; K1 ``rlp{W}`` or ``run{W}``) and
-  the plain or paged, non-routed run tables (:570-588, ``_gather_units``
-  :471-491); ``cvt`` tables are skipped (:536-540, :603-606);
-- the plain or paged, non-routed block tables (:647-665);
+  the plain or paged run tables (:570-588), their partials through the
+  paged-units kernel for a paged table's pageable prefix (``_gather_units``
+  :471-491 and the sums, in one kernel); ``cvt`` tables are skipped
+  (:536-540, :603-606);
+- the plain or paged block tables (:647-665), likewise;
+- a run or block table's partial-segment route ``fs`` (``_scatter_partials``
+  :493-515: G1 lane gather, T1 and K2 per instance into the shared K3, its
+  residuals in ``k3_post``); the other tables scatter-add;
 - the ``fall`` merged plan over the trimmed, concatenated K1 outputs of
   its segments (``merged_source``) with its ``dres`` / ``rres`` residuals
   (:684-716);
@@ -46,14 +51,16 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from sparsex_tpu_torch.ops.fused import (MAX_KB, add_products, add_totals,
                                          fused_delta_a1, fused_delta_e1s,
                                          fused_run_a1, fused_run_e1s,
-                                         k1_style, k3_combine, merged_e1s)
+                                         k1_style, k3_combine, merged_e1s,
+                                         partial_segment_e1s)
 from sparsex_tpu_torch.ops.pallas_kernels import (delta_pages_spmv,
                                                   dia_spmv, pad_x_pages,
-                                                  page_grid, paged_gather)
+                                                  page_grid, paged_units)
 from sparsex_tpu_torch.preprocess.encodings import EncType
 from sparsex_tpu_torch.preprocess.tables import CsxTables
 from sparsex_tpu_torch.preprocess.xform import run_step
@@ -93,10 +100,9 @@ def tables_to_arrays(tables: CsxTables) -> Dict[str, Any]:
 # table classes, extras and merged-plan parts of the reference executor ->
 # where their port is queued in ROADMAP.md
 _QUEUED = {
-    "fs": "Queue 1 item 7 (partial segments)",
     "fblk": "Queue 1 item 10 (the fblk chain)",
     "blk": "Queue 1 item 10 (the fblk chain)",
-    "bres": "Queue 1 item 7 (bres residuals)",
+    "bres": "Queue 1 item 10 (bres residuals of the fblk chain)",
     "dpagesT": "Queue 1 item 8 (symmetric per-shard delta)",
     "dscatter": "Queue 1 item 10 (dscatter, apply_scatter_plan)",
     "dscatterT": "Queue 1 item 8 (symmetric per-shard scatter)",
@@ -116,15 +122,12 @@ def _kind(entry):
     return entry[5][0] if len(entry) > 5 and entry[5] else None
 
 
-def _check_unrouted(what: str, entry) -> None:
-    """A plain or paged unit table must scatter through ``index_add_``: a
-    routed one (``fs`` partial segment or legacy scatter plan) is
-    refused."""
-    if len(entry) > 4 and entry[4]:
-        scat = entry[4][0] if isinstance(entry[4][0], str) else "scatter"
-        _refuse(f"a routed {what} table ({scat!r})", _QUEUED.get(
-            scat, "Queue 1 item 3 (legacy routed scatters, "
-                  "apply_scatter_plan)"))
+def _check_scatter(what: str, entry) -> None:
+    """A plain or paged unit table scatters through ``index_add_`` or its
+    partial-segment route (``fs``); a legacy scatter plan is refused."""
+    if len(entry) > 4 and entry[4] and entry[4][0] != "fs":
+        _refuse(f"a routed {what} table (legacy scatter plan)",
+                "Queue 1 item 3 (legacy routed scatters, apply_scatter_plan)")
 
 
 def check_slice(meta) -> None:
@@ -135,7 +138,8 @@ def check_slice(meta) -> None:
     dense-tile ``sl`` / ``run{W}``), their merged plan, DIA tables riding
     K3 or standalone (static offsets), the legacy paged delta (``dpages``)
     without its scatter route, plain delta singles, and plain or paged
-    (unit-page gather) run and block tables that are not routed."""
+    (unit-page) run and block tables, scatter-added or routed through a
+    partial segment (``fs``)."""
     _nr, _nc, run_meta, block_meta, dia_meta = meta[:5]
     extras = {e[0]: e[1:] for e in meta[5:] if e}
     for key in extras:
@@ -156,7 +160,7 @@ def check_slice(meta) -> None:
             continue
         if kind is not None:
             _refuse(f"run table class {kind!r}", _QUEUED.get(kind, "Queue 1"))
-        _check_unrouted("run", e)
+        _check_scatter("run", e)
     for e in block_meta:
         kind = _kind(e)
         if kind == "cvt":
@@ -164,7 +168,7 @@ def check_slice(meta) -> None:
         if kind is not None:
             _refuse(f"block table class {kind!r}",
                     _QUEUED.get(kind, "Queue 1"))
-        _check_unrouted("block", e)
+        _check_scatter("block", e)
     if "fall" in extras:
         segs, _inst, _bounds, res_desc = extras["fall"]
         for seg in segs:
@@ -257,22 +261,91 @@ def dia_contrib(meta_dias, dias, x, nrows_part: int, ncols: int, acc=None):
     return acc
 
 
-def _gather_units(t, entry, cols_u, steps, x, ncols: int, x2):
-    """(U, width) x values of a run or block table (kernels.py:471-491):
-    through the unit-page gather for the pageable prefix of a paged table
-    (its units reordered by the planner), a clipped take for the rest and
-    for a plain table.  k-major x (k, ncols) gives (k, U, width) by the
-    clipped take alone, as the reference's SpMM does (kernels.py:855)."""
+def _partials(vals, xg, each: bool):
+    """A unit table's partials from its gathered x: a (U, W) run table's
+    unit sums (U,), or its products (U, W) when ``each``; a (U, br, bc)
+    block table's row sums (U, br).  k-major xg (k, U, ...) gives (k, U,
+    ...)."""
+    if each:
+        return vals * xg
+    if vals.dim() == 3:
+        return (vals * xg.unsqueeze(-2)).sum(-1)
+    return (vals * xg).sum(-1)
+
+
+def _unit_layout(kind: str, entry, device):
+    """``(steps, each, offs)`` of a run or block table: the column offsets
+    of a unit's x values, whether each product is its own partial, and the
+    row offsets of a unit's partials (None: one partial per unit)."""
+    dev = str(device)
+    if kind == "blocks":
+        _enc, br, bc = entry[:3]
+        return _steps(bc, 1, dev), False, _steps(br, 1, dev)
+    rstep, steps = _run_steps(entry, device)
+    if rstep == 0:
+        return steps, False, None
+    return steps, True, _steps(entry[2], rstep, dev)
+
+
+def unit_dest(kind: str, entry, t, nrows_part: int):
+    """The destination row of each of a run or block table's partials, flat
+    (:func:`unit_table_partials`), clamped into the rows where a unit
+    spans several."""
+    offs = _unit_layout(kind, entry, t["rows"].device)[2]
+    if offs is None:
+        return t["rows"]
+    return (t["rows"][:, None] + offs).clamp(0, nrows_part - 1).reshape(-1)
+
+
+def unit_table_partials(kind: str, entry, t, x, ncols: int,
+                        nrows_part: int, x2, acc=None):
+    """``(partials, dest)`` of a plain or paged run (``kind`` "runs") or
+    block ("blocks") table in its unit order (kernels.py:471-491, :570-588,
+    :647-665): a horizontal run table's unit sums, a diagonal or
+    anti-diagonal one's products (each element writes its own row), a block
+    table's block-row sums (:func:`_partials`), and the destination row of
+    each (:func:`unit_dest`).  A paged table's pageable prefix (its units
+    reordered by the planner) takes the paged-units kernel, which gathers,
+    multiplies and sums in one pass, the rest and a plain table a clipped
+    take; with an SpMV's ``acc`` the kernel also adds the prefix into
+    ``acc`` itself, and only the rest is returned.  k-major x (k, ncols)
+    takes the clipped take alone, as the reference's SpMM does
+    (kernels.py:855)."""
+    steps, each, _offs = _unit_layout(kind, entry, x.device)
+    dest = unit_dest(kind, entry, t, nrows_part)
+    vals, cols = t["vals"], t["cols"]
     plan_sig = entry[3] if len(entry) > 3 else None
     if plan_sig is None or "plan" not in t or x.dim() == 2:
-        return x[..., (cols_u[:, None] + steps).clamp(0, ncols - 1)]
-    T, _q, g, _npages = plan_sig
-    xg = paged_gather(plan_sig, t["plan"], x, ncols, steps.shape[0], x2=x2)
-    U = cols_u.shape[0]
-    if U > T * g:
-        tail = x[(cols_u[T * g:, None] + steps).clamp(0, ncols - 1)]
-        return torch.cat([xg, tail])
-    return xg[:U]
+        return _partials(vals, x[..., (cols[:, None] + steps).clamp(
+            0, ncols - 1)], each), dest
+    T, q, g, _npages = plan_sig
+    n = T * g
+    nd = dest.shape[0] // cols.shape[0] * n      # the prefix's partials
+    plan = t["plan"]
+    head = paged_units(plan["plo"], plan["sl"], vals[:n], x2, q, each, acc,
+                       None if acc is None else dest[:nd])
+    if acc is not None:     # the prefix is in acc: return the rest alone
+        head, dest = head[:0], dest[nd:]
+    if cols.shape[0] == n:
+        return head, dest
+    tail = _partials(vals[n:], x[(cols[n:, None] + steps).clamp(
+        0, ncols - 1)], each)
+    return (tail if acc is not None else torch.cat([head, tail])), dest
+
+
+def _queue_partial_segment(scat, fs, partials, k3_pending, k3_post,
+                           nrows_part: int):
+    """A table's partial-segment route (``fs``, kernels.py:502-515): the
+    flat partials, padded to M_pad, are the source of the route's instances
+    (queued on ``k3_pending`` for the shared K3), their over-capacity
+    residuals a ``take`` add on ``k3_post``."""
+    _, inst_meta, has_res, m_pad = scat
+    flat = partials.reshape(-1)
+    if m_pad != flat.shape[0]:
+        flat = F.pad(flat, (0, m_pad - flat.shape[0]))
+    k3_pending += partial_segment_e1s(inst_meta, fs, flat, nrows_part)
+    if has_res:
+        k3_post.append(("take", flat, fs["res_pos"], fs["res_dest"]))
 
 
 def merged_source(meta, arrs, x, ncols: int, x2f):
@@ -390,52 +463,45 @@ def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int):
         acc = add_products(zeros() if acc is None else acc, d["vals"],
                            d["cols"], d["row_ids"], x, ncols)
 
-    for ri, (entry, t) in enumerate(zip(run_meta, arrs["runs"])):
-        kind = _kind(entry)
-        if kind == "cvt":  # demoted into the delta pipeline by the planner
-            continue
-        rstep, steps = _run_steps(entry, x.device)
-        if kind == "frun":
-            _, fmeta_r, n_tail = entry[5]
-            fr = t["frun"]
-            if fall is None:
-                k3_pending += fused_run_e1s(fmeta_r, fr, x, ncols,
-                                            nrows_part, x2=x2f)
-                if fmeta_r[4]:   # over-capacity residual unit totals
-                    k3_post.append(("acc", _unit_totals(
-                        fr["res_vals2d"], fr["res_cols_u"], steps, x, ncols),
-                        fr["res_dest"], None))
-            if n_tail:           # unpageable tail units, in both modes
+    for entry, t in zip(run_meta, arrs["runs"]):
+        if _kind(entry) != "frun":   # cvt: in the delta pipeline; plain
+            continue                 # and paged tables: below
+        steps = _run_steps(entry, x.device)[1]
+        _, fmeta_r, n_tail = entry[5]
+        fr = t["frun"]
+        if fall is None:
+            k3_pending += fused_run_e1s(fmeta_r, fr, x, ncols, nrows_part,
+                                        x2=x2f)
+            if fmeta_r[4]:   # over-capacity residual unit totals
                 k3_post.append(("acc", _unit_totals(
-                    t["tail_vals"], t["tail_cols"], steps, x, ncols),
-                    t["tail_rows"], None))
-            continue
-        # a plain or paged run table: gather, multiply, scatter-add
-        if acc is None:
-            acc = zeros()
-        contrib = t["vals"] * _gather_units(t, entry, t["cols"], steps, x,
-                                            ncols, x2)
-        if rstep == 0:     # horizontal: one partial per unit
-            add_totals(acc, contrib.sum(-1), t["rows"])
-        else:              # one destination row per element
-            ridx = (t["rows"][:, None] + _steps(entry[2], rstep, str(
-                x.device))).clamp(0, nrows_part - 1)
-            add_totals(acc, contrib.reshape(lead + (-1,)), ridx.reshape(-1))
+                    fr["res_vals2d"], fr["res_cols_u"], steps, x, ncols),
+                    fr["res_dest"], None))
+        if n_tail:           # unpageable tail units, in both modes
+            k3_post.append(("acc", _unit_totals(
+                t["tail_vals"], t["tail_cols"], steps, x, ncols),
+                t["tail_rows"], None))
 
-    for entry, t in zip(meta[3], arrs["blocks"]):
-        if _kind(entry) == "cvt":  # a pseudo-run table in the run loop
-            continue
-        # a plain or paged block table (kernels.py:647-665, 1-D): gather
-        # (U, bc), the (U, br) row sums, scatter-add into rows + r
-        if acc is None:
-            acc = zeros()
-        _enc, br, bc = entry[:3]
-        xg = _gather_units(t, entry, t["cols"], _steps(bc, 1, str(x.device)),
-                           x, ncols, x2)
-        contrib = (t["vals"] * xg.unsqueeze(-2)).sum(-1)
-        ridx = (t["rows"][:, None] + _steps(br, 1, str(x.device))).clamp(
-            0, nrows_part - 1)
-        add_totals(acc, contrib.reshape(lead + (-1,)), ridx.reshape(-1))
+    for kind, metas in (("runs", run_meta), ("blocks", meta[3])):
+        for entry, t in zip(metas, arrs[kind]):
+            if _kind(entry) is not None:   # cvt and frun, handled above
+                continue
+            # a plain or paged unit table: its partials through its
+            # partial-segment route (the SpMV of an fs table; the
+            # reference's SpMM keeps the row scatter, kernels.py:497-501),
+            # else scatter-added, the pageable prefix's by the kernel
+            if acc is None:
+                acc = zeros()
+            scat = entry[4] if len(entry) > 4 else None
+            routed = (not lead and scat is not None and scat[0] == "fs"
+                      and "fscatter" in t)
+            partials, dest = unit_table_partials(
+                kind, entry, t, x, ncols, nrows_part, x2,
+                None if routed else acc)
+            if routed:
+                _queue_partial_segment(scat, t["fscatter"], partials,
+                                       k3_pending, k3_post, nrows_part)
+            else:
+                add_totals(acc, partials.reshape(lead + (-1,)), dest)
 
     if fall is not None:  # the merged plan's residuals (its e1s are queued)
         fa = arrs["fall"]
@@ -463,6 +529,8 @@ def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int):
     for kind, a, b, c in k3_post:
         if kind == "prod":
             add_products(acc, a, b, c, x, ncols)
+        elif kind == "take":   # a routed partial stream's residuals
+            add_totals(acc, a[b], c)
         else:
             add_totals(acc, a, b)
     return acc
@@ -470,4 +538,5 @@ def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int):
 
 __all__ = ["check_slice", "dia_contrib", "dia_tables", "fused_mm_contrib",
            "fused_mm_ok", "local_contrib", "merged_source", "paged_grid",
-           "shared_page_grid", "static_meta", "tables_to_arrays"]
+           "shared_page_grid", "static_meta", "tables_to_arrays",
+           "unit_dest", "unit_table_partials"]

@@ -6,15 +6,19 @@ kernels are the CUDA kernels of ``csrc/dia.cu`` (``_build_dia_kernel``) and
 its host planners are the port's own copies (``build_delta_pages``,
 ``build_unit_pages``, unchanged NumPy):
 
-- three kernel wrappers, ``dia``, ``delta_pages`` and ``gather``, each
-  launching its CUDA kernel on a CUDA tensor and running its plain PyTorch
-  version (``dia_plain``, ``delta_pages_plain``, ``gather_plain``) only on
-  a CPU tensor; each launch adds one to ``ops.fused.launches`` under
-  ``dia``, ``delta_pages`` and ``paged_gather``;
+- four kernel wrappers, ``dia``, ``delta_pages``, ``gather`` and
+  ``paged_units``, each launching its CUDA kernel on a CUDA tensor and
+  running its plain PyTorch version (``dia_plain``, ``delta_pages_plain``,
+  ``gather_plain``, ``paged_units_plain``) only on a CPU tensor; each
+  launch adds one to ``ops.fused.launches`` under ``dia``,
+  ``delta_pages``, ``paged_gather`` and ``paged_units``.  ``paged_units``
+  has no Pallas counterpart of its own: it is the unit-page gather fused
+  with the multiply and the per-unit sums that the reference's executor
+  runs in XLA around it (kernels.py:471-491, :570-588, :647-665);
 - the host-side functions with the reference's names: ``pad_x_pages``
   (over ``page_grid``), ``dia_spmv`` (``dia_spmv_pallas``'s ``pad_lo`` /
   ``xp_len`` framing, in ``dia_frame``), ``delta_pages_products``,
-  ``delta_pages_spmv``, ``paged_gather`` and ``paged_gather_grid``.
+  ``delta_pages_spmv`` and ``paged_gather_grid``.
 
 The reference runs these kernels in float32 only (``pallas_dtype_ok``:
 Mosaic tiles are f32) and hands more than 64 diagonals to an XLA window
@@ -374,6 +378,100 @@ def gather(plo, sl, x2, q: int):
     return out
 
 
+def _unit_form(vals, each: bool):
+    """``(R, C, SU)`` of a unit table's values: each unit's R partials, each
+    a sum of C products, over SU window slots: a (Up, W) run table gives
+    (1, W, W) or, ``each``, its W products unsummed (W, 1, W); a (Up, br,
+    bc) block table (br, bc, bc)."""
+    if vals.dim() == 3:
+        if each:
+            raise ValueError("each: a block table's partials are row sums")
+        return vals.shape[1], vals.shape[2], vals.shape[2]
+    if vals.dim() != 2:
+        raise ValueError(f"vals: shape {tuple(vals.shape)} is neither (U, W) "
+                         "nor (U, br, bc)")
+    W = vals.shape[1]
+    return (W, 1, W) if each else (1, W, W)
+
+
+def add_totals(acc, totals, dest):
+    """``acc[dest] += totals`` in place, destinations outside [0, len(acc))
+    dropped — the reference's ``.at[dest].add(..., mode="drop")``.  A
+    k-major acc (k, n) takes (k, m) totals along its last axis."""
+    n = acc.shape[-1]
+    ok = (dest >= 0) & (dest < n)
+    totals = torch.where(ok, totals, torch.zeros((), dtype=totals.dtype,
+                                                  device=totals.device))
+    return acc.index_add_(acc.dim() - 1, dest.clamp(0, n - 1), totals)
+
+
+def paged_units_plain(plo, sl, vals, x2, q: int, each: bool = False,
+                      acc=None, dest=None):
+    """The partials of the pageable prefix of a paged run or block table
+    (``kernels.py:570-588``, :647-665 over ``paged_gather``): tile t's
+    slots ``[u*SU, (u+1)*SU)`` hold unit ``t*g + u``'s window offsets, g =
+    1024 // SU, and ``vals`` holds the T*g units in the same order.  A
+    (Up, W) run table gives ``sum_j vals[u, j] * x[u, j]`` (Up,), or the
+    products (Up, W) when ``each`` (a diagonal or anti-diagonal run writes W
+    rows); a (Up, br, bc) block table ``sum_c vals[u, r, c] * x[u, c]``
+    (Up, br).  Sums run left to right from 0, as the CUDA kernel's do.
+    With ``acc``: ``add_totals(acc, partials, dest)``, ``dest`` the
+    partials' destination rows, flat; returns ``acc``."""
+    R, C, SU = _unit_form(vals, each)
+    T = plo.shape[0]
+    g = PAGE // SU
+    xs = _window_x(plo, sl, x2, q).reshape(T, PAGE)[:, : g * SU]
+    if each:
+        out = xs.reshape(T * g, SU) * vals
+    else:
+        xs = xs.reshape(T * g, 1, C)
+        v = vals.reshape(T * g, R, C)
+        out = torch.zeros((T * g, R), dtype=vals.dtype, device=vals.device)
+        for c in range(C):
+            out = out + v[..., c] * xs[..., c]
+        out = out.reshape(vals.shape[:-1])
+    return out if acc is None else add_totals(acc, out.reshape(-1), dest)
+
+
+def paged_units(plo, sl, vals, x2, q: int, each: bool = False, acc=None,
+                dest=None):
+    """The unit-page gather, the multiply by ``vals`` and the per-unit sums
+    of :func:`paged_units_plain` in one kernel; ``sl`` int16 or int32,
+    ``vals`` the table's first T*g units, contiguous.  With ``acc`` (n,)
+    and ``dest`` (int64, one row per partial) the kernel adds each partial
+    into ``acc[dest]`` itself (atomic adds, in no fixed order, as CUDA's
+    ``index_add_`` makes them; rows outside [0, n) dropped) and returns
+    ``acc``.  The windows must lie inside ``x2`` (``ops/convert.py``
+    checks the plan's)."""
+    _value_dtype("vals", vals)
+    dev = vals.device
+    T = _check_pages(plo, sl, x2, q, (torch.int16, torch.int32), dev)
+    R, C, SU = _unit_form(vals, each)
+    g = PAGE // SU
+    if not 1 <= SU <= PAGE or vals.shape[0] != T * g:
+        raise ValueError(f"vals: {vals.shape[0]} units of {SU} slots, "
+                         f"expected T*g = {T}*{g}")
+    _check("vals", vals)
+    _check("x2", x2, vals.dtype)
+    if acc is not None:
+        _check("acc", acc, vals.dtype, (acc.shape[0],), dev)
+        _check("dest", dest, torch.int64, (T * g * R,), dev)
+    if _route(dev) == "cpu":
+        return paged_units_plain(plo, sl, vals, x2, q, each, acc, dest)
+    out = acc
+    if acc is None:
+        out = torch.empty(vals.shape if each else vals.shape[:-1],
+                          dtype=vals.dtype, device=dev)
+    _launch("paged_units", vals.dtype, plo.data_ptr(), sl.data_ptr(),
+            vals.data_ptr(), x2.data_ptr(),
+            None if acc is not None else out.data_ptr(),
+            None if acc is None else acc.data_ptr(),
+            None if acc is None else dest.data_ptr(),
+            0 if acc is None else acc.shape[0], T, q, sl.element_size(), R,
+            C, 1 if each else 0, SU, g, _stream(dev))
+    return out
+
+
 def page_grid(x, ncols: int, npages: int):
     """x as an (npages, 8, L) page grid, zero-padded past ``ncols``; a
     k-major x (k, ncols) gives (k, npages, 8, L)."""
@@ -412,16 +510,10 @@ def delta_pages_spmv(rep_meta, rep, x, nrows_part: int, ncols: int, acc,
     return acc.index_add_(0, rep["rows"], prods)
 
 
-def paged_gather(plan_meta, plan, x, ncols: int, W: int, x2=None):
-    """Gathered x for the pageable prefix: (T*g, W) (pallas_kernels.py:446);
-    each tile's first g*W values are its g units."""
-    T, q, g, _npages = plan_meta
-    out = paged_gather_grid(plan_meta, plan, x, ncols, x2=x2)
-    return out.reshape(T, DELTA_TILE)[:, : g * W].reshape(T * g, W)
-
-
 def paged_gather_grid(plan_meta, plan, x, ncols: int, x2=None):
-    """Gathered x in raw (T, 8, 128) grid form (element / tile order)."""
+    """Gathered x in raw (T, 8, 128) grid form (element / tile order), as
+    the reference's fblk chain reads it (kernels.py:607-646, Queue 1 item
+    10)."""
     _T, q, _g, npages = plan_meta
     if x2 is None:
         x2 = pad_x_pages(x, ncols, q, npages)
@@ -432,5 +524,6 @@ __all__ = [
     "build_delta_pages", "build_unit_pages", "dia", "dia_plain",
     "dia_frame", "dia_spmv", "delta_pages", "delta_pages_plain", "gather",
     "gather_plain", "page_grid", "pad_x_pages", "delta_pages_products",
-    "delta_pages_spmv", "paged_gather", "paged_gather_grid", "window_index",
+    "delta_pages_spmv", "add_totals", "paged_gather_grid", "paged_units",
+    "paged_units_plain", "window_index",
 ]

@@ -462,8 +462,9 @@ _FR = (1, 1, 8, None, None, ("frun", (8, 4, 32, (), 0, "rlp8"), 0))
     (((1, 1, 8, (15, 3, 128, 32), None),),
      ((14, 4, 2, (15, 4, 512, 32), None, ("fblk", (), 0)),), (_DF,),
      "Queue 1 item 10"),
-    (((1, 1, 8, None, ("fs", (), False, 128)),), (), (_DF,),
-     "Queue 1 item 7"),
+    (((1, 1, 8, None, ("fs", (), False, 128)),), (),
+     (_DF, ("dpages", 12, 4, 32), ("dscatter", (), False)),
+     "Queue 1 item 10"),
     ((), ((14, 4, 2, (15, 4, 512, 32), None, ("fblk", (), 0)),), (_DF,),
      "Queue 1 item 10"),
     ((), ((14, 4, 2, None, ((), False, 1024)),), (_DF,), "Queue 1 item 3"),
@@ -472,13 +473,14 @@ _FR = (1, 1, 8, None, None, ("frun", (8, 4, 32, (), 0, "rlp8"), 0))
     ((_FR,), (), (_DF, ("fall", (("delta",), ("blk", 0, 0)), (), (), ())),
      "Queue 1 item 10"),
     ((_FR,), (), (_DF, ("fall", (("delta",), ("run", 0)), (), (),
-                        (("bres", 0, 0),))), "Queue 1 item 7"),
+                        (("bres", 0, 0),))), "Queue 1 item 10"),
     (((1, 1, 16, None, ((), False, 1024)),), (), (), "Queue 1 item 3"),
 ])
 def test_check_slice_refusals(runs, blocks, extras, item):
     """What the port does not run yet is refused, naming its queue item;
-    a paged run table and a paged plan without a fused segment are
-    admitted (ported since), so their cases carry a refused class."""
+    a paged run table, a paged plan without a fused segment and an ``fs``
+    route are admitted (ported since), so their cases carry a refused
+    class."""
     meta = (1 << 14, 1 << 14, runs, blocks, ()) + extras
     with pytest.raises(NotImplementedError, match=item):
         check_slice(meta)

@@ -7,10 +7,11 @@ not installed; there, skip the JAX-based ``tests/conftest.py``:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 K1 (styles lp, rlp{W}, sl and run{W}), T1, K2, the lane gather, the DIA
-kernel, the delta-pages product and the unit-page gather must equal their
-plain versions bit for bit; K3 must agree to 1e-6 of the largest value
+kernel, the delta-pages product, the unit-page gather and the paged-units
+kernel must equal their plain versions bit for bit; K3 must agree to 1e-6 of the largest value
 (both sum in the same order, without FMA).  The k-batched (SpMM) variants
-of K1, T1, K2, K3 and the lane gather, at kb = 1, 3 and 8, must equal
+of K1, T1, K2, K3 and the lane gather, at kb = 1, 3 and 8 (K2 at every
+kb from 1 to 8), must equal
 their plain versions the same way, and each column c the kb = 0 kernel on
 column c.
 """
@@ -130,11 +131,23 @@ def test_t1_cuda_matches_plain(dev, dtype):
     assert torch.equal(got, tf.t1_plain(t, 46))
 
 
-@pytest.mark.parametrize("A2R,W2,D2R,masked", [
+# (A2R, W2, D2R, masked): each of A2R, W2 and D2R at 1, 127 and 128, in
+# masked (wires of -1) and um2 (no negative wire) form; random wires past
+# A2R or W2 read 0 as well
+K2_SHAPES = [
     (46, 128, 64, False),      # the headline instance
     (13, 16, 5, True),
-    (128, 64, 128, False),     # C1 over 48 KB of shared memory
-])
+    (128, 64, 128, False),     # 16 row blocks of 8 per colour
+    (1, 1, 1, True),
+    (1, 128, 127, False),      # a last row block of 7 rows
+    (127, 127, 127, True),
+    (128, 1, 128, True),
+    (127, 128, 1, False),
+    (128, 128, 128, True),
+]
+
+
+@pytest.mark.parametrize("A2R,W2,D2R,masked", K2_SHAPES)
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_k2_cuda_matches_plain(dev, A2R, W2, D2R, masked, dtype):
     rng = np.random.default_rng(A2R)
@@ -247,6 +260,47 @@ def test_paged_gather_cuda_matches_plain(dev, T, sl_dtype, dtype):
     assert torch.equal(got, tpk.gather_plain(*args, q))
 
 
+@pytest.mark.parametrize("form,width,q", [
+    ("runs", 5, 2), ("runs", 8, 1), ("diag", 3, 3), ("blocks", 3, 2),
+    ("blocks", 2, 8)])
+@pytest.mark.parametrize("sl_dtype", [np.int16, np.int32])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_paged_units_cuda_matches_plain(dev, form, width, q, sl_dtype, dtype):
+    """Horizontal run sums, diagonal products and block-row sums over
+    q-page windows (q = 8: 64 KB of f64 window in shared memory), some
+    offsets outside the window; on a page grid of its own and on one that
+    starts one value past a 16-byte boundary (element copies); then the
+    scatter epilogue into an accumulator."""
+    rng = np.random.default_rng(width * 10 + q)
+    T, npages = 37, 60
+    su = width
+    g = 1024 // su
+    plo = rng.integers(0, npages - q + 1, T).astype(np.int32)
+    sl = rng.integers(-5, q * 1024 + 300, (T, 8, L)).astype(sl_dtype)
+    vshape = (T * g, width, width) if form == "blocks" else (T * g, width)
+    vals = rng.standard_normal(vshape).astype(dtype)
+    x2 = rng.standard_normal((npages * 1024 + 1,)).astype(dtype)
+    plo_t, sl_t, vals_t, x2_t = _on(dev, plo, sl, vals, x2)
+    each = form == "diag"
+    for grid in (x2_t[:-1].view(npages, 8, L),
+                 x2_t[1:].view(npages, 8, L)):   # misaligned by one value
+        got = _launched("paged_units", lambda: tpk.paged_units(
+            plo_t, sl_t, vals_t, grid, q, each))
+        want = tpk.paged_units_plain(plo_t, sl_t, vals_t, grid, q, each)
+        assert got.shape == want.shape and torch.equal(got, want)
+    # the scatter epilogue: atomic adds into acc[dest], rows outside
+    # [0, n) dropped, in no fixed order: within 1e-6 of index_add_'s sums
+    n = 5000
+    dest = torch.from_numpy(rng.integers(-3, n + 3, want.numel())).to(dev)
+    acc0 = torch.from_numpy(rng.standard_normal(n).astype(dtype)).to(dev)
+    got = _launched("paged_units", lambda: tpk.paged_units(
+        plo_t, sl_t, vals_t, grid, q, each, acc0.clone(), dest))
+    want = tpk.paged_units_plain(plo_t, sl_t, vals_t, grid, q, each,
+                                 acc0.clone(), dest)
+    assert got.shape == (n,)
+    assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+
+
 def _api_cuda_vs_cpu(build, n, dtype, kernels, **options):
     """Tune ``build(n)`` on the card and on the CPU, run one SpMV on each and
     check that every kernel in ``kernels`` launched on the card."""
@@ -316,7 +370,7 @@ def test_api_cuda_hpcg_matches_cpu(dev, dtype):
 
 @pytest.mark.parametrize("build,n,kernels", [
     ("build_matrix", 1 << 17, ("dia", "delta_pages")),
-    ("build_blocky_matrix", 1 << 18, ("delta_pages", "paged_gather")),
+    ("build_blocky_matrix", 1 << 18, ("delta_pages", "paged_units")),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_api_cuda_paged_matches_cpu(dev, monkeypatch, build, n, kernels,
@@ -327,6 +381,24 @@ def test_api_cuda_paged_matches_cpu(dev, monkeypatch, build, n, kernels,
     monkeypatch.setattr(troute, "MIN_ELEMS", 1 << 30)
     _api_cuda_vs_cpu(getattr(chip_smoke, build), n, dtype, kernels,
                      **{"spx.tpu.min_fused_nnz": str(1 << 30)})
+
+
+@pytest.mark.parametrize("build,n", [
+    ("block3_matrix", 3 << 16),
+    ("wide_run_matrix", 1 << 17),
+])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_api_cuda_fs_matches_cpu(dev, monkeypatch, build, n, dtype):
+    """The partial-segment route: a 3x3 block table, and a width-5 run
+    table beside the fused delta pipeline (route gate lowered as in
+    tests/test_torch_fs.py): the paged-units kernel, then per instance the
+    lane gather, T1 and K2, into K3."""
+    import chip_smoke
+    monkeypatch.setattr(troute, "MIN_ELEMS", 1024)
+    fn = getattr(chip_smoke, build)
+    _api_cuda_vs_cpu(fn if build == "block3_matrix" else (lambda m: fn(m, 5)),
+                     n, dtype, ("paged_units", "lane_gather", "t1", "k2",
+                                "k3"))
 
 
 # ---------------------------------------------------------------------------
@@ -385,12 +457,8 @@ def test_t1_kb_cuda_matches_plain(dev, kb, dtype):
     _columns_equal(got, [tf.t1(t[c], 13) for c in range(kb)])
 
 
-@pytest.mark.parametrize("A2R,W2,D2R,masked", [
-    (46, 128, 64, False),
-    (13, 16, 5, True),
-    (128, 64, 128, False),     # 176 KB of shared memory in f64
-])
-@pytest.mark.parametrize("kb", [1, 3, 8])
+@pytest.mark.parametrize("A2R,W2,D2R,masked", K2_SHAPES)
+@pytest.mark.parametrize("kb", [1, 3, 8, 2, 4, 5, 6, 7])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_k2_kb_cuda_matches_plain(dev, A2R, W2, D2R, masked, kb, dtype):
     rng = np.random.default_rng(A2R + kb)

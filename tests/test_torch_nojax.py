@@ -7,7 +7,9 @@ each SpMV against a numpy COO oracle within ``chip_smoke.CHECK_TOL``: the
 headline matrix at 2^17 rows, the blocky matrix at 2^18 (fused runs and a
 merged plan), the HPCG stencil at 16^3 (the plain-table DIA variant, its
 meta recomputed from the port's own tables), the wide-run matrix at 2^15
-(K1 style run16) and the lane-skewed one at 2^15 (K1 style sl).  Then it
+(K1 style run16), the lane-skewed one at 2^15 (K1 style sl) and the 3x3
+block matrix at 3 * 2^14 (a block table through a partial segment,
+``fs``).  Then it
 checks two refusals, no default device without CUDA and no kernel build
 without nvcc, and that a plan outside the ported slice (the paged delta
 with its scatter route) raises NotImplementedError; at the end no module
@@ -119,6 +121,13 @@ A = tune(n, rows, cols, vals)
 fmeta = A.csx.executors[0].meta[5][1]
 out["sl"] = (extras(A), fmeta[6], spmv_err(A, n, rows, cols, vals, 5))
 
+n = 3 << 14               # a 3x3 block table through a partial segment
+rows, cols, vals = cs.block3_matrix(n)
+A = tune(n, rows, cols, vals)
+ex = A.csx.executors[0]
+out["fs"] = ([e[4][0] for e in ex.meta[3] if len(e) > 4 and e[4]],
+             spmv_err(A, n, rows, cols, vals, 6))
+
 torch.cuda.is_available = lambda: False
 try:
     spx.resolve_device()
@@ -176,6 +185,7 @@ def test_port_runs_and_refuses_without_jax():
     assert out["run16"][2] < tol
     assert out["sl"][:2] == [["dfused"], "sl"]
     assert out["sl"][2] < tol
+    assert out["fs"][0] == ["fs"] and out["fs"][1] < tol
     assert out["no_cuda"] == "SparsexError"
     assert out["no_nvcc"] == "KernelBuildError"
     assert out["out_of_slice"] == "NotImplementedError"

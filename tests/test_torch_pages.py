@@ -194,6 +194,70 @@ def test_gather_plain_matches_pallas(T, sl_dtype):
     assert (want == 0).mean() < 0.1
 
 
+@pytest.mark.parametrize("form,width", [("runs", 5), ("runs", 8),
+                                        ("diag", 3), ("blocks", 3),
+                                        ("blocks", 2)])
+def test_paged_units_plain_matches_reference(form, width):
+    """The paged-units kernel's plain version against the reference's own
+    composition on a unit-page plan: the paged gather in interpret mode
+    times the values, summed per unit (a horizontal run table), per block
+    row (a block table of width x width blocks) or not at all (a diagonal
+    run table, one product per row)."""
+    rng = np.random.default_rng(width)
+    n, U = 1 << 15, 9000
+    W = width
+    base = np.sort(rng.integers(0, n - 3000, U))
+    flat = (base[:, None] + np.arange(W)).reshape(-1)
+    order, n_page, plan = pk.build_unit_pages(flat, W, n)
+    assert plan is not None and 0 < n_page <= U
+    vshape = (n_page, W, W) if form == "blocks" else (n_page, W)
+    vals = rng.standard_normal((U,) + vshape[1:])[order][:n_page]
+    x = rng.standard_normal(n)
+    sig = (plan["T"], plan["q"], plan["g"], plan["npages"])
+    with pltpu.force_tpu_interpret_mode():
+        xg = np.asarray(pk.paged_gather(
+            sig, {k: jnp.asarray(plan[k]) for k in ("plo", "sl")},
+            jnp.asarray(x.astype(np.float32)), n, W)).astype(np.float64)
+    if form == "blocks":
+        want = (vals * xg[:, None, :]).sum(-1)
+    elif form == "runs":
+        want = (vals * xg).sum(-1)
+    else:
+        want = vals * xg
+    x2 = tpk.pad_x_pages(_t(x.astype(np.float32)).double(), n, plan["q"],
+                         plan["npages"])
+    got = tpk.paged_units_plain(_t(plan["plo"]), _t(plan["sl"]), _t(vals),
+                                x2, plan["q"], form == "diag")
+    assert got.shape == want.shape and got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+    assert torch.equal(tpk.paged_units(_t(plan["plo"]), _t(plan["sl"]),
+                                       _t(vals), x2, plan["q"],
+                                       form == "diag"), got)
+    # the scatter form adds the partials into acc[dest], dropping rows
+    # outside [0, n)
+    dest = torch.as_tensor(rng.integers(-2, n + 2, got.numel()))
+    acc = torch.as_tensor(rng.standard_normal(n))
+    ok = (dest >= 0) & (dest < n)
+    want_acc = acc.clone().index_add_(0, dest[ok], got.reshape(-1)[ok])
+    out = tpk.paged_units(_t(plan["plo"]), _t(plan["sl"]), _t(vals), x2,
+                          plan["q"], form == "diag", acc, dest)
+    assert out is acc and torch.allclose(acc, want_acc, rtol=0, atol=1e-12)
+
+
+def test_paged_units_rejects_bad_arguments():
+    plo = torch.zeros(2, dtype=torch.int32)
+    sl = torch.zeros(2, 8, L, dtype=torch.int32)
+    x2 = torch.zeros(4, 8, L)
+    tpk.paged_units(plo, sl, torch.zeros(2 * 204, 5), x2, 2)
+    with pytest.raises(ValueError, match="T\\*g"):     # T*g = 408 units
+        tpk.paged_units(plo, sl, torch.zeros(400, 5), x2, 2)
+    with pytest.raises(ValueError, match="row sums"):
+        tpk.paged_units(plo, sl, torch.zeros(2 * 341, 3, 3), x2, 2, True)
+    with pytest.raises(TypeError):
+        tpk.paged_units(plo, sl, torch.zeros(2 * 204, 5, dtype=torch.float64),
+                        x2, 2)
+
+
 def test_page_wrappers_reject_bad_arguments():
     x2 = torch.zeros(4, 8, L)
     plo = torch.zeros(2, dtype=torch.int32)
@@ -328,8 +392,9 @@ def test_paged_variant_without_fused_segment(monkeypatch, dtype, bar):
 
 def test_paged_tables_keep_their_unit_order(monkeypatch):
     """A paged table's units are reordered by the planner; the port uploads
-    the reordered rows, cols and vals and its tail past T*g units takes
-    the clipped gather."""
+    the reordered rows, cols and vals, and its partials (the paged-units
+    kernel's for the first T*g units, the clipped gather's for the tail)
+    are the block rows' sums over those units, left to right."""
     _thresholds(monkeypatch, 1024, 1 << 30)
     n, rows, cols, vals = combined_matrix()
     A, ref = _tune(n, rows, cols, vals, "float64",
@@ -344,9 +409,14 @@ def test_paged_tables_keep_their_unit_order(monkeypatch):
         T, _q, g, _np = entry[3]
         x = torch.as_tensor(np.random.default_rng(2).standard_normal(n))
         steps = torch.arange(entry[2])
-        got = tk._gather_units(d, entry, d["cols"], steps, x, n,
-                               tk.paged_grid(ex.meta, x, n))
-        want = x[(d["cols"][:, None] + steps).clamp(0, n - 1)]
+        got, dest = tk.unit_table_partials("blocks", entry, d, x, n, n,
+                                           tk.paged_grid(ex.meta, x, n))
+        assert torch.equal(dest, (d["rows"][:, None] + torch.arange(
+            entry[1])).clamp(0, n - 1).reshape(-1))
+        xg = x[(d["cols"][:, None] + steps).clamp(0, n - 1)]
+        want = torch.zeros(d["vals"].shape[:2], dtype=x.dtype)
+        for c in range(entry[2]):
+            want = want + d["vals"][..., c] * xg[:, None, c]
         assert d["cols"].shape[0] >= T * g
         assert torch.equal(got, want)
 
@@ -389,6 +459,31 @@ def _sig(v):
     return v
 
 
+def _units_sig(a):
+    """A paged-units call's arguments as something comparable: no trailing
+    None, and the scatter epilogue's accumulator, which holds what the
+    SpMV added before the table, by shape and dtype alone."""
+    a = list(a)
+    while a and a[-1] is None:
+        a.pop()
+    if len(a) > 6:
+        a[6] = (tuple(a[6].shape), str(a[6].dtype))
+    return _sig(a)
+
+
+def record_calls(monkeypatch, wrappers, calls):
+    """Wrap each (module, function, name) of ``wrappers`` so that a call
+    appends (name, its arguments as something comparable) to ``calls``;
+    ``ops.kernels`` reaches the paged-units wrapper through its own name."""
+    for mod, fn, name in wrappers:
+        def rec(*a, _f=getattr(mod, fn), _n=name):
+            calls.append((_n, _units_sig(a) if _n == "paged_units"
+                          else _sig(a)))
+            return _f(*a)
+        monkeypatch.setattr(mod, fn, rec)
+    monkeypatch.setattr(tk, "paged_units", tpk.paged_units)
+
+
 @pytest.mark.parametrize("kinds", [("hpcg",), ("headline", "blocky")])
 def test_chip_smoke_pages_phase_feeds_the_path_inputs(monkeypatch, kinds):
     """chip_smoke's plan check passes on both variants, its kernel phase
@@ -405,13 +500,10 @@ def test_chip_smoke_pages_phase_feeds_the_path_inputs(monkeypatch, kinds):
     A, _ref = _tune(n, rows, cols, vals, "float64", **opts)
     calls = []
     names = {"dia": "dia", "delta_pages": "delta_pages",
-             "gather": "paged_gather"}
-    for fn, name in names.items():
-        def rec(*a, _f=getattr(tpk, fn), _n=name):
-            calls.append((_n, _sig(a)))
-            return _f(*a)
-        monkeypatch.setattr(tpk, fn, rec)
-    x = torch.as_tensor(np.random.default_rng(1).standard_normal(n))
+             "gather": "paged_gather", "paged_units": "paged_units"}
+    record_calls(monkeypatch, [(tpk, fn, name) for fn, name in names.items()],
+                 calls)
+    x =torch.as_tensor(np.random.default_rng(1).standard_normal(n))
     A.csx.executors[0](x)
     path = list(calls)
     calls.clear()
@@ -419,12 +511,16 @@ def test_chip_smoke_pages_phase_feeds_the_path_inputs(monkeypatch, kinds):
     for kind in kinds:
         ex = chip_smoke.check_pages_plan(mat, kind, "cpu")
     res = chip_smoke.pages_kernel_phase(ex, x, "cpu", timed=False)
-    assert set(calls) == set(path)
+    # the unit-page gather left the path for the paged-units kernel; the
+    # phase still holds it on each paged table's window stream
+    gathers = [c for c in calls if c[0] == "paged_gather"]
+    assert set(calls) - set(gathers) == set(path)
+    assert len(gathers) == len(chip_smoke.paged_tables(ex.meta))
     counted = Counter(name for name, _ in path)
     want = chip_smoke.expected_counts(ex.meta)
     assert {k: want[k] for k in names.values()} == {
         k: counted[k] for k in names.values()}
-    assert set(res) == set(counted)
+    assert set(res) == set(counted) | ({"paged_gather"} if gathers else set())
     assert want["dia"] == 1 and sum(want.values()) == len(path)
 
 
@@ -447,7 +543,8 @@ def test_check_slice_admits_both_variants():
 @pytest.mark.parametrize("runs,blocks,dias,extras,item", [
     ((), (), _DIA, (("dpages", 12, 4, 16), ("dscatter", (), False)),
      "Queue 1 item 10"),
-    ((_PRUN[:4] + (("fs", (), False, 128),),), (), (), (), "Queue 1 item 7"),
+    ((_PRUN[:4] + (("fs", (), False, 128),),), (), (),
+     (("fall", (("delta",),), (), (), (("bres", 0, 0),)),), "Queue 1 item 10"),
     ((), (_PBLK[:5] + (("fblk", (), 0),),), (), (), "Queue 1 item 10"),
     ((), (), (), (("dpages", 12, 4, 16), ("dpagesT", 12, 4, 16)),
      "Queue 1 item 8"),
@@ -457,3 +554,11 @@ def test_check_slice_admits_both_variants():
 def test_check_slice_still_refuses(runs, blocks, dias, extras, item):
     with pytest.raises(NotImplementedError, match=item):
         check_slice((1 << 14, 1 << 14, runs, blocks, dias) + extras)
+
+
+def test_check_slice_admits_partial_segments():
+    """Paged run and block tables routed through a partial segment (``fs``)
+    run since the fs route was ported."""
+    fs = ("fs", (), False, 128)
+    check_slice((1 << 14, 1 << 14, (_PRUN[:4] + (fs,),), (_PBLK[:4] + (fs,),),
+                 _DIA, ("dpages", 12, 4, 16)))

@@ -16,9 +16,10 @@ asserts that the port produces, array for array with the same dtypes:
 
 The cases cover the headline and blocky matrices, the HPCG stencil (no
 paged plan), the legacy paged variant with and without its scatter
-routes (``dscatter``, ``fs``, ``fblk``: planned alike, though the port does
-not run them yet), the dense-tile K1 styles ``run16`` and ``sl``, and
-``spx.preproc.xform=none``.  Last, no file of the port or
+routes (``dscatter``, ``fs``, ``fblk``: planned alike, though the port runs
+only ``fs`` of them yet), the partial-segment routes of a width-5 run table
+and a 3x3 block table (their ``fscatter`` arrays), the dense-tile K1 styles
+``run16`` and ``sl``, and ``spx.preproc.xform=none``.  Last, no file of the port or
 ``chip_smoke.py`` imports ``sparsex_tpu``, ``jax`` or ``bench`` at any
 depth.
 """
@@ -96,6 +97,10 @@ CASES = {
            {"dfused"}),
     "xform_none": (chip_smoke.build_matrix, 1 << 15, "float32",
                    {"spx.preproc.xform": "none"}, _SMALL, {"dfused"}),
+    "fs_runs": (lambda n: chip_smoke.wide_run_matrix(n, 5), 1 << 16,
+                "float64", {}, {"MIN_ELEMS": 1024}, {"dfused"}),
+    "fs_blocks": (chip_smoke.block3_matrix, 3 << 14, "float32", {}, {},
+                  set()),
 }
 
 
@@ -160,10 +165,14 @@ def test_port_plans_the_reference_arrays(monkeypatch, name):
     if name == "sl":
         fmeta = next(e for e in plan._pages_meta[5:] if e[0] == "dfused")[1]
         assert fmeta[6] == "sl"
-    if name == "paged_routed":   # the classes the port plans but refuses
+    if name == "paged_routed":   # fblk: planned, not run by the port yet
         kinds = {e[5][0] for e in plan._pages_meta[3] if len(e) > 5}
         kinds |= {e[4][0] for e in plan._pages_meta[2] if e[4]}
         assert kinds == {"fs", "fblk"}
+    if name.startswith("fs_"):   # the routed table carries its fscatter
+        (fs,) = chip_smoke.fs_tables(plan._pages_meta)
+        kind, i, _e = fs
+        assert "g1_0" in plan._pages_arrays[kind][i]["fscatter"]
 
 
 def test_assert_same_sees_a_difference():
