@@ -55,16 +55,17 @@ this script imports nothing of the JAX package or its benchmark):
 - the SpMM (``matmat_kernel``, X of shape (n, k) from a numpy seed) on the
   matrix each path has tuned: timed at k = 8 (one k-batched chunk) on
   headline 2^20, blocky 2^21, wide-run and lane-skew 2^21 in float32 and
-  float64 and on blocky 2^19 in float32 (bench.py's SpMM configuration,
+  float64 and on blocky 2^19 and fs-run 2^21 (k-batched, the fs table by
+  row scatter) in float32 (blocky 2^19: bench.py's SpMM configuration,
   whose SpMV is timed too); untimed checks in float32 at k = 11 on
   headline 2^20 (chunks of 8 and 3), k = 3 on blocky 2^19 (the masked g3
-  instance), k = 8 on both fs paths (fs-run: k-batched, the fs table by
-  row scatter; fs-block: the SpMV once per column), k = 2 on HPCG 128^3
-  and headline 2^22 (the SpMV once per column).
+  instance), k = 8 on fs-block (the SpMV once per column), k = 2 on HPCG
+  128^3 and headline 2^22 (the SpMV once per column).
 
 Every phase is fatal on failure:
 
-1. the device, torch / CUDA versions and the kernel build time;
+1. the device, torch / CUDA versions and the kernel build time, with
+   nvcc's register, spill and shared-memory report per kernel (stderr);
 2. tuning, with the plan checked to hold the expected execution classes
    and K1 styles;
 3. each kernel of the path against its plain PyTorch version on that
@@ -1359,6 +1360,26 @@ def hpcg_matrix(nx):
 # main
 # ---------------------------------------------------------------------------
 
+_ENTRY = re.compile(r"(?:Compiling entry function|Function properties for)"
+                    r" .*?\d((?:k[123]|t1|lane_gather|dia|delta_pages|"
+                    r"paged_gather|paged_units)\w*?_kernel)I([fd])")
+
+
+def ptxas_report(log):
+    """nvcc's ``-Xptxas -v`` lines of registers, spills and static shared
+    memory, each named by its kernel and value type (``k3_kb_kernel<f>``).
+    Dynamic shared memory, such as the K3 kernels' ring
+    (``fused.cu:k3_smem_bytes``), is not in it."""
+    out, kernel = [], "?"
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            kernel = f"{m.group(1)}<{m.group(2)}>"
+        elif "registers" in line or "spill" in line or "smem" in line:
+            out.append(f"{kernel}: {line.split(' : ')[-1].strip()}")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1386,9 +1407,8 @@ def main():
     _build.library()
     say(f"kernel build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_build.build_seconds or 0:.1f} s)")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print("  ptxas: " + line.strip(), file=sys.stderr)
+    for line in ptxas_report(_build.build_log):
+        print("  ptxas: " + line, file=sys.stderr)
 
     tols = (("float32", CHECK_TOL), ("float64", 1e-6))
     kernels_out, summary = [], {}
@@ -1414,7 +1434,7 @@ def main():
          check_dense_plan("sl"), fused_kernel_phase, tols, True, mm8),
         ("fs-run 2^21 W=5 ", N_DENSE, lambda: wide_run_matrix(N_DENSE, 5),
          check_fs_plan("runs"), fused_kernel_phase, tols, True,
-         ((8, False, f32),)),
+         ((8, True, f32),)),
         ("fs-block 3x2^19 ", N_FS_BLOCK, lambda: block3_matrix(N_FS_BLOCK),
          check_fs_plan("blocks"), fused_kernel_phase, tols, True,
          ((8, False, f32),)),

@@ -21,6 +21,7 @@
 // value type.  Each launches on the caller's stream, never synchronises,
 // allocates nothing and returns cudaGetLastError().
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -295,15 +296,66 @@ __global__ void __launch_bounds__(K2_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// K3 (replaces fused.py:_build_k3).  One block of 128 threads per
-// (destination block i, row strip p); thread l owns y row
-// i*16384 + p*128 + l and writes it once:
+// K3 (replaces fused.py:_build_k3: the kb = 0 pallas_call at :1556 with
+// k3_kernel, the kb > 0 one at :1545 with k3_kb_kernel).  Row
+// i*16384 + p*128 + l of y, for destination block i, row strip p, lane l:
 //   y = sum_inst sum_k (g = g3[i,k,p,l]) >= 0 ? E1[g, i, p] : 0
 //     + sum_d dv[i,d,p,l] * x[row + off_d] + sum_a adv[i,a,p,l] * xr[row + aoff_a]
-// The 128 E1 values a strip gathers from (a strided column of E1) are
-// staged in shared memory per instance.  x reads outside [0, nx) give 0,
-// where the Pallas kernel reads a clamped block and relies on dv being 0.
+// x reads outside [0, nx) give 0, where the Pallas kernel reads a clamped
+// block and relies on dv being 0.
+//
+// Bound: bytes (chip_smoke._bound_k3): each E1, g3, dv, adv and x block
+// read once and y written once, E1, x and y once per column; on blocky
+// 2^21 (six instances, about 21 wires a row) 102 MB, about 31 us of HBM.
+//
+// Design (both forms share k3_body).  A block owns destination block i and
+// a band of K3_BAND = 16 adjacent strips (D2R x 8 blocks of 512 threads):
+// warp w owns strip p0 + w, lane j its lanes 4j..4j+3, so every g3 wire
+// load is one 4-byte word a thread and one 128-byte line a warp, and every
+// dv and y access a 16-byte vector.  Per instance s, and per column c in
+// the kb form, the block gathers from the tile E1[s][c][:, i, p0:p0+16]:
+// 128 row segments of 64 B (f32) / 128 B (f64), each contiguous, so E1
+// crosses HBM and L2 as whole sectors and every value once (the kb = 0
+// kernel of PR 1 read one 4-byte value per 32-byte sector and left the
+// other 7/8 to L2).  The tiles (s, c) stream, in that order, through a
+// ring of 4 (SpMV) or 8 (kb) shared-memory stages filled by 16-byte
+// asynchronous copies (cp.async, one or two a thread a tile): the copies
+// of tile t + STAGES - 1 are in flight while tile t is gathered from, one
+// barrier a tile.  A tile keeps E1's row-major layout, se[g][pp], its rows
+// padded to 16-byte boundaries (20 f32 / 18 f64 values), so that a warp's
+// 32 wires of one strip fall on 8 banks (f32) and the gathers conflict a
+// few ways; a tile landed transposed, se[pp][g] (the Pallas kernel's
+// VMEM slab transpose), spreads them over all banks but needs 4-8-byte
+// element copies, and measured 1.4-1.6x slower in the f32 kb form
+// (PERF.md, section 6).  A thread loads its K <= 8 wires of an instance once into
+// registers and applies them to every column, so g3 is read once a block
+// in both forms (the kb kernel of PR 5 read it again for every column and
+// waited at two barriers a column with its loads not overlapped).
+//
+// Order of the sums, per column: instances in order, k in order, then the
+// diagonals, then the anti-diagonals, with add_rn / mul_rn, so column c of
+// k3_kb_kernel is bit-equal to k3_kernel on column c.
 // ---------------------------------------------------------------------------
+constexpr int K3_BAND = 16;                  // row strips per block
+constexpr int K3_THREADS = K3_BAND * 32;     // a warp per strip
+constexpr int K3_LANES = L / 32;             // lanes (y rows) per thread
+constexpr int MAX_K = 8;         // g3 wires per instance (route max_k)
+
+// ring stages: the SpMV runs 3-4 blocks an SM, the kb form 1-2 (its kb x 4
+// running sums a thread), which keep more tiles in flight instead
+template <int KB>
+__host__ __device__ constexpr int k3_stages() { return KB > 1 ? 8 : 4; }
+
+// a tile row: K3_BAND values padded by 16 bytes, so that each row starts on
+// a 16-byte boundary (the copies' alignment) and row g + 1 on other banks
+template <typename T>
+__host__ __device__ constexpr int k3_row() { return K3_BAND + 16 / (int)sizeof(T); }
+
+template <typename T>
+__host__ __device__ constexpr size_t k3_smem_bytes(int stages) {
+  return (size_t)stages * L * k3_row<T>() * sizeof(T);
+}
+
 struct K3Args {
   const void* e1[MAX_INST];
   const int8_t* g3[MAX_INST];
@@ -322,39 +374,141 @@ struct K3Args {
 };
 
 template <typename T>
-__global__ void k3_kernel(K3Args a, T* __restrict__ y) {
-  __shared__ T se[MAX_INST][L];
-  const int i = blockIdx.x >> 7;
-  const int p = blockIdx.x & (L - 1);
-  const int l = threadIdx.x;
-  for (int s = 0; s < a.n_inst; ++s)
-    se[s][l] = static_cast<const T*>(a.e1[s])[((size_t)l * a.D2R + i) * L + p];
-  __syncthreads();
-  T total = T(0);
-  for (int s = 0; s < a.n_inst; ++s) {
-    const int K = a.K[s];
-    const int8_t* g = a.g3[s] + ((size_t)i * K * L + p) * L + l;
-    for (int k = 0; k < K; ++k) {
-      const int w = g[(size_t)k * L * L];
-      total = add_rn(total, w >= 0 ? se[s][w] : T(0));
+__device__ __forceinline__ void load4(T (&v)[4], const T* p);
+
+template <>
+__device__ __forceinline__ void load4<float>(float (&v)[4], const float* p) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+
+template <>
+__device__ __forceinline__ void load4<double>(double (&v)[4], const double* p) {
+  const double2 a = reinterpret_cast<const double2*>(p)[0];
+  const double2 b = reinterpret_cast<const double2*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+// total[c][r] += vals[r] * xs_c[j0 + r] for the kb columns (x read as 0
+// outside [0, nx)): one diagonal of the DIA part.
+template <typename T, int KB>
+__device__ __forceinline__ void k3_window(T (&total)[KB][K3_LANES],
+                                          const T (&vals)[K3_LANES],
+                                          const T* __restrict__ xs,
+                                          long long j0, long long nx, int kb,
+                                          long long col) {
+#pragma unroll
+  for (int c = 0; c < KB; ++c) {
+    if (c < kb) {
+#pragma unroll
+      for (int r = 0; r < K3_LANES; ++r) {
+        const long long j = j0 + r;
+        const T xv = (j >= 0 && j < nx) ? xs[c * col + j] : T(0);
+        total[c][r] = add_rn(total[c][r], mul_rn(vals[r], xv));
+      }
     }
   }
-  const long long row = (long long)i * TILE3 + p * L + l;
-  const T* x = static_cast<const T*>(a.x);
-  const T* dv = static_cast<const T*>(a.dv);
+}
+
+// One block of either form; KB = 1 is the SpMV (kb = 1, no column
+// strides), KB = MAX_KB the k-batched kernel with kb <= KB columns.
+template <typename T, int KB>
+__device__ __forceinline__ void k3_body(const K3Args& a, int kb, long long xs,
+                                        long long xrs, T* __restrict__ y) {
+  constexpr int STAGES = k3_stages<KB>();
+  constexpr int ROW = k3_row<T>();
+  constexpr int TILE = L * ROW;
+  extern __shared__ __align__(16) unsigned char k3_ring[];
+  T* ring = reinterpret_cast<T*>(k3_ring);   // [STAGES][L][ROW]
+  const int i = blockIdx.x / (L / K3_BAND);
+  const int p0 = (blockIdx.x % (L / K3_BAND)) * K3_BAND;
+  const int strip = threadIdx.x / 32;
+  const int l0 = (threadIdx.x % 32) * K3_LANES;
+  const int p = p0 + strip;
+  const size_t e1c = (size_t)L * a.D2R * L;           // E1 values per column
+  const int n_tiles = a.n_inst * kb;
+
+  // tile t = s * kb + c: E1[s][c][g, i, p0 + pp] -> ring[t % STAGES][g][pp];
+  // one commit group per tile (empty past the last), so that waiting for
+  // all but the newest STAGES - 2 groups waits for tile t
+  auto issue = [&](int t) {
+    if (t < n_tiles) {
+      const int s = t / kb;
+      const T* src = static_cast<const T*>(a.e1[s]) + (t - s * kb) * e1c +
+                     (size_t)i * L + p0;
+      T* dst = ring + (t % STAGES) * TILE;
+      constexpr int V = 16 / sizeof(T);
+#pragma unroll
+      for (int m = 0; m < L * K3_BAND / V / K3_THREADS; ++m) {
+        const int e = m * K3_THREADS + threadIdx.x;
+        const int g = e / (K3_BAND / V), pp = (e % (K3_BAND / V)) * V;
+        __pipeline_memcpy_async(dst + g * ROW + pp,
+                                src + (size_t)g * a.D2R * L + pp, 16);
+      }
+    }
+    __pipeline_commit();
+  };
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) issue(t);
+
+  T total[KB][K3_LANES];
+#pragma unroll
+  for (int c = 0; c < KB; ++c)
+#pragma unroll
+    for (int r = 0; r < K3_LANES; ++r) total[c][r] = T(0);
+  int t = 0;
+  for (int s = 0; s < a.n_inst; ++s) {
+    const int K = a.K[s];
+    const int8_t* g = a.g3[s] + ((size_t)i * K * L + p) * L + l0;
+    uint32_t wires[MAX_K];           // 4 int8 wires (lanes l0..l0+3) per k
+#pragma unroll
+    for (int k = 0; k < MAX_K; ++k)
+      wires[k] = k < K ? *reinterpret_cast<const uint32_t*>(g + (size_t)k * L * L)
+                       : 0u;
+#pragma unroll
+    for (int c = 0; c < KB; ++c) {
+      if (c < kb) {                  // uniform over the block: the barrier holds
+        __pipeline_wait_prior(STAGES - 2);
+        __syncthreads();             // tile t landed; tile t - 1's stage is free
+        issue(t + STAGES - 1);
+        const T* se = ring + (t % STAGES) * TILE + strip;
+#pragma unroll
+        for (int k = 0; k < MAX_K; ++k) {
+          if (k < K) {
+#pragma unroll
+            for (int r = 0; r < K3_LANES; ++r) {
+              const int w = (int)(int8_t)(wires[k] >> (8 * r));
+              total[c][r] = add_rn(total[c][r], w >= 0 ? se[w * ROW] : T(0));
+            }
+          }
+        }
+        ++t;
+      }
+    }
+  }
+  const long long row = (long long)i * TILE3 + p * L + l0;
   for (int d = 0; d < a.nd; ++d) {
-    const long long j = row + a.doff[d];
-    const T xv = (j >= 0 && j < a.nx) ? x[j] : T(0);
-    total = add_rn(total, mul_rn(dv[(((size_t)i * a.nd + d) * L + p) * L + l], xv));
+    T v[K3_LANES];
+    load4(v, static_cast<const T*>(a.dv) + (((size_t)i * a.nd + d) * L + p) * L + l0);
+    k3_window<T, KB>(total, v, static_cast<const T*>(a.x), row + a.doff[d],
+                     a.nx, kb, xs);
   }
-  const T* xr = static_cast<const T*>(a.xr);
-  const T* adv = static_cast<const T*>(a.adv);
   for (int d = 0; d < a.na; ++d) {
-    const long long j = row + a.aoff[d];
-    const T xv = (j >= 0 && j < a.nx) ? xr[j] : T(0);
-    total = add_rn(total, mul_rn(adv[(((size_t)i * a.na + d) * L + p) * L + l], xv));
+    T v[K3_LANES];
+    load4(v, static_cast<const T*>(a.adv) + (((size_t)i * a.na + d) * L + p) * L + l0);
+    k3_window<T, KB>(total, v, static_cast<const T*>(a.xr), row + a.aoff[d],
+                     a.nx, kb, xrs);
   }
-  y[row] = total;
+  const long long yc = (long long)a.D2R * TILE3;      // y values per column
+#pragma unroll
+  for (int c = 0; c < KB; ++c)
+    if (c < kb) store4(y + c * yc + row, total[c]);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(K3_THREADS)
+    k3_kernel(K3Args a, T* __restrict__ y) {
+  k3_body<T, 1>(a, 1, 0, 0, y);
 }
 
 // ===========================================================================
@@ -365,9 +519,8 @@ __global__ void k3_kernel(K3Args a, T* __restrict__ y) {
 // On the TPU the k axis is the
 // innermost grid axis and Mosaic's revisit optimisation keeps the metadata
 // blocks in VMEM across it; a CUDA grid has no revisit, so here a block
-// reads its metadata once (K1: mg/vals, K2: its wire chains, K3: its dv
-// and adv, and its g3 wires from device memory once, from L1 for the
-// further columns) and loops over the kb columns itself.
+// reads its metadata once (K1: mg/vals, K2: its wire chains, K3: its g3
+// wires, dv and adv) and loops over the kb columns itself.
 // Bound: the metadata bytes once plus kb x (the x values the slots read +
 // the output).  Column c is computed with the same intrinsics in the same
 // order as the kb = 1 kernel, so it is bit-equal to it; per-column values
@@ -501,21 +654,10 @@ __global__ void t1_kb_kernel(const T* __restrict__ in, T* __restrict__ out) {
     out[base + (size_t)(c0 + k) * L + j0 + threadIdx.x] = tile[threadIdx.x][k];
 }
 
-// K3: y rows of 8 adjacent row strips p0..p0+7 of destination block i per
-// block (1024 threads, thread (strip, l) owns row i*16384 + p*128 + l).  A
-// strip's E1 values are a strided column of E1, one value per 32-B sector,
-// and the 8 strips of a block share those sectors: the block stages them,
-// one column at a time (n_inst x 8 x 132 values, at most 66 KB in f64), 8
-// consecutive threads reading one sector, so every sector is read once
-// (block by strip, as k3_kernel, reads each 8 times).  The g3 wires (l
-// fastest, coalesced) come from device memory for the first column and
-// from L1 for the others; each dv / adv value is read once and applied to
-// all kb column sums, kept in registers.  xs / xrs: values per column of
-// the x / reversed-x blocks.
-constexpr int K3_STRIPS = 8;
-constexpr int K3_ROW = L + 4;    // padded se rows: a warp's staging stores
-                                 // (8 strips x 4 lanes) hit 32 banks
-
+// K3: k3_body over kb columns (above): the tiles of every column of an
+// instance stream through the ring in turn, against the same wires in
+// registers; each dv / adv value is read once and applied to all kb column
+// sums.  xs / xrs: values per column of the x / reversed-x blocks.
 struct K3KbArgs {
   K3Args a;
   int kb;
@@ -524,73 +666,9 @@ struct K3KbArgs {
 };
 
 template <typename T>
-__global__ void __launch_bounds__(K3_STRIPS * L)
+__global__ void __launch_bounds__(K3_THREADS)
     k3_kb_kernel(K3KbArgs b, T* __restrict__ y) {
-  extern __shared__ __align__(16) unsigned char k3kb_smem[];
-  T* se = reinterpret_cast<T*>(k3kb_smem);   // [n_inst][K3_STRIPS][K3_ROW]
-  const K3Args& a = b.a;
-  const int kb = b.kb;
-  const int i = blockIdx.x / (L / K3_STRIPS);
-  const int p0 = (blockIdx.x % (L / K3_STRIPS)) * K3_STRIPS;
-  const int l = threadIdx.x % L;
-  const int strip = threadIdx.x / L;
-  const int p = p0 + strip;
-  const int n_se = a.n_inst * K3_STRIPS * L;
-  const size_t e1c = (size_t)L * a.D2R * L;         // E1 values per column
-  T total[MAX_KB];
-#pragma unroll
-  for (int c = 0; c < MAX_KB; ++c) {
-    total[c] = T(0);
-    if (c < kb) {                  // uniform over the block: the barriers hold
-      for (int t = threadIdx.x; t < n_se; t += blockDim.x) {
-        const int st = t % K3_STRIPS;
-        const int ll = (t / K3_STRIPS) % L;
-        const int s = t / (K3_STRIPS * L);
-        se[(s * K3_STRIPS + st) * K3_ROW + ll] = static_cast<const T*>(a.e1[s])[
-            c * e1c + ((size_t)ll * a.D2R + i) * L + p0 + st];
-      }
-      __syncthreads();
-      for (int s = 0; s < a.n_inst; ++s) {
-        const int K = a.K[s];
-        const int8_t* g = a.g3[s] + ((size_t)i * K * L + p) * L + l;
-        const T* ses = se + (s * K3_STRIPS + strip) * K3_ROW;
-        for (int k = 0; k < K; ++k) {
-          const int w = g[(size_t)k * L * L];
-          total[c] = add_rn(total[c], w >= 0 ? ses[w] : T(0));
-        }
-      }
-      __syncthreads();             // the next column overwrites se
-    }
-  }
-  const long long row = (long long)i * TILE3 + p * L + l;
-  const T* x = static_cast<const T*>(a.x);
-  const T* dv = static_cast<const T*>(a.dv);
-  for (int d = 0; d < a.nd; ++d) {
-    const long long j = row + a.doff[d];
-    const bool inb = j >= 0 && j < a.nx;
-    const T dvv = dv[(((size_t)i * a.nd + d) * L + p) * L + l];
-#pragma unroll
-    for (int c = 0; c < MAX_KB; ++c)
-      if (c < kb)
-        total[c] = add_rn(total[c],
-                          mul_rn(dvv, inb ? x[c * b.xs + j] : T(0)));
-  }
-  const T* xr = static_cast<const T*>(a.xr);
-  const T* adv = static_cast<const T*>(a.adv);
-  for (int d = 0; d < a.na; ++d) {
-    const long long j = row + a.aoff[d];
-    const bool inb = j >= 0 && j < a.nx;
-    const T av = adv[(((size_t)i * a.na + d) * L + p) * L + l];
-#pragma unroll
-    for (int c = 0; c < MAX_KB; ++c)
-      if (c < kb)
-        total[c] = add_rn(total[c],
-                          mul_rn(av, inb ? xr[c * b.xrs + j] : T(0)));
-  }
-  const long long yc = (long long)a.D2R * TILE3;     // y values per column
-#pragma unroll
-  for (int c = 0; c < MAX_KB; ++c)
-    if (c < kb) y[c * yc + row] = total[c];
+  k3_body<T, MAX_KB>(b.a, b.kb, b.xs, b.xrs, y);
 }
 
 template <typename T, bool DENSE>
@@ -660,14 +738,21 @@ int launch_k2(const void* a1t, const void* g2a, const void* g2b, const void* g2c
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_k3(const void* const* e1, const void* const* g3, const int* K,
-              int n_inst, const void* dv, const void* doff, int nd,
-              const void* adv, const void* aoff, int na, const void* x,
-              const void* xr, long long nx, int D2R, void* y, void* stream) {
-  if (n_inst < 0 || n_inst > MAX_INST) return (int)cudaErrorInvalidValue;
-  K3Args a = {};
+// K3's arguments, checked: at most MAX_INST instances of at most MAX_K
+// wires; E1 (16-byte copies), g3 (4 wires at a time), dv and adv (16-byte
+// vectors) aligned for the kernel's loads.
+int k3_args(K3Args& a, const void* const* e1, const void* const* g3,
+            const int* K, int n_inst, const void* dv, const void* doff,
+            int nd, const void* adv, const void* aoff, int na, const void* x,
+            const void* xr, long long nx, int D2R) {
+  if (n_inst < 0 || n_inst > MAX_INST || D2R < 1 ||
+      ((uintptr_t)dv & 15) || ((uintptr_t)adv & 15))
+    return (int)cudaErrorInvalidValue;
+  a = K3Args{};
   for (int s = 0; s < n_inst; ++s) {
+    if (K[s] < 0 || K[s] > MAX_K || ((uintptr_t)e1[s] & 15) ||
+        ((uintptr_t)g3[s] & 3))
+      return (int)cudaErrorInvalidValue;
     a.e1[s] = e1[s];
     a.g3[s] = (const int8_t*)g3[s];
     a.K[s] = K[s];
@@ -683,7 +768,31 @@ int launch_k3(const void* const* e1, const void* const* g3, const int* K,
   a.xr = xr;
   a.nx = nx;
   a.D2R = D2R;
-  k3_kernel<T><<<D2R * L, L, 0, (cudaStream_t)stream>>>(a, (T*)y);
+  return 0;
+}
+
+// Both K3 kernels take 512 threads a block and dynamic shared memory
+// beyond 48 KB in f64 (and in the kb form's f32).
+template <typename Kernel>
+int k3_allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename T>
+int launch_k3(const void* const* e1, const void* const* g3, const int* K,
+              int n_inst, const void* dv, const void* doff, int nd,
+              const void* adv, const void* aoff, int na, const void* x,
+              const void* xr, long long nx, int D2R, void* y, void* stream) {
+  K3Args a;
+  int err = k3_args(a, e1, g3, K, n_inst, dv, doff, nd, adv, aoff, na, x, xr,
+                    nx, D2R);
+  const size_t smem = k3_smem_bytes<T>(k3_stages<1>());
+  if (!err) err = k3_allow_smem(k3_kernel<T>, smem);
+  if (err) return err;
+  k3_kernel<T><<<D2R * (L / K3_BAND), K3_THREADS, smem,
+                 (cudaStream_t)stream>>>(a, (T*)y);
   return (int)cudaGetLastError();
 }
 
@@ -749,36 +858,17 @@ int launch_k3_kb(const void* const* e1, const void* const* g3, const int* K,
                  const void* adv, const void* aoff, int na, const void* x,
                  const void* xr, long long nx, int D2R, void* y, int kb,
                  long long xs, long long xrs, void* stream) {
-  if (n_inst < 0 || n_inst > MAX_INST || kb < 1 || kb > MAX_KB)
-    return (int)cudaErrorInvalidValue;
-  K3KbArgs b = {};
-  for (int s = 0; s < n_inst; ++s) {
-    b.a.e1[s] = e1[s];
-    b.a.g3[s] = (const int8_t*)g3[s];
-    b.a.K[s] = K[s];
-  }
-  b.a.n_inst = n_inst;
-  b.a.dv = dv;
-  b.a.doff = (const int32_t*)doff;
-  b.a.nd = nd;
-  b.a.adv = adv;
-  b.a.aoff = (const int32_t*)aoff;
-  b.a.na = na;
-  b.a.x = x;
-  b.a.xr = xr;
-  b.a.nx = nx;
-  b.a.D2R = D2R;
+  if (kb < 1 || kb > MAX_KB) return (int)cudaErrorInvalidValue;
+  K3KbArgs b;
+  int err = k3_args(b.a, e1, g3, K, n_inst, dv, doff, nd, adv, aoff, na, x,
+                    xr, nx, D2R);
   b.kb = kb;
   b.xs = xs;
   b.xrs = xrs;
-  const size_t smem = (size_t)n_inst * K3_STRIPS * K3_ROW * sizeof(T);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        k3_kb_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  k3_kb_kernel<T><<<D2R * (L / K3_STRIPS), K3_STRIPS * L, smem,
+  const size_t smem = k3_smem_bytes<T>(k3_stages<MAX_KB>());
+  if (!err) err = k3_allow_smem(k3_kb_kernel<T>, smem);
+  if (err) return err;
+  k3_kb_kernel<T><<<D2R * (L / K3_BAND), K3_THREADS, smem,
                     (cudaStream_t)stream>>>(b, (T*)y);
   return (int)cudaGetLastError();
 }

@@ -63,6 +63,12 @@ def _route(device: torch.device) -> str:
 
 
 def _launch(kernel: str, dtype: torch.dtype, *args) -> None:
+    """Launch ``spx_{kernel}_{f32|f64}`` on the CUDA runtime's current
+    device, with the stream among ``args``.  An executor call makes the
+    matrix's device current once around all its launches
+    (``CsxExecutor._on_device``); a wrapper called directly, outside an
+    executor (the tests, ``chip_smoke.py``'s kernel phases), runs on the
+    current device, so its caller keeps that the operands' device."""
     from sparsex_tpu_torch.ops import _build
     lib = _build.library()
     fn = getattr(lib, f"spx_{kernel}_{_SFX[dtype]}")

@@ -27,6 +27,8 @@ number of diagonals.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -645,8 +647,9 @@ class CsxExecutor:
         if x.dim() == 2:
             acc = self.matmat(x)
         else:
-            acc = local_contrib(self.meta, self.arrays, x,
-                                nrows_part=self.nrows, ncols=self.ncols)
+            with self._on_device():
+                acc = local_contrib(self.meta, self.arrays, x,
+                                    nrows_part=self.nrows, ncols=self.ncols)
         apply_alpha = not (isinstance(alpha, (int, float))
                            and float(alpha) == 1.0)
         apply_beta = not (y is None or (isinstance(beta, (int, float))
@@ -671,21 +674,34 @@ class CsxExecutor:
         v5e-measured ``MM_COLUMN_LOOP_MAX`` (:851-876) is not carried over:
         the k-batched kernels run for every k."""
         k = X.shape[1]
-        if self.variant == "paged" and fused_mm_ok(self.meta):
-            xt = X.T.contiguous()
-            outs = [fused_mm_contrib(self.meta, self.arrays,
-                                     xt[c0:c0 + MM_FUSED_KB],
-                                     nrows_part=self.nrows, ncols=self.ncols)
-                    for c0 in range(0, k, MM_FUSED_KB)]
-        else:
-            outs = [local_contrib(self.meta, self.arrays,
-                                  X[:, j].contiguous(), nrows_part=self.nrows,
-                                  ncols=self.ncols)[None]
-                    for j in range(k)]
+        with self._on_device():
+            if self.variant == "paged" and fused_mm_ok(self.meta):
+                xt = X.T.contiguous()
+                outs = [fused_mm_contrib(self.meta, self.arrays,
+                                         xt[c0:c0 + MM_FUSED_KB],
+                                         nrows_part=self.nrows,
+                                         ncols=self.ncols)
+                        for c0 in range(0, k, MM_FUSED_KB)]
+            else:
+                outs = [local_contrib(self.meta, self.arrays,
+                                      X[:, j].contiguous(),
+                                      nrows_part=self.nrows,
+                                      ncols=self.ncols)[None]
+                        for j in range(k)]
         if not outs:
             return X.new_zeros((self.nrows, 0))
         out = torch.cat(outs) if len(outs) > 1 else outs[0]   # (k, nrows)
         return out.T.contiguous()
+
+    def _on_device(self):
+        """The matrix's CUDA device made current for one executor call, so
+        that every kernel launches on the operands' device (the ctypes
+        launchers take the CUDA runtime's current device); nothing on the
+        CPU.  Entered once a call, not once a launch: the SpMV called from
+        Python is host-bound."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
 
     def _as_vector(self, v, name: str) -> torch.Tensor:
         """``v`` as a tensor of the plan's dtype on the plan's device."""

@@ -13,7 +13,7 @@ kernel must equal their plain versions bit for bit; K3 must agree to 1e-6 of the
 of K1, T1, K2, K3 and the lane gather, at kb = 1, 3 and 8 (K2 at every
 kb from 1 to 8), must equal
 their plain versions the same way, and each column c the kb = 0 kernel on
-column c.
+column c (K3 also at kb = 5).  The K3 tests alone: add ``-k k3``.
 """
 
 import numpy as np
@@ -162,30 +162,63 @@ def test_k2_cuda_matches_plain(dev, A2R, W2, D2R, masked, dtype):
     assert torch.equal(got, tf.k2_plain(*args, W2, D2R))
 
 
-@pytest.mark.parametrize("n_inst,um3,dia,anti", [
-    (1, True, (-13, -1, 0, 1, 8), ()),
-    (2, False, (-20000, 300, 16390), (5, 40000)),
-    (8, True, (), (0,)),
-])
+# (seed, D2R, wires per instance, um3, dia, anti, ncols): K3's tiling is a
+# band of 16 strips of one destination block a CUDA block, the tiles of
+# every instance (and column) streaming through a shared-memory ring, each
+# instance's wires in registers; its edges are one destination block, an
+# odd number of them, eight instances of 1..8 wires beside DIA and anti
+# tables (n_inst = 8 in f64 at kb = 8: the largest ring), masked wires (-1)
+K3_CASES = [
+    pytest.param(1, 3, (2,), True, (-13, -1, 0, 1, 8), (), 40000,
+                 id="1-True-dia0-anti0"),
+    pytest.param(2, 3, (2, 2), False, (-20000, 300, 16390), (5, 40000),
+                 40000, id="2-False-dia1-anti1"),
+    pytest.param(8, 3, (2,) * 8, True, (), (0,), 40000,
+                 id="8-True-dia2-anti2"),
+    pytest.param(11, 1, (2,), False, (-5, 0, 7), (), 12000,
+                 id="d2r1-masked"),
+    pytest.param(12, 5, (1, 4), False, (-20000, 300), (5,), 70000,
+                 id="d2r5-k1k4-masked"),
+    pytest.param(13, 3, (1, 2, 3, 4, 5, 6, 7, 8), False, (-9, 0, 30000),
+                 (2, 40000), 45000, id="d2r3-8inst-k1to8-masked"),
+    pytest.param(14, 1, (8,) * 8, True, (0,), (0,), 16384,
+                 id="d2r1-8inst-k8-um3"),
+]
+
+
+def _k3_operands(dev, rng, D2R, Ks, um3, dia, anti, ncols, dtype, kb=0):
+    """K3's operands on ``dev``: one E1 ((kb,) 128, D2R, 128) and g3 (D2R,
+    K, 128, 128) per instance, dv / adv, and x as ``fused._to_blocks``
+    gives it (k-major when kb)."""
+    lead = (kb,) if kb else ()
+    e1s = _on(dev, *[rng.standard_normal(lead + (L, D2R, L)).astype(dtype)
+                     for _ in Ks])
+    g3s = _on(dev, *[rng.integers(0 if um3 else -1, L, (D2R, K, L, L))
+                     .astype(np.int8) for K in Ks])
+    dv, adv, x = _on(dev, rng.standard_normal((D2R, len(dia), L, L))
+                     .astype(dtype),
+                     rng.standard_normal((D2R, len(anti), L, L))
+                     .astype(dtype),
+                     rng.standard_normal(lead + (ncols,)).astype(dtype))
+    xb = tf._to_blocks(x)[0]
+    xrb = tf._to_blocks(torch.flip(x, (-1,)))[0]
+
+    def args(c=None):
+        """The operands, or column ``c``'s alone (the SpMV's)."""
+        pick = (lambda t: t) if c is None else (lambda t: t[c])
+        return ([pick(e) for e in e1s], g3s, dv, dia, adv, anti, pick(xb),
+                pick(xrb), ncols, D2R)
+    return args
+
+
+@pytest.mark.parametrize("seed,D2R,Ks,um3,dia,anti,ncols", K3_CASES)
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_k3_cuda_matches_plain(dev, n_inst, um3, dia, anti, dtype):
-    rng = np.random.default_rng(n_inst)
-    D2R, ncols, K = 3, 40000, 2
-    e1s = [rng.standard_normal((L, D2R, L)).astype(dtype)
-           for _ in range(n_inst)]
-    g3s = [rng.integers(0 if um3 else -1, L, (D2R, K, L, L)).astype(np.int8)
-           for _ in range(n_inst)]
-    dv = rng.standard_normal((D2R, len(dia), L, L)).astype(dtype)
-    adv = rng.standard_normal((D2R, len(anti), L, L)).astype(dtype)
-    x = rng.standard_normal(ncols).astype(dtype)
-    xt = _on(dev, x)[0]
-    xb = tf._to_blocks(xt)[0]
-    xrb = tf._to_blocks(torch.flip(xt, (0,)))[0]
-    args = (_on(dev, *e1s), _on(dev, *g3s), _on(dev, dv)[0], dia,
-            _on(dev, adv)[0], anti, xb, xrb, ncols, D2R)
-    got = tf.k3(*args)
-    torch.cuda.synchronize()
-    want = tf.k3_plain(*args)
+def test_k3_cuda_matches_plain(dev, seed, D2R, Ks, um3, dia, anti, ncols,
+                               dtype):
+    args = _k3_operands(dev, np.random.default_rng(seed), D2R, Ks, um3, dia,
+                        anti, ncols, dtype)
+    got = _launched("k3", lambda: tf.k3(*args()))
+    want = tf.k3_plain(*args())
     assert (got - want).abs().max() <= 1e-6 * want.abs().max()
 
 
@@ -474,38 +507,37 @@ def test_k2_kb_cuda_matches_plain(dev, A2R, W2, D2R, masked, kb, dtype):
                          for c in range(kb)])
 
 
-@pytest.mark.parametrize("n_inst,um3,dia,anti", [
-    (1, True, (-13, -1, 0, 1, 8), ()),
-    (2, False, (-20000, 300, 16390), (5, 40000)),
-    (8, True, (), (0,)),       # 64 KB of staged E1 in f64 at kb = 8
-    (3, False, (), ()),
-])
+K3_KB_CASES = K3_CASES[:3] + [
+    pytest.param(3, 3, (2,) * 3, False, (), (), 40000,
+                 id="3-False-dia3-anti3")] + K3_CASES[3:]
+
+
+@pytest.mark.parametrize("seed,D2R,Ks,um3,dia,anti,ncols", K3_KB_CASES)
 @pytest.mark.parametrize("kb", [1, 3, 8])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_k3_kb_cuda_matches_plain(dev, n_inst, um3, dia, anti, kb, dtype):
-    rng = np.random.default_rng(n_inst * 10 + kb)
-    D2R, ncols, K = 3, 40000, 2
-    e1s = _on(dev, *[rng.standard_normal((kb, L, D2R, L)).astype(dtype)
-                     for _ in range(n_inst)])
-    g3s = _on(dev, *[rng.integers(0 if um3 else -1, L, (D2R, K, L, L))
-                     .astype(np.int8) for _ in range(n_inst)])
-    dv, adv, x = _on(dev, rng.standard_normal((D2R, len(dia), L, L))
-                     .astype(dtype),
-                     rng.standard_normal((D2R, len(anti), L, L))
-                     .astype(dtype),
-                     rng.standard_normal((kb, ncols)).astype(dtype))
-    xb = tf._to_blocks(x)[0]
-    xrb = tf._to_blocks(torch.flip(x, (-1,)))[0]
-
-    def args(c=None):
-        pick = (lambda t: t) if c is None else (lambda t: t[c])
-        return ([pick(e) for e in e1s], g3s, dv, dia, adv, anti, pick(xb),
-                pick(xrb), ncols, D2R)
-
+def test_k3_kb_cuda_matches_plain(dev, seed, D2R, Ks, um3, dia, anti, ncols,
+                                  kb, dtype):
+    args = _k3_operands(dev, np.random.default_rng(seed * 10 + kb), D2R, Ks,
+                        um3, dia, anti, ncols, dtype, kb)
     got = _launched("k3_kb", lambda: tf.k3(*args()))
     want = tf.k3_plain(*args())
     assert (got - want).abs().max() <= 1e-6 * want.abs().max()
     _columns_equal(got, [tf.k3(*args(c)) for c in range(kb)])
+
+
+@pytest.mark.parametrize("seed,D2R,Ks,um3,dia,anti,ncols", K3_CASES)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_k3_kb_columns_bit_equal_k3(dev, seed, D2R, Ks, um3, dia, anti, ncols,
+                                    dtype):
+    """Each column c of one k3_kb launch over kb = 5 columns (a batch the
+    kernel's unrolled column loop cuts short) equals, bit for bit, the SpMV
+    kernel k3 launched on column c alone."""
+    kb = 5
+    args = _k3_operands(dev, np.random.default_rng(seed + 50), D2R, Ks, um3,
+                        dia, anti, ncols, dtype, kb)
+    got = _launched("k3_kb", lambda: tf.k3(*args()))
+    cols = [_launched("k3", lambda c=c: tf.k3(*args(c))) for c in range(kb)]
+    _columns_equal(got, cols)
 
 
 @pytest.mark.parametrize("K,R", [(1, 4736), (3, 200)])

@@ -136,11 +136,14 @@ def test_k2_matches_route_numpy_reference():
 
 
 def _k3_case(rng, D2R, ncols, n_inst, um3, dia, anti, K=3):
+    """``n_inst`` instances of ``K`` wires each, or of ``K[s]`` wires for
+    a sequence ``K``; masked wires (-1) unless ``um3``."""
+    Ks = (K,) * n_inst if isinstance(K, int) else tuple(K)
     e1_np, g3_np = [], []
-    for _ in range(n_inst):
+    for s in range(n_inst):
         e1_np.append(rng.standard_normal((L, D2R, L)).astype(np.float32))
         g3_np.append(rng.integers(0 if um3 else -1, L,
-                                  (D2R, K, L, L)).astype(np.int8))
+                                  (D2R, Ks[s], L, L)).astype(np.int8))
     nrows = D2R * TILE3
     r = np.arange(nrows)
 
@@ -160,9 +163,8 @@ def _k3_case(rng, D2R, ncols, n_inst, um3, dia, anti, K=3):
 
 
 def _k3_both(e1_np, g3_np, um3, dia, dv, anti, adv, x, nrows, ncols):
-    K = g3_np[0].shape[1] if g3_np else 0
     with pltpu.force_tpu_interpret_mode():
-        e1g3 = [(jnp.asarray(e), jnp.asarray(g), K, um3)
+        e1g3 = [(jnp.asarray(e), jnp.asarray(g), g.shape[1], um3)
                 for e, g in zip(e1_np, g3_np)]
         pack = (tuple(dia), None if dv is None else jnp.asarray(dv),
                 tuple(anti), None if adv is None else jnp.asarray(adv))
@@ -170,25 +172,43 @@ def _k3_both(e1_np, g3_np, um3, dia, dv, anti, adv, x, nrows, ncols):
                                            nrows, ncols))
     tpack = (tuple(dia), None if dv is None else _t(dv), tuple(anti),
              None if adv is None else _t(adv))
-    got = tf.k3_combine([(_t(e), _t(g), K, um3)
+    got = tf.k3_combine([(_t(e), _t(g), g.shape[1], um3)
                          for e, g in zip(e1_np, g3_np)], tpack, _t(x),
                         nrows, ncols).numpy()
     return got, want
 
 
-@pytest.mark.parametrize("n_inst,um3,dia,anti", [
-    (1, True, (-13, -1, 0, 1, 8), ()),
-    (2, False, (-20000, 300, 16390), (5, 40000)),
-    (2, True, (), (0, 32767)),
-])
-def test_k3_matches_pallas(n_inst, um3, dia, anti):
+# (D2R, wires per instance, um3, dia, anti, ncols): the edges of the CUDA
+# kernels' tiling (a band of 16 strips of one destination block, the
+# instances' wires in registers): one destination block, an odd number of
+# them, eight instances with 1..8 wires beside DIA and anti tables, masked
+# wires (-1) where um3 is False
+K3_CASES = [
+    pytest.param(2, (3,), True, (-13, -1, 0, 1, 8), (), 30000,
+                 id="1-True-dia0-anti0"),
+    pytest.param(2, (3, 3), False, (-20000, 300, 16390), (5, 40000), 30000,
+                 id="2-False-dia1-anti1"),
+    pytest.param(2, (3, 3), True, (), (0, 32767), 30000,
+                 id="2-True-dia2-anti2"),
+    pytest.param(1, (2,), False, (-5, 0, 7), (), 12000, id="d2r1-masked"),
+    pytest.param(3, (1, 4), False, (-20000, 300), (5,), 45000,
+                 id="d2r3-k1k4-masked"),
+    pytest.param(3, (1, 2, 3, 4, 5, 6, 7, 8), False, (-9, 0, 30000),
+                 (2, 40000), 45000, id="d2r3-8inst-k1to8-masked"),
+    pytest.param(1, (8, 1, 8, 1, 8, 1, 8, 1), True, (0,), (0,), 16384,
+                 id="d2r1-8inst-um3"),
+]
+
+
+@pytest.mark.parametrize("D2R,Ks,um3,dia,anti,ncols", K3_CASES)
+def test_k3_matches_pallas(D2R, Ks, um3, dia, anti, ncols):
     """Negative, positive and anti offsets; a ragged x (ncols below the
     padded y grid) so the Pallas kernel reads clamped edge blocks."""
-    rng = np.random.default_rng(n_inst * 10 + len(dia))
-    D2R, ncols = 2, 30000
+    n_inst = len(Ks)
+    rng = np.random.default_rng(n_inst * 10 + len(dia) + 100 * (D2R != 2))
     nrows = D2R * TILE3 - 700
     e1_np, g3_np, dv, adv, x = _k3_case(rng, D2R, ncols, n_inst, um3, dia,
-                                        anti)
+                                        anti, Ks)
     got, want = _k3_both(e1_np, g3_np, um3, dia, dv, anti, adv, x, nrows,
                          ncols)
     assert got.shape == (nrows,)

@@ -205,6 +205,7 @@ def test_port_imports_nothing_of_the_reference():
     files = sorted(glob.glob(os.path.join(ROOT, "sparsex_tpu_torch", "**",
                                           "*.py"), recursive=True))
     files.append(os.path.join(ROOT, "chip_smoke.py"))
+    files += sorted(glob.glob(os.path.join(ROOT, "tools", "*_torch.py")))
     assert len(files) > 20
     bad = {}
     for path in files:

@@ -143,22 +143,34 @@ def test_k2_kb_matches_pallas(um2, kb):
     _columns_equal(got, lambda c: tf.k2(_t(a1t[c]), *wires, W2, D2R))
 
 
-@pytest.mark.parametrize("n_inst,um3,dia,anti", [
-    (2, False, (-20000, 300, 16390), (5, 40000)),
-    (1, True, (-13, 0, 8), ()),
-])
+# (D2R, wires per instance, um3, dia, anti, ncols), as
+# tests/test_torch_fused.py's K3_CASES: one and an odd number of
+# destination blocks, eight instances of 1..8 wires beside DIA and anti
+# tables, masked wires (-1) where um3 is False
+K3_KB_CASES = [
+    pytest.param(2, (3, 3), False, (-20000, 300, 16390), (5, 40000), 30000,
+                 id="2-False-dia0-anti0"),
+    pytest.param(2, (3,), True, (-13, 0, 8), (), 30000,
+                 id="1-True-dia1-anti1"),
+    pytest.param(1, (2,), False, (-5, 0, 7), (), 12000, id="d2r1-masked"),
+    pytest.param(3, (1, 2, 3, 4, 5, 6, 7, 8), False, (-9, 0, 30000),
+                 (2, 40000), 45000, id="d2r3-8inst-k1to8-masked"),
+]
+
+
+@pytest.mark.parametrize("D2R,Ks,um3,dia,anti,ncols", K3_KB_CASES)
 @pytest.mark.parametrize("kb", KBS)
-def test_k3_kb_matches_pallas(n_inst, um3, dia, anti, kb):
+def test_k3_kb_matches_pallas(D2R, Ks, um3, dia, anti, ncols, kb):
     """K3 through both packages' ``k3_combine`` on a k-major x (the
-    reference builds its kb > 0 K3): routed instances, DIA and
-    anti-diagonal windows over a ragged x, K = 3 wires per instance."""
-    rng = np.random.default_rng(n_inst * 10 + kb)
-    D2R, ncols, K = 2, 30000, 3
+    reference builds its kb > 0 K3): routed instances of ``Ks`` wires,
+    DIA and anti-diagonal windows over a ragged x."""
+    n_inst = len(Ks)
+    rng = np.random.default_rng(n_inst * 10 + kb + 100 * (D2R != 2))
     nrows = D2R * TILE3 - 700
     e1 = [rng.standard_normal((kb, L, D2R, L)).astype(np.float32)
           for _ in range(n_inst)]
     g3 = [rng.integers(0 if um3 else -1, L, (D2R, K, L, L)).astype(np.int8)
-          for _ in range(n_inst)]
+          for K in Ks]
     r = np.arange(D2R * TILE3)
 
     def grid(offs, is_anti):
@@ -177,14 +189,14 @@ def test_k3_kb_matches_pallas(n_inst, um3, dia, anti, kb):
         pack = (dia, None if dv is None else jnp.asarray(dv), anti,
                 None if adv is None else jnp.asarray(adv))
         want = np.asarray(fused.k3_combine(
-            [(jnp.asarray(e), jnp.asarray(g), K, um3) for e, g in zip(e1, g3)],
-            pack, jnp.asarray(x), nrows, ncols))
+            [(jnp.asarray(e), jnp.asarray(g), g.shape[1], um3)
+             for e, g in zip(e1, g3)], pack, jnp.asarray(x), nrows, ncols))
     tpack = (dia, None if dv is None else _t(dv), anti,
              None if adv is None else _t(adv))
 
     def port(c=None):
         pick = (lambda a: a) if c is None else (lambda a: a[c])
-        return tf.k3_combine([(_t(pick(e)), _t(g), K, um3)
+        return tf.k3_combine([(_t(pick(e)), _t(g), g.shape[1], um3)
                               for e, g in zip(e1, g3)], tpack, _t(pick(x)),
                              nrows, ncols)
 
@@ -417,6 +429,44 @@ def test_matmat_per_column_route(monkeypatch, dtype, variant):
         assert any(len(e) > 3 and e[3] for e in ex.meta[2] + ex.meta[3])
     assert ex.meta[4], "a standalone DIA table"
     _check_matmat(A, None, n, rows, cols, vals, 3, dtype)
+
+
+def test_executor_makes_its_device_current_once_a_call(monkeypatch):
+    """``CsxExecutor`` makes the matrix's CUDA device current once around
+    all the launches of a call (the ctypes launchers take the runtime's
+    current device): the SpMV, the SpMM through ``__call__`` and
+    ``matmat``, each entering ``torch.cuda.device`` once with the matrix's
+    device, here a CPU plan posing as one on cuda:1 (its operands stay on
+    the CPU, so the plain versions run); a CPU matrix enters nothing."""
+    _thresholds(monkeypatch)
+    n = 8192
+    rng = np.random.default_rng(6)
+    rows, cols, vals = _fused_mm_matrix(n, rng)
+    A, _ref = _port(n, rows, cols, vals, "float32")
+    ex = A.csx.executors[0]
+    entered = []
+
+    class Guard:
+        def __init__(self, device):
+            entered.append(torch.device(device))
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    X = torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32))
+    want = (ex(x), ex(X), ex.matmat(X))
+    assert entered == []
+    monkeypatch.setattr(ex, "device", torch.device("cuda", 1))
+    monkeypatch.setattr(ex, "_as_vector", lambda v, name: v)
+    got = (ex(x), ex(X), ex.matmat(X))
+    assert entered == [torch.device("cuda", 1)] * 3
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_matmat_api_and_dim_errors(monkeypatch):
