@@ -576,67 +576,142 @@ __global__ void k1_sl_kb_kernel(const int32_t* __restrict__ plo,
   k1_route_kb<T, true>(plo, mg, vals, x2, out, n_elems, q, kb, xs);
 }
 
-// K1 rlp{W} / run{W}: as k1_roll, every column's products side by side in
-// shared memory (K1_ROWS x MAX_KB x 128 values, 16 KB in f64), so one
-// barrier pair per roll pass serves all kb columns.  os = T * 1024.
+// K1 rlp{W} / run{W}, k-batched: the products, circular roll and G1 route
+// of k1_roll, column by column, with a warp per (tile, sublane) row.  Lane
+// i of the warp holds the row's lanes l = 4i + j (j < 4), so mg and vals
+// load, and each column's outputs store, as 16-byte vectors (a warp
+// writes 512 contiguous bytes a column in f32).  mg and vals are read
+// once and the output is read by the next kernel, so both stream past the
+// caches (__ldcs / __stcs) and leave L1 and L2 to the x windows.  The roll
+// pass of distance d adds lane l - d to lane l in registers: for d = 1
+// and 2 a thread adds its own register j - d, and only registers j < d
+// take register j - d + 4 of lane i - 1 (mod 32, one __shfl_sync each);
+// for d >= 4 every register takes the same register of lane i - d/4 (mod
+// 32).  These are k1_roll's adds, operand for operand, so column c is
+// bit-equal to the kb = 1 kernel, with no block barrier.  The G1 route
+// (p[g1], any lane) goes through a warp-private shared-memory row, two of
+// them in turn so that one __syncwarp a column suffices.
+// What bounds it is the latency of the chain mg -> x -> roll -> store and
+// the gather's L2 sectors (a row's runs fall on rows of the window far
+// apart, one sector each per column), not the bytes: so a thread keeps
+// one column's 4 products at a time (43 registers in f32, 60 in f64) and
+// the SM as many warps as it holds; larger column groups, or a block's
+// tiles that share a window walked column by column, cost more in
+// occupancy than they saved (PERF.md).  os = T * 1024.
+// ---------------------------------------------------------------------------
+constexpr int K1KB_WARPS = 8;                 // rows (warps) a block: a tile
+constexpr int K1KB_THREADS = K1KB_WARPS * 32;
+
+template <typename T>
+__device__ __forceinline__ void load4_cs(T (&v)[4], const T* p);
+
+template <>
+__device__ __forceinline__ void load4_cs<float>(float (&v)[4],
+                                                const float* p) {
+  const float4 q = __ldcs(reinterpret_cast<const float4*>(p));
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+
+template <>
+__device__ __forceinline__ void load4_cs<double>(double (&v)[4],
+                                                 const double* p) {
+  const double2 a = __ldcs(reinterpret_cast<const double2*>(p));
+  const double2 b = __ldcs(reinterpret_cast<const double2*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+template <typename T>
+__device__ __forceinline__ void store4_cs(T* p, const T (&v)[4]);
+
+template <>
+__device__ __forceinline__ void store4_cs<float>(float* p,
+                                                 const float (&v)[4]) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+}
+
+template <>
+__device__ __forceinline__ void store4_cs<double>(double* p,
+                                                  const double (&v)[4]) {
+  __stcs(reinterpret_cast<double2*>(p), make_double2(v[0], v[1]));
+  __stcs(reinterpret_cast<double2*>(p) + 1, make_double2(v[2], v[3]));
+}
+
 template <typename T, bool DENSE>
 __device__ __forceinline__ void k1_roll_kb(const int32_t* __restrict__ plo,
                                            const int32_t* __restrict__ mg,
                                            const T* __restrict__ vals,
                                            const T* __restrict__ x2,
                                            T* __restrict__ out, int q, int W,
-                                           int kb, long long xs,
-                                           long long os) {
-  __shared__ T p[K1_ROWS][MAX_KB][L];
-  const int r = threadIdx.x >> 7;
-  const int l = threadIdx.x & (L - 1);
-  const long long row = (long long)blockIdx.x * K1_ROWS + r;   // t * 8 + s
-  const long long e = (row << 7) + l;
-  const int m = mg[e];
-  const long long i = k1_x_index<DENSE>(plo, row, m & 0x3FFF, l, q);
-  const T v = vals[e];
-  T acc[MAX_KB];
+                                           int kb, long long xs, long long os,
+                                           long long n_rows) {
+  constexpr unsigned FULL = 0xffffffffu;
+  __shared__ __align__(16) T g[K1KB_WARPS][2][L];
+  const int w = threadIdx.x >> 5;
+  const int i = threadIdx.x & 31;
+  const int up = (i - 1) & 31;
+  const long long row = (long long)blockIdx.x * K1KB_WARPS + w;  // t * 8 + s
+  if (row >= n_rows) return;                  // a whole warp: no barrier
+  const long long e = (row << 7) + 4 * i;
+  const int4 m4 = __ldcs(reinterpret_cast<const int4*>(mg + e));
+  const int m[4] = {m4.x, m4.y, m4.z, m4.w};
+  T v[4];
+  load4_cs(v, vals + e);
+  int xi[4];                     // x index in a column (< xs < 2^31), or -1
 #pragma unroll
-  for (int c = 0; c < MAX_KB; ++c)
-    acc[c] = c < kb ? mul_rn(i >= 0 ? x2[c * xs + i] : T(0), v) : T(0);
-  for (int d = 1; d < W; d <<= 1) {
+  for (int j = 0; j < 4; ++j)
+    xi[j] = (int)k1_x_index<DENSE>(plo, row, m[j] & 0x3FFF, 4 * i + j, q);
+  for (int c = 0; c < kb; ++c) {
+    T p[4];
 #pragma unroll
-    for (int c = 0; c < MAX_KB; ++c)
-      if (c < kb) p[r][c][l] = acc[c];
-    __syncthreads();
+    for (int j = 0; j < 4; ++j)
+      p[j] = mul_rn(xi[j] >= 0 ? x2[c * xs + xi[j]] : T(0), v[j]);
 #pragma unroll
-    for (int c = 0; c < MAX_KB; ++c)
-      if (c < kb) acc[c] = add_rn(acc[c], p[r][c][(l - d) & (L - 1)]);
-    __syncthreads();
+    for (int d = 1; d < L; d <<= 1) {
+      if (d >= W) break;
+      T s[4];
+      if (d < 4) {                            // lane i - 1's top d registers
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          s[j] = j < d ? __shfl_sync(FULL, p[(j - d) & 3], up) : p[j - d];
+      } else {
+        const int src = (i - (d >> 2)) & 31;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[j] = __shfl_sync(FULL, p[j], src);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) p[j] = add_rn(p[j], s[j]);
+    }
+    T* r = g[w][c & 1];
+    store4(r + 4 * i, p);
+    __syncwarp();
+    T o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int g1 = (int)(((uint32_t)m[j]) >> 16) - 1;
+      o[j] = g1 >= 0 ? r[g1 & (L - 1)] : T(0);
+    }
+    store4_cs(out + c * os + e, o);
   }
-#pragma unroll
-  for (int c = 0; c < MAX_KB; ++c)
-    if (c < kb) p[r][c][l] = acc[c];
-  __syncthreads();
-  const int g1 = (int)(((uint32_t)m) >> 16) - 1;
-#pragma unroll
-  for (int c = 0; c < MAX_KB; ++c)
-    if (c < kb) out[c * os + e] = g1 >= 0 ? p[r][c][g1] : T(0);
 }
 
 template <typename T>
-__global__ void k1_rlp_kb_kernel(const int32_t* __restrict__ plo,
-                                 const int32_t* __restrict__ mg,
-                                 const T* __restrict__ vals,
-                                 const T* __restrict__ x2,
-                                 T* __restrict__ out, int q8, int W, int kb,
-                                 long long xs, long long os) {
-  k1_roll_kb<T, false>(plo, mg, vals, x2, out, q8, W, kb, xs, os);
+__global__ void __launch_bounds__(K1KB_THREADS)
+    k1_rlp_kb_kernel(const int32_t* __restrict__ plo,
+                     const int32_t* __restrict__ mg,
+                     const T* __restrict__ vals, const T* __restrict__ x2,
+                     T* __restrict__ out, int q8, int W, int kb, long long xs,
+                     long long os, long long n_rows) {
+  k1_roll_kb<T, false>(plo, mg, vals, x2, out, q8, W, kb, xs, os, n_rows);
 }
 
 template <typename T>
-__global__ void k1_run_kb_kernel(const int32_t* __restrict__ plo,
-                                 const int32_t* __restrict__ mg,
-                                 const T* __restrict__ vals,
-                                 const T* __restrict__ x2,
-                                 T* __restrict__ out, int q, int W, int kb,
-                                 long long xs, long long os) {
-  k1_roll_kb<T, true>(plo, mg, vals, x2, out, q, W, kb, xs, os);
+__global__ void __launch_bounds__(K1KB_THREADS)
+    k1_run_kb_kernel(const int32_t* __restrict__ plo,
+                     const int32_t* __restrict__ mg,
+                     const T* __restrict__ vals, const T* __restrict__ x2,
+                     T* __restrict__ out, int q, int W, int kb, long long xs,
+                     long long os, long long n_rows) {
+  k1_roll_kb<T, true>(plo, mg, vals, x2, out, q, W, kb, xs, os, n_rows);
 }
 
 // T1: no metadata, so the k axis is a grid axis: the kb x A2R input blocks
@@ -826,19 +901,24 @@ int launch_k1_roll_kb(const void* plo, const void* mg, const void* vals,
   if (W < 2 || W > L || (W & (W - 1))) return (int)cudaErrorInvalidValue;
   if (q < 1 || (DENSE && q > 16) || kb < 1 || kb > MAX_KB)
     return (int)cudaErrorInvalidValue;
-  const long long blocks = n_tiles * 8 / K1_ROWS;
+  // 16-byte vectors of mg, vals and out; 32-bit x indexes in a column
+  if ((((uintptr_t)mg | (uintptr_t)vals | (uintptr_t)out) & 15) ||
+      xs > 0x7FFFFFFF)
+    return (int)cudaErrorInvalidValue;
+  const long long n_rows = n_tiles * 8;
+  const long long blocks = (n_rows + K1KB_WARPS - 1) / K1KB_WARPS;
   if (blocks == 0) return (int)cudaGetLastError();
-  const long long os = n_tiles * 8 * L;
+  const long long os = n_rows * L;
   if (DENSE)
-    k1_run_kb_kernel<T><<<(unsigned)blocks, K1_ROWS * L, 0,
+    k1_run_kb_kernel<T><<<(unsigned)blocks, K1KB_THREADS, 0,
                           (cudaStream_t)stream>>>(
         (const int32_t*)plo, (const int32_t*)mg, (const T*)vals,
-        (const T*)x2, (T*)out, q, W, kb, xs, os);
+        (const T*)x2, (T*)out, q, W, kb, xs, os, n_rows);
   else
-    k1_rlp_kb_kernel<T><<<(unsigned)blocks, K1_ROWS * L, 0,
+    k1_rlp_kb_kernel<T><<<(unsigned)blocks, K1KB_THREADS, 0,
                           (cudaStream_t)stream>>>(
         (const int32_t*)plo, (const int32_t*)mg, (const T*)vals,
-        (const T*)x2, (T*)out, q, W, kb, xs, os);
+        (const T*)x2, (T*)out, q, W, kb, xs, os, n_rows);
   return (int)cudaGetLastError();
 }
 

@@ -452,16 +452,21 @@ def _columns_equal(batched, per_column):
         assert torch.equal(batched[c], want), f"column {c}"
 
 
-@pytest.mark.parametrize("style,q", [
-    ("lp", 1), ("lp", 4), ("lp", 32), ("rlp2", 4), ("rlp8", 1),
-    ("sl", 3), ("sl", 16), ("run16", 3), ("run128", 1)])
-@pytest.mark.parametrize("kb", [1, 3, 8])
+@pytest.mark.parametrize("style,q,T", [
+    ("lp", 1, 40), ("lp", 4, 40), ("lp", 32, 40), ("rlp2", 4, 40),
+    ("rlp8", 1, 40), ("sl", 3, 40), ("sl", 16, 40), ("run16", 3, 40),
+    ("run128", 1, 40), ("rlp128", 4, 40), ("run2", 3, 40), ("rlp4", 32, 40),
+    ("rlp8", 4, 1), ("run16", 2, 3), ("rlp2", 32, 41), ("run128", 1, 41)])
+@pytest.mark.parametrize("kb", [1, 3, 8, 5])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_k1_kb_cuda_matches_plain(dev, style, q, kb, dtype):
+def test_k1_kb_cuda_matches_plain(dev, style, q, T, kb, dtype):
     """Lane-placed windows of q8 pages, dense windows of q pages (offsets
-    past either read 0); (kb, npages, 8, 128) grids give (kb, T, 8, 128)."""
-    rng = np.random.default_rng(q * 31 + kb + len(style))
-    T, npages = 40, 64
+    past either read 0); (kb, npages, 8, 128) grids give (kb, T, 8, 128).
+    The run styles take one (W = 2) to seven (W = 128) roll passes, and
+    T = 1, 3, 41 tiles leave a partial last block if a block takes more
+    than one tile."""
+    rng = np.random.default_rng(q * 31 + kb + len(style) + T)
+    npages = 64
     dense = tf.k1_style(style)[0]
     hi = min(1 << 14, q * 1024 + 512) if dense else q * 8 + 8
     mg = _pack(rng.integers(0, hi, (T, 8, L)),
@@ -477,6 +482,25 @@ def test_k1_kb_cuda_matches_plain(dev, style, q, kb, dtype):
     assert torch.equal(got, tf.k1_plain(*args, q, style))
     _columns_equal(got, [tf.k1(*args[:3], args[3][c], q, style)
                          for c in range(kb)])
+
+
+@pytest.mark.parametrize("style,q", [("rlp8", 4), ("run16", 2)])
+def test_k1_roll_kb_cuda_refuses_misaligned(dev, style, q):
+    """The run-style kb kernels load mg, vals and x and store their output
+    as 16-byte vectors: vals one value past a 16-byte boundary is refused
+    (CUDA error 1), and nothing is launched."""
+    rng = np.random.default_rng(7)
+    T, npages = 4, 16
+    mg = _pack(rng.integers(0, 8, (T, 8, L)), rng.integers(-1, L, (T, 8, L)))
+    plo = np.zeros(T, np.int32)
+    vals = rng.standard_normal(T * 8 * L + 1).astype(np.float32)
+    x2 = rng.standard_normal((2, npages, 8, L)).astype(np.float32)
+    plo_t, mg_t, vals_t, x2_t = _on(dev, plo, mg, vals, x2)
+    key = tf.k1_key(style) + "_kb"
+    before = tf.launches[key]
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        tf.k1(plo_t, mg_t, vals_t[1:].view(T, 8, L), x2_t, q, style)
+    assert tf.launches[key] == before
 
 
 @pytest.mark.parametrize("kb", [1, 3, 8])

@@ -76,16 +76,25 @@ def _columns_equal(batched, one_column):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("style,q", [("lp", 4), ("lp", 32), ("rlp4", 4),
-                                     ("sl", 2), ("run16", 2)])
-@pytest.mark.parametrize("kb", KBS)
+                                     ("sl", 2), ("run16", 2), ("rlp2", 1),
+                                     ("rlp2", 32), ("rlp128", 4),
+                                     ("rlp128", 32), ("run2", 2),
+                                     ("run128", 1)])
+@pytest.mark.parametrize("kb", KBS + (5,))
 def test_k1_kb_matches_pallas(style, q, kb):
     """Lane-placed windows of q8 pages and dense windows of q pages, each
-    with offsets past the window (they read 0)."""
+    with offsets past the window (they read 0); the run widths 2 to 128 of
+    the roll (one to seven passes).  In a lane-placed run style, lane 0 of
+    the first row routes the total of the arc of W lanes that ends at lane
+    W/2 - 1, so it wraps lane 127 -> 0: the circular roll sums it whole."""
     rng = np.random.default_rng(q * 10 + kb + len(style))
     T, npages = 8, 64
-    dense = tf.k1_style(style)[0]
+    dense, W = tf.k1_style(style)
     low = rng.integers(0, q * 1024 + 512 if dense else q * 8 + 8, (T, 8, L))
-    mg = fused.pack_k1_meta(low, rng.integers(-1, L, (T, 8, L)))
+    g1 = rng.integers(-1, L, (T, 8, L))
+    if W and not dense:
+        g1[0, 0, 0] = W // 2 - 1
+    mg = fused.pack_k1_meta(low, g1)
     plo = rng.integers(0, npages - q + 1 if dense else npages // q,
                        T).astype(np.int32)
     vals = rng.standard_normal((T, 8, L)).astype(np.float32)
@@ -100,6 +109,15 @@ def test_k1_kb_matches_pallas(style, q, kb):
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want != 0).mean() > 0.4
     _columns_equal(got, lambda c: tf.k1(*args, _t(x2[c]), q, style))
+    if W and not dense:
+        idx, ok = tf.k1_x_index(args[0], args[1], q, style)
+        p = np.where(ok.numpy(), x2.reshape(kb, -1)[:, idx.numpy()], 0)
+        arc = (np.arange(W // 2 - W, W // 2) % L)
+        assert arc[0] > arc[-1]                 # the arc wraps
+        p_arc = p[:, 0, 0, arc] * vals[0, 0, arc]
+        np.testing.assert_allclose(want[:, 0, 0, 0], p_arc.sum(-1),
+                                   rtol=1e-5,
+                                   atol=1e-5 * np.abs(p_arc).sum())
 
 
 @pytest.mark.parametrize("kb", KBS)

@@ -3,7 +3,8 @@
 on chip_smoke.py's paths, on one CUDA GPU.
 
     python3 tools/kernel_ab_torch.py --base DIR [--variant DIR ...]
-        [--kernels k3,k3_kb] [--paths headline,blocky] [--dtypes float32]
+        [--diagnostic DIR ...] [--kernels k3,k3_kb] [--paths headline,blocky]
+        [--dtypes float32]
 
 ``--base`` (A) and each ``--variant`` (V; default: this tree) name a
 checkout of the repository, for example the parent commit unpacked with
@@ -11,7 +12,10 @@ checkout of the repository, for example the parent commit unpacked with
 ``sparsex_tpu_torch/csrc/*.cu`` is built into its own library (one nvcc per
 source, every tree's started together); the Python side, planners and
 wrappers included, is this tree's, so the trees must share the kernels' C
-interface.  Per path (chip_smoke's matrix, plan check and kernel phase)
+interface.  A ``--diagnostic`` tree is timed like a variant but its
+results are not held to the plain versions: a deliberately incomplete
+kernel (one that skips its x gather or its stores, say) bounds what that
+part costs.  Per path (chip_smoke's matrix, plan check and kernel phase)
 and value type, for each V against A in turns A, V, V, A (the mean of each
 pair):
 
@@ -63,11 +67,12 @@ PATHS = {
 }
 
 
-def build_libraries(trees):
+def build_libraries(trees, names):
     """{tree: loaded ctypes library} of each tree's csrc/*.cu, built with
     this tree's nvcc flags into ``<tree>/sparsex_tpu_torch/_build/``, every
-    tree's sources compiled together.  A variant that does not build is
-    reported and left out; the base (the first tree) must build."""
+    tree's sources compiled together; ptxas's lines of the kernels
+    ``names`` go to stderr.  A variant that does not build is reported and
+    left out; the base (the first tree) must build."""
     import glob
     from concurrent.futures import ThreadPoolExecutor
     from sparsex_tpu_torch.ops import _build
@@ -100,7 +105,7 @@ def build_libraries(trees):
                    f"{str(e)[-2000:]}")
             continue
         for line in cs.ptxas_report(log):
-            if line.startswith("k3"):
+            if line.startswith(tuple(n + "_kernel" for n in names)):
                 print(f"  ptxas [{os.path.basename(tree)}]: {line}",
                       file=sys.stderr)
         lib = ctypes.CDLL(path)
@@ -152,9 +157,10 @@ def turns(libs, base, variant, make, loops, outer):
     return (a1 + a2) / 2, (v1 + v2) / 2
 
 
-def kernel_readings(libs, base, variant, seen, label):
+def kernel_readings(libs, base, variant, seen, label, checked=True):
     """Each captured kernel alone for A and V (chip_smoke's replay counts:
-    fewer for the k-batched kernels), with its errors and bound."""
+    fewer for the k-batched kernels), with its errors and bound; V's
+    errors fail the run only if ``checked``."""
     import torch
     out = {}
     for name, (fn, plain, args) in seen.items():
@@ -164,8 +170,13 @@ def kernel_readings(libs, base, variant, seen, label):
         for tag, tree in (("A", base), ("V", variant)):
             got = using(libs[tree], lambda: [fn(*a) for a in args])()
             torch.cuda.synchronize()
-            errs[tag] = max(cs.cmp(name, label, g, plain(*a), False)
-                            for g, a in zip(got, args))
+            wants = [plain(*a) for a in args]
+            if checked or tag == "A":
+                errs[tag] = max(cs.cmp(name, label, g, w, False)
+                                for g, w in zip(got, wants))
+            else:
+                errs[tag] = max((g.double() - w.double()).abs().max().item()
+                                for g, w in zip(got, wants))
         nbytes = flops = 0
         for a, o in zip(args, got):
             b, f = cs.BOUNDS[name](a, o)
@@ -207,6 +218,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--base", required=True)
     ap.add_argument("--variant", action="append")
+    ap.add_argument("--diagnostic", action="append", default=[])
     ap.add_argument("--kernels", default="k3,k3_kb")
     ap.add_argument("--paths", default=",".join(PATHS))
     ap.add_argument("--dtypes", default="float32,float64")
@@ -220,6 +232,8 @@ def main():
 
     base = os.path.abspath(opt.base)
     variants = [os.path.abspath(v) for v in (opt.variant or [ROOT])]
+    diagnostic = [os.path.abspath(v) for v in opt.diagnostic]
+    variants += diagnostic
     names = opt.kernels.split(",")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -227,9 +241,9 @@ def main():
         timeout=60).stdout.strip()
     cs.say(f"card: {card}; torch {torch.__version__}; base {base}; "
            f"variants {variants}")
-    libs = build_libraries([base] + variants)
+    libs = build_libraries([base] + variants, names)
     variants = [v for v in variants if v in libs]
-    if not variants:
+    if not [v for v in variants if v not in diagnostic]:
         cs.fail("no variant builds")
     from sparsex_tpu_torch.ops import _build
     _build._lib = libs[variants[0]]     # the untimed kernel checks' library
@@ -253,7 +267,11 @@ def main():
                                           label + " spmm", names))
             for v in variants:
                 tag = f"{label} V={os.path.basename(v)}"
-                entry = kernel_readings(libs, base, v, seen, tag)
+                entry = kernel_readings(libs, base, v, seen, tag,
+                                        v not in diagnostic)
+                if v in diagnostic:      # its SpMV / SpMM are not right
+                    report["paths"][tag] = entry
+                    continue
 
                 def spmv():
                     return spx.matvec_kernel(1.0, mat, x, 0.0, None)
