@@ -528,8 +528,8 @@ __global__ void __launch_bounds__(K3_THREADS)
 // ===========================================================================
 constexpr int MAX_KB = 8;        // columns per launch (exec.MM_FUSED_KB)
 
-// K1 lp / sl: a thread resolves its G1 wire, window offset and value once,
-// then forms one product per column.  xs = the page grid's values per
+// K1 lp: a thread resolves its G1 wire, window offset and value once, then
+// forms one product per column.  xs = the page grid's values per
 // column, n_elems = T * 1024 = the output's.
 template <typename T, bool DENSE>
 __device__ __forceinline__ void k1_route_kb(const int32_t* __restrict__ plo,
@@ -564,16 +564,6 @@ __global__ void k1_lp_kb_kernel(const int32_t* __restrict__ plo,
                                 T* __restrict__ out, long long n_elems,
                                 int q8, int kb, long long xs) {
   k1_route_kb<T, false>(plo, mg, vals, x2, out, n_elems, q8, kb, xs);
-}
-
-template <typename T>
-__global__ void k1_sl_kb_kernel(const int32_t* __restrict__ plo,
-                                const int32_t* __restrict__ mg,
-                                const T* __restrict__ vals,
-                                const T* __restrict__ x2,
-                                T* __restrict__ out, long long n_elems, int q,
-                                int kb, long long xs) {
-  k1_route_kb<T, true>(plo, mg, vals, x2, out, n_elems, q, kb, xs);
 }
 
 // K1 rlp{W} / run{W}, k-batched: the products, circular roll and G1 route
@@ -712,6 +702,75 @@ __global__ void __launch_bounds__(K1KB_THREADS)
                      T* __restrict__ out, int q, int W, int kb, long long xs,
                      long long os, long long n_rows) {
   k1_roll_kb<T, true>(plo, mg, vals, x2, out, q, W, kb, xs, os, n_rows);
+}
+
+// K1 sl, k-batched: the row layout of k1_roll_kb (a warp per (tile,
+// sublane) row, thread i on lanes 4i..4i+3, 16-byte mg / vals / out
+// streams), with the G1 route taken before the products.  The row's mg
+// and vals go through the warp's shared rows once; each lane then picks
+// the window offset and value of the slot g1 its wire names and, column
+// by column, forms that one product and stores it.  So a column is x
+// gathers, multiplies and a 16-byte store, with no shared memory or
+// __syncwarp in it, and only routed slots read x (an unrouted slot is
+// +0, a routed one past the window 0 x v, as k1_plain gives).  The
+// one-thread-one-slot kernel it replaced waited on a chain of three
+// dependent loads (mg, then mg and vals at the routed lane, then x) and
+// moved 4 bytes an instruction.  k1_roll_kb at W = 1 (a product for every
+// slot, routed through shared memory each column) was slower, most in f64;
+// the streaming output stores take most of the time (PERF.md).
+// os = T * 1024.
+template <typename T>
+__device__ __forceinline__ void k1_pick_kb(const int32_t* __restrict__ plo,
+                                           const int32_t* __restrict__ mg,
+                                           const T* __restrict__ vals,
+                                           const T* __restrict__ x2,
+                                           T* __restrict__ out, int q, int kb,
+                                           long long xs, long long os,
+                                           long long n_rows) {
+  __shared__ __align__(16) int32_t gm[K1KB_WARPS][L];
+  __shared__ __align__(16) T gv[K1KB_WARPS][L];
+  const int w = threadIdx.x >> 5;
+  const int i = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * K1KB_WARPS + w;  // t * 8 + s
+  if (row >= n_rows) return;                  // a whole warp: no barrier
+  const long long e = (row << 7) + 4 * i;
+  const int4 m4 = __ldcs(reinterpret_cast<const int4*>(mg + e));
+  T v[4];
+  load4_cs(v, vals + e);
+  *reinterpret_cast<int4*>(&gm[w][4 * i]) = m4;
+  store4(&gv[w][4 * i], v);
+  __syncwarp();
+  const int m[4] = {m4.x, m4.y, m4.z, m4.w};
+  int xi[4];          // x index in a column (< xs < 2^31); -1 past the window
+  bool routed[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int g1 = (int)(((uint32_t)m[j]) >> 16) - 1;
+    routed[j] = g1 >= 0;
+    const int src = g1 & (L - 1);
+    xi[j] = routed[j] ? (int)k1_x_index<true>(plo, row, gm[w][src] & 0x3FFF,
+                                              src, q)
+                      : -1;
+    v[j] = routed[j] ? gv[w][src] : T(0);
+  }
+  for (int c = 0; c < kb; ++c) {
+    T o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      o[j] = routed[j] ? mul_rn(xi[j] >= 0 ? x2[c * xs + xi[j]] : T(0), v[j])
+                       : T(0);
+    store4_cs(out + c * os + e, o);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(K1KB_THREADS)
+    k1_sl_kb_kernel(const int32_t* __restrict__ plo,
+                    const int32_t* __restrict__ mg,
+                    const T* __restrict__ vals, const T* __restrict__ x2,
+                    T* __restrict__ out, int q, int kb, long long xs,
+                    long long os, long long n_rows) {
+  k1_pick_kb<T>(plo, mg, vals, x2, out, q, kb, xs, os, n_rows);
 }
 
 // T1: no metadata, so the k axis is a grid axis: the kb x A2R input blocks
@@ -873,24 +932,44 @@ int launch_k3(const void* const* e1, const void* const* g3, const int* K,
 
 // --- the k-batched launchers (kb = 1 .. MAX_KB) ---------------------------
 
-template <typename T, bool DENSE>
+template <typename T>
 int launch_k1_kb(const void* plo, const void* mg, const void* vals,
-                 const void* x2, void* out, long long n_tiles, int q, int kb,
+                 const void* x2, void* out, long long n_tiles, int q8, int kb,
                  long long xs, void* stream) {
-  if (q < 1 || (DENSE && q > 16) || kb < 1 || kb > MAX_KB)
-    return (int)cudaErrorInvalidValue;
+  if (q8 < 1 || kb < 1 || kb > MAX_KB) return (int)cudaErrorInvalidValue;
   const long long n = n_tiles * 8 * L;
   if (n == 0) return (int)cudaGetLastError();
   const int threads = 256;
   const long long blocks = (n + threads - 1) / threads;
-  if (DENSE)
-    k1_sl_kb_kernel<T><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)plo, (const int32_t*)mg, (const T*)vals,
-        (const T*)x2, (T*)out, n, q, kb, xs);
-  else
-    k1_lp_kb_kernel<T><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)plo, (const int32_t*)mg, (const T*)vals,
-        (const T*)x2, (T*)out, n, q, kb, xs);
+  k1_lp_kb_kernel<T><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)plo, (const int32_t*)mg, (const T*)vals,
+      (const T*)x2, (T*)out, n, q8, kb, xs);
+  return (int)cudaGetLastError();
+}
+
+// The checks of the warp-per-row kb launchers: 16-byte vectors of mg, vals
+// and out, 32-bit x indexes in a column.
+int k1_row_kb_refused(const void* mg, const void* vals, const void* out,
+                      bool dense, int q, int kb, long long xs) {
+  if (q < 1 || (dense && q > 16) || kb < 1 || kb > MAX_KB ||
+      (((uintptr_t)mg | (uintptr_t)vals | (uintptr_t)out) & 15) ||
+      xs > 0x7FFFFFFF)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+template <typename T>
+int launch_k1_sl_kb(const void* plo, const void* mg, const void* vals,
+                    const void* x2, void* out, long long n_tiles, int q,
+                    int kb, long long xs, void* stream) {
+  if (int err = k1_row_kb_refused(mg, vals, out, true, q, kb, xs)) return err;
+  const long long n_rows = n_tiles * 8;
+  const long long blocks = (n_rows + K1KB_WARPS - 1) / K1KB_WARPS;
+  if (blocks == 0) return (int)cudaGetLastError();
+  k1_sl_kb_kernel<T><<<(unsigned)blocks, K1KB_THREADS, 0,
+                       (cudaStream_t)stream>>>(
+      (const int32_t*)plo, (const int32_t*)mg, (const T*)vals, (const T*)x2,
+      (T*)out, q, kb, xs, n_rows * L, n_rows);
   return (int)cudaGetLastError();
 }
 
@@ -899,12 +978,7 @@ int launch_k1_roll_kb(const void* plo, const void* mg, const void* vals,
                       const void* x2, void* out, long long n_tiles, int q,
                       int W, int kb, long long xs, void* stream) {
   if (W < 2 || W > L || (W & (W - 1))) return (int)cudaErrorInvalidValue;
-  if (q < 1 || (DENSE && q > 16) || kb < 1 || kb > MAX_KB)
-    return (int)cudaErrorInvalidValue;
-  // 16-byte vectors of mg, vals and out; 32-bit x indexes in a column
-  if ((((uintptr_t)mg | (uintptr_t)vals | (uintptr_t)out) & 15) ||
-      xs > 0x7FFFFFFF)
-    return (int)cudaErrorInvalidValue;
+  if (int err = k1_row_kb_refused(mg, vals, out, DENSE, q, kb, xs)) return err;
   const long long n_rows = n_tiles * 8;
   const long long blocks = (n_rows + K1KB_WARPS - 1) / K1KB_WARPS;
   if (blocks == 0) return (int)cudaGetLastError();
@@ -1002,15 +1076,15 @@ int launch_k3_kb(const void* const* e1, const void* const* g3, const int* K,
                                  const void* vals, const void* x2, void* out,  \
                                  long long n_tiles, int q8, int kb,            \
                                  long long xs, void* stream) {                 \
-    return launch_k1_kb<T, false>(plo, mg, vals, x2, out, n_tiles, q8, kb, xs, \
-                                  stream);                                     \
+    return launch_k1_kb<T>(plo, mg, vals, x2, out, n_tiles, q8, kb, xs,        \
+                           stream);                                            \
   }                                                                            \
   extern "C" int spx_k1_sl_kb_##SFX(const void* plo, const void* mg,           \
                                     const void* vals, const void* x2,          \
                                     void* out, long long n_tiles, int q,       \
                                     int kb, long long xs, void* stream) {      \
-    return launch_k1_kb<T, true>(plo, mg, vals, x2, out, n_tiles, q, kb, xs,   \
-                                 stream);                                      \
+    return launch_k1_sl_kb<T>(plo, mg, vals, x2, out, n_tiles, q, kb, xs,      \
+                              stream);                                         \
   }                                                                            \
   extern "C" int spx_k1_rlp_kb_##SFX(const void* plo, const void* mg,          \
                                      const void* vals, const void* x2,         \

@@ -429,7 +429,9 @@ def lane_gather(x, idx):
     """The lane gather of ``x`` (R, 128) through ``idx`` (K, R, 128) int8
     wires; returns (R, 128).  A k-batched x (kb, R, 128), kb <= MAX_KB,
     runs the ``_kb`` kernel, which reads the wires once for all kb
-    columns."""
+    columns.  The SpMV kernel loads x as 16-byte vectors and the wires as
+    4-byte words: on the card an x off a 16-byte boundary, or idx off a
+    4-byte one, raises (CUDA error 1)."""
     _value_dtype("x", x)
     kb = _batch("x", x, 2)
     if x.shape[-1] != L:

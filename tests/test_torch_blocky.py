@@ -124,19 +124,29 @@ def test_k1_refuses_unported_styles(style):
         tf.k1(*args, style)
 
 
-@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("K,pattern", [
+    pytest.param(K, pattern, id=str(K) if pattern == "random"
+                 else f"{K}-{pattern}")
+    for pattern in ("random", "masked", "one_lane") for K in (1, 3, 2)])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_lane_gather_matches_pallas(K, dtype):
+def test_lane_gather_matches_pallas(K, pattern, dtype):
+    """Random wires (-1 masks a slot), an all-(-1) plane among random ones
+    (the middle plane), and every wire on one lane."""
     rng = np.random.default_rng(K)
     R = 192
     x = rng.standard_normal((R, L)).astype(dtype)
     idx = rng.integers(-1, L, (K, R, L)).astype(np.int8)
+    if pattern == "masked":
+        idx[K // 2] = -1
+    elif pattern == "one_lane":
+        idx[:] = 77
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(route_mod._build_lane_gather(
             R, K, np.dtype(dtype).name)(jnp.asarray(x), jnp.asarray(idx)))
     got = troute.lane_gather(_t(x), _t(idx))
     np.testing.assert_array_equal(got.numpy(), want)
-    assert (want != 0).mean() > 0.9
+    if pattern == "random":
+        assert (want != 0).mean() > 0.9
 
 
 def test_lane_gather_rejects_bad_arguments():

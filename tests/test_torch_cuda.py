@@ -42,6 +42,15 @@ def _on(dev, *arrays):
             for a in arrays]
 
 
+def _launched(key, fn):
+    """``fn()``'s result, asserting one launch under ``key``."""
+    before = tf.launches[key]
+    out = fn()
+    torch.cuda.synchronize()
+    assert tf.launches[key] == before + 1
+    return out
+
+
 def _pack(low, g1):
     return ((low.astype(np.int32) & 0x3FFF)
             | ((g1.astype(np.int32) + 1) << 16))
@@ -108,18 +117,90 @@ def test_k1_dense_cuda_matches_plain(dev, style, q, dtype):
     assert torch.equal(got, tf.k1_plain(*args, q, style))
 
 
-@pytest.mark.parametrize("K,R", [(1, 4736), (3, 200)])
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_lane_gather_cuda_matches_plain(dev, K, R, dtype):
-    rng = np.random.default_rng(K)
-    x = rng.standard_normal((R, L)).astype(dtype)
+def _lane_wires(rng, K, R, pattern):
+    """K int8 wire planes over R rows: random (-1 masks a slot), all -1,
+    or every wire on lane 77 (the shared row's worst bank pattern)."""
     idx = rng.integers(-1, L, (K, R, L)).astype(np.int8)
-    xt, it = _on(dev, x, idx)
-    before = tf.launches["lane_gather"]
-    got = troute.lane_gather(xt, it)
-    torch.cuda.synchronize()
-    assert tf.launches["lane_gather"] == before + 1
+    if pattern == "masked":
+        idx[:] = -1
+    elif pattern == "one_lane":
+        idx[:] = 77
+    return idx
+
+
+@pytest.mark.parametrize("pattern", ["random", "masked", "one_lane"])
+@pytest.mark.parametrize("K,R", [(1, 4736), (3, 200), (1, 1), (2, 7),
+                                 (3, 4737), (1, 4737)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_lane_gather_cuda_matches_plain(dev, K, R, pattern, dtype):
+    """A warp a row: R = 1, 7 and 4737 leave a partial last block."""
+    rng = np.random.default_rng(K * 7 + R)
+    x = rng.standard_normal((R, L)).astype(dtype)
+    xt, it = _on(dev, x, _lane_wires(rng, K, R, pattern))
+    got = _launched("lane_gather", lambda: troute.lane_gather(xt, it))
     assert torch.equal(got, troute.lane_gather_plain(xt, it))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_lane_gather_cuda_row_slice(dev, dtype):
+    """Rows 3..3+R of a larger grid, as a route instance's rows a0:a1 of
+    the merged source: the slice starts 3 x 128 values in."""
+    rng = np.random.default_rng(11)
+    R = 1000
+    src, idx = _on(dev, rng.standard_normal((R + 9, L)).astype(dtype),
+                   rng.integers(-1, L, (1, R, L)).astype(np.int8))
+    xt = src[3:3 + R]
+    assert xt.is_contiguous() and xt.data_ptr() != src.data_ptr()
+    got = _launched("lane_gather", lambda: troute.lane_gather(xt, idx))
+    assert torch.equal(got, troute.lane_gather_plain(xt, idx))
+
+
+@pytest.mark.parametrize("operand", ["x", "idx"])
+def test_lane_gather_cuda_refuses_misaligned(dev, operand):
+    """x loads as 16-byte vectors and the wires as 4-byte words: x one
+    value, or idx one byte, past the boundary is refused (CUDA error 1)
+    and nothing is launched."""
+    rng = np.random.default_rng(5)
+    R = 16
+    xf, idxf = _on(dev, rng.standard_normal(R * L + 1).astype(np.float32),
+                   rng.integers(-1, L, R * L + 1).astype(np.int8))
+    x, idx = xf[:-1].view(R, L), idxf[:-1].view(1, R, L)
+    if operand == "x":
+        x = xf[1:].view(R, L)
+    else:
+        idx = idxf[1:].view(1, R, L)
+    before = tf.launches["lane_gather"]
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        troute.lane_gather(x, idx)
+    assert tf.launches["lane_gather"] == before
+
+
+def test_row_kernels_refuse_misaligned_out(dev):
+    """The launchers of the SpMV lane gather and K1 sl kb refuse an output
+    off a 16-byte boundary (cudaErrorInvalidValue = 1); their wrappers
+    allocate aligned outputs, so the C entry points are called directly."""
+    from sparsex_tpu_torch.ops import _build
+    lib = _build.library()
+    R, T, kb = 8, 1, 2
+    x, out = (torch.zeros(R * L + 4, device=dev) for _ in range(2))
+    idx = torch.zeros((1, R, L), dtype=torch.int8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    assert lib.spx_lane_gather_f32(x.data_ptr(), idx.data_ptr(),
+                                   out.data_ptr() + 4, R, 1, stream) == 1
+    plo = torch.zeros(T, dtype=torch.int32, device=dev)
+    mg = torch.zeros((T, 8, L), dtype=torch.int32, device=dev)
+    vals = torch.zeros((T, 8, L), device=dev)
+    x2 = torch.zeros((kb, 4, 8, L), device=dev)
+    res = torch.zeros(kb * T * 8 * L + 4, device=dev)
+    assert lib.spx_k1_sl_kb_f32(plo.data_ptr(), mg.data_ptr(),
+                                vals.data_ptr(), x2.data_ptr(),
+                                res.data_ptr() + 4, T, 2, kb, 4 * 8 * L,
+                                stream) == 1
+    assert lib.spx_k1_sl_kb_f32(plo.data_ptr(), mg.data_ptr(),
+                                vals.data_ptr(), x2.data_ptr(),
+                                res.data_ptr(), T, 2, kb, 4 * 8 * L,
+                                stream) == 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
@@ -438,15 +519,6 @@ def test_api_cuda_fs_matches_cpu(dev, monkeypatch, build, n, dtype):
 # the k-batched (SpMM) variants
 # ---------------------------------------------------------------------------
 
-def _launched(key, fn):
-    """``fn()``'s result, asserting one launch under ``key``."""
-    before = tf.launches[key]
-    out = fn()
-    torch.cuda.synchronize()
-    assert tf.launches[key] == before + 1
-    return out
-
-
 def _columns_equal(batched, per_column):
     for c, want in enumerate(per_column):
         assert torch.equal(batched[c], want), f"column {c}"
@@ -456,7 +528,8 @@ def _columns_equal(batched, per_column):
     ("lp", 1, 40), ("lp", 4, 40), ("lp", 32, 40), ("rlp2", 4, 40),
     ("rlp8", 1, 40), ("sl", 3, 40), ("sl", 16, 40), ("run16", 3, 40),
     ("run128", 1, 40), ("rlp128", 4, 40), ("run2", 3, 40), ("rlp4", 32, 40),
-    ("rlp8", 4, 1), ("run16", 2, 3), ("rlp2", 32, 41), ("run128", 1, 41)])
+    ("rlp8", 4, 1), ("run16", 2, 3), ("rlp2", 32, 41), ("run128", 1, 41),
+    ("sl", 1, 1), ("sl", 2, 3), ("sl", 16, 41), ("sl", 1, 41)])
 @pytest.mark.parametrize("kb", [1, 3, 8, 5])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_k1_kb_cuda_matches_plain(dev, style, q, T, kb, dtype):
@@ -484,22 +557,28 @@ def test_k1_kb_cuda_matches_plain(dev, style, q, T, kb, dtype):
                          for c in range(kb)])
 
 
-@pytest.mark.parametrize("style,q", [("rlp8", 4), ("run16", 2)])
-def test_k1_roll_kb_cuda_refuses_misaligned(dev, style, q):
-    """The run-style kb kernels load mg, vals and x and store their output
-    as 16-byte vectors: vals one value past a 16-byte boundary is refused
-    (CUDA error 1), and nothing is launched."""
+@pytest.mark.parametrize("operand", ["vals", "mg"])
+@pytest.mark.parametrize("style,q", [("rlp8", 4), ("run16", 2), ("sl", 2)])
+def test_k1_roll_kb_cuda_refuses_misaligned(dev, style, q, operand):
+    """The warp-per-row kb kernels (the run styles and sl) load mg and vals
+    and store their output as 16-byte vectors: vals or mg one value past a
+    16-byte boundary is refused (CUDA error 1), and nothing is launched."""
     rng = np.random.default_rng(7)
     T, npages = 4, 16
-    mg = _pack(rng.integers(0, 8, (T, 8, L)), rng.integers(-1, L, (T, 8, L)))
+    mg = _pack(rng.integers(0, 8, (T, 8, L)),
+               rng.integers(-1, L, (T, 8, L))).reshape(-1)
     plo = np.zeros(T, np.int32)
     vals = rng.standard_normal(T * 8 * L + 1).astype(np.float32)
     x2 = rng.standard_normal((2, npages, 8, L)).astype(np.float32)
-    plo_t, mg_t, vals_t, x2_t = _on(dev, plo, mg, vals, x2)
+    plo_t, mg_t, vals_t, x2_t = _on(dev, plo, np.append(mg, np.int32(0)),
+                                    vals, x2)
+    ops = {"mg": mg_t[:-1], "vals": vals_t[:-1]}
+    ops[operand] = {"mg": mg_t, "vals": vals_t}[operand][1:]
     key = tf.k1_key(style) + "_kb"
     before = tf.launches[key]
     with pytest.raises(RuntimeError, match="CUDA error 1"):
-        tf.k1(plo_t, mg_t, vals_t[1:].view(T, 8, L), x2_t, q, style)
+        tf.k1(plo_t, ops["mg"].view(T, 8, L), ops["vals"].view(T, 8, L),
+              x2_t, q, style)
     assert tf.launches[key] == before
 
 

@@ -79,7 +79,7 @@ def _columns_equal(batched, one_column):
                                      ("sl", 2), ("run16", 2), ("rlp2", 1),
                                      ("rlp2", 32), ("rlp128", 4),
                                      ("rlp128", 32), ("run2", 2),
-                                     ("run128", 1)])
+                                     ("run128", 1), ("sl", 1), ("sl", 16)])
 @pytest.mark.parametrize("kb", KBS + (5,))
 def test_k1_kb_matches_pallas(style, q, kb):
     """Lane-placed windows of q8 pages and dense windows of q pages, each
@@ -90,7 +90,8 @@ def test_k1_kb_matches_pallas(style, q, kb):
     rng = np.random.default_rng(q * 10 + kb + len(style))
     T, npages = 8, 64
     dense, W = tf.k1_style(style)
-    low = rng.integers(0, q * 1024 + 512 if dense else q * 8 + 8, (T, 8, L))
+    low = rng.integers(0, min(1 << 14, q * 1024 + 512) if dense
+                       else q * 8 + 8, (T, 8, L))
     g1 = rng.integers(-1, L, (T, 8, L))
     if W and not dense:
         g1[0, 0, 0] = W // 2 - 1

@@ -6,6 +6,10 @@ on chip_smoke.py's paths, on one CUDA GPU.
         [--diagnostic DIR ...] [--kernels k3,k3_kb] [--paths headline,blocky]
         [--dtypes float32]
 
+``--kernels`` names kernels as ``csrc/*.cu`` does, without ``_kernel``
+(``k1_lp_kb``, ``lane_gather``, ``k3``; a launch-count key such as
+``k1_kb`` is taken too).
+
 ``--base`` (A) and each ``--variant`` (V; default: this tree) name a
 checkout of the repository, for example the parent commit unpacked with
 ``git archive`` into a directory that .gitignore lists.  Each tree's
@@ -65,6 +69,13 @@ PATHS = {
     "fs-block": (cs.N_FS_BLOCK, lambda: cs.block3_matrix(cs.N_FS_BLOCK),
                  cs.check_fs_plan("blocks")),
 }
+
+
+def launch_key(name):
+    """The launch-count key of a kernel named by its CUDA name without
+    ``_kernel``: the lane-placed K1's are ``k1`` / ``k1_kb``
+    (``fused.KERNELS``); every other kernel's is its name."""
+    return {"k1_lp": "k1", "k1_lp_kb": "k1_kb"}.get(name, name)
 
 
 def build_libraries(trees, names):
@@ -234,14 +245,15 @@ def main():
     variants = [os.path.abspath(v) for v in (opt.variant or [ROOT])]
     diagnostic = [os.path.abspath(v) for v in opt.diagnostic]
     variants += diagnostic
-    names = opt.kernels.split(",")
+    kernels = opt.kernels.split(",")
+    names = [launch_key(n) for n in kernels]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     cs.say(f"card: {card}; torch {torch.__version__}; base {base}; "
            f"variants {variants}")
-    libs = build_libraries([base] + variants, names)
+    libs = build_libraries([base] + variants, kernels)
     variants = [v for v in variants if v in libs]
     if not [v for v in variants if v not in diagnostic]:
         cs.fail("no variant builds")
