@@ -64,12 +64,13 @@ __device__ __forceinline__ long long k1_x_index(const int32_t* __restrict__ plo,
   return ((page << 3) + (low & 7)) * L + l;
 }
 
-// Styles lp and sl: one thread per output element, which forms only the
-// product its G1 wire routes there (no product is formed twice):
+// Style sl, the SpMV form: one thread per output element, which forms only
+// the product its G1 wire routes there (no product is formed twice):
 //   g1 = (mg[t,s,l] >> 16) - 1;  out = g1 < 0 ? 0 : x[t,s,g1] * vals[t,s,g1]
 // Bound by the bytes of mg, vals and out (12 B a slot in f32) plus the x
-// window, read through L2.
-template <typename T, bool DENSE>
+// window, read through L2.  (lp runs k1_slot in both forms, and sl's kb
+// form the warp-per-row picking body k1_pick_kb; both below.)
+template <typename T>
 __device__ __forceinline__ void k1_route(const int32_t* __restrict__ plo,
                                          const int32_t* __restrict__ mg,
                                          const T* __restrict__ vals,
@@ -83,19 +84,10 @@ __device__ __forceinline__ void k1_route(const int32_t* __restrict__ plo,
   T r = T(0);
   if (g1 >= 0) {
     const long long src = (row << 7) + g1;
-    const long long i = k1_x_index<DENSE>(plo, row, mg[src] & 0x3FFF, g1, q);
+    const long long i = k1_x_index<true>(plo, row, mg[src] & 0x3FFF, g1, q);
     if (i >= 0) r = mul_rn(x2[i], vals[src]);
   }
   out[e] = r;
-}
-
-template <typename T>
-__global__ void k1_lp_kernel(const int32_t* __restrict__ plo,
-                             const int32_t* __restrict__ mg,
-                             const T* __restrict__ vals,
-                             const T* __restrict__ x2,
-                             T* __restrict__ out, long long n_elems, int q8) {
-  k1_route<T, false>(plo, mg, vals, x2, out, n_elems, q8);
 }
 
 template <typename T>
@@ -104,7 +96,7 @@ __global__ void k1_sl_kernel(const int32_t* __restrict__ plo,
                              const T* __restrict__ vals,
                              const T* __restrict__ x2,
                              T* __restrict__ out, long long n_elems, int q) {
-  k1_route<T, true>(plo, mg, vals, x2, out, n_elems, q);
+  k1_route<T>(plo, mg, vals, x2, out, n_elems, q);
 }
 
 // Styles rlp{W} and run{W}: horizontal runs of width W (W divides 128) sit
@@ -520,51 +512,17 @@ __global__ void __launch_bounds__(K3_THREADS)
 // innermost grid axis and Mosaic's revisit optimisation keeps the metadata
 // blocks in VMEM across it; a CUDA grid has no revisit, so here a block
 // reads its metadata once (K1: mg/vals, K2: its wire chains, K3: its g3
-// wires, dv and adv) and loops over the kb columns itself.
+// wires, dv and adv) and loops over the kb columns itself.  K1's run
+// styles and sl take a warp per (tile, sublane) row (the rolling body
+// k1_roll_kb, the picking body k1_pick_kb); lp takes a thread per slot and
+// a tile per block (k1_slot, which with two rows a block also serves lp's
+// SpMV form).
 // Bound: the metadata bytes once plus kb x (the x values the slots read +
 // the output).  Column c is computed with the same intrinsics in the same
 // order as the kb = 1 kernel, so it is bit-equal to it; per-column values
 // live in MAX_KB-wide register arrays under fully unrolled `c < kb` loops.
 // ===========================================================================
 constexpr int MAX_KB = 8;        // columns per launch (exec.MM_FUSED_KB)
-
-// K1 lp: a thread resolves its G1 wire, window offset and value once, then
-// forms one product per column.  xs = the page grid's values per
-// column, n_elems = T * 1024 = the output's.
-template <typename T, bool DENSE>
-__device__ __forceinline__ void k1_route_kb(const int32_t* __restrict__ plo,
-                                            const int32_t* __restrict__ mg,
-                                            const T* __restrict__ vals,
-                                            const T* __restrict__ x2,
-                                            T* __restrict__ out,
-                                            long long n_elems, int q, int kb,
-                                            long long xs) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n_elems) return;
-  const long long row = e >> 7;
-  const int g1 = (int)(((uint32_t)mg[e]) >> 16) - 1;
-  long long i = -1;
-  T v = T(0);
-  if (g1 >= 0) {
-    const long long src = (row << 7) + g1;
-    i = k1_x_index<DENSE>(plo, row, mg[src] & 0x3FFF, g1, q);
-    if (i >= 0) v = vals[src];
-  }
-#pragma unroll
-  for (int c = 0; c < MAX_KB; ++c)
-    if (c < kb)
-      out[c * n_elems + e] = i >= 0 ? mul_rn(x2[c * xs + i], v) : T(0);
-}
-
-template <typename T>
-__global__ void k1_lp_kb_kernel(const int32_t* __restrict__ plo,
-                                const int32_t* __restrict__ mg,
-                                const T* __restrict__ vals,
-                                const T* __restrict__ x2,
-                                T* __restrict__ out, long long n_elems,
-                                int q8, int kb, long long xs) {
-  k1_route_kb<T, false>(plo, mg, vals, x2, out, n_elems, q8, kb, xs);
-}
 
 // K1 rlp{W} / run{W}, k-batched: the products, circular roll and G1 route
 // of k1_roll, column by column, with a warp per (tile, sublane) row.  Lane
@@ -717,8 +675,8 @@ __global__ void __launch_bounds__(K1KB_THREADS)
 // dependent loads (mg, then mg and vals at the routed lane, then x) and
 // moved 4 bytes an instruction.  k1_roll_kb at W = 1 (a product for every
 // slot, routed through shared memory each column) was slower, most in f64;
-// the streaming output stores take most of the time (PERF.md).
-// os = T * 1024.
+// the streaming output stores take most of the time (PERF.md).  For lp
+// this body was slower than k1_slot (PERF.md).  os = T * 1024.
 template <typename T>
 __device__ __forceinline__ void k1_pick_kb(const int32_t* __restrict__ plo,
                                            const int32_t* __restrict__ mg,
@@ -773,6 +731,89 @@ __global__ void __launch_bounds__(K1KB_THREADS)
   k1_pick_kb<T>(plo, mg, vals, x2, out, q, kb, xs, os, n_rows);
 }
 
+// K1 lp, both forms: a thread per slot, R (tile, sublane) rows a block.
+// The block's mg and vals rows come in as 16-byte streams (__ldcs) into
+// shared memory (the first R warps load mg, the next R vals), then, after
+// one __syncthreads, each thread picks the window offset and value of the
+// slot g1 its wire names from shared memory (lp's lane-placed x index: the
+// source lane g1 is the x lane), issues the x loads of all kb columns at
+// once and stores its products with streaming stores; a warp's stores are
+// 32 contiguous values a column.  Only routed slots read x (an unrouted
+// slot is +0, a routed one past the window 0 x v, as k1_plain gives).
+// Staging the rows spares the chain of three dependent global loads (mg,
+// then mg and vals at the routed lane, then x).  The x gathers bound it:
+// each is one L2 sector for one value, so what counts is how many are in
+// flight (kb a thread, at full occupancy) and how many hit L1.  A tile's
+// 8 rows read one window, about one x sector for every three routed
+// slots, so the kb form takes a whole tile a block (R = 8) and the SpMV
+// form, whose small launches want more blocks, two rows (R = 2).  The
+// warp-per-row bodies (k1_pick_kb, and k1_roll_kb at W = 1) were slower
+// here: a thread's 4 slots cut the loads in flight, or their registers
+// the occupancy (PERF.md).  I is the x index's type: int where the
+// launcher has checked that a column holds fewer than 2^31 values (kb
+// form), else long long.  os = T * 1024.
+template <typename T, typename I, int R>
+__device__ __forceinline__ void k1_slot(const int32_t* __restrict__ plo,
+                                        const int32_t* __restrict__ mg,
+                                        const T* __restrict__ vals,
+                                        const T* __restrict__ x2,
+                                        T* __restrict__ out, int q8, int kb,
+                                        long long xs, long long os) {
+  __shared__ __align__(16) int32_t sm[R][L];
+  __shared__ __align__(16) T sv[R][L];
+  const int w = threadIdx.x >> 5;
+  const int i = threadIdx.x & 31;
+  const long long row0 = (long long)blockIdx.x * R;  // R divides T * 8
+  if (w < R) {
+    *reinterpret_cast<int4*>(&sm[w][4 * i]) = __ldcs(
+        reinterpret_cast<const int4*>(mg + ((row0 + w) << 7) + 4 * i));
+  } else if (w < 2 * R) {
+    T v[4];
+    load4_cs(v, vals + ((row0 + w - R) << 7) + 4 * i);
+    store4(&sv[w - R][4 * i], v);
+  }
+  __syncthreads();
+  const int r = threadIdx.x >> 7;
+  const int l = threadIdx.x & (L - 1);
+  const long long row = row0 + r;                   // t * 8 + s
+  const int g1 = (int)(((uint32_t)sm[r][l]) >> 16) - 1;
+  I xi = -1;                                       // -1: past the window
+  T v = T(0);
+  if (g1 >= 0) {
+    xi = (I)k1_x_index<false>(plo, row, sm[r][g1] & 0x3FFF, g1, q8);
+    v = sv[r][g1];
+  }
+  T xv[MAX_KB];
+#pragma unroll
+  for (int c = 0; c < MAX_KB; ++c)
+    xv[c] = c < kb && xi >= 0 ? x2[c * xs + xi] : T(0);
+  const long long e = (row << 7) + l;
+#pragma unroll
+  for (int c = 0; c < MAX_KB; ++c)
+    if (c < kb) __stcs(out + c * os + e, g1 >= 0 ? mul_rn(xv[c], v) : T(0));
+}
+
+constexpr int K1LP_ROWS = 2;     // lp SpMV: (tile, sublane) rows a block
+constexpr int K1LP_KB_ROWS = 8;  // lp kb: a tile a block
+
+template <typename T>
+__global__ void __launch_bounds__(K1LP_ROWS * L)
+    k1_lp_kernel(const int32_t* __restrict__ plo,
+                 const int32_t* __restrict__ mg, const T* __restrict__ vals,
+                 const T* __restrict__ x2, T* __restrict__ out, int q8) {
+  k1_slot<T, long long, K1LP_ROWS>(plo, mg, vals, x2, out, q8, 1, 0, 0);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(K1LP_KB_ROWS * L)
+    k1_lp_kb_kernel(const int32_t* __restrict__ plo,
+                    const int32_t* __restrict__ mg,
+                    const T* __restrict__ vals, const T* __restrict__ x2,
+                    T* __restrict__ out, int q8, int kb, long long xs,
+                    long long os) {
+  k1_slot<T, int, K1LP_KB_ROWS>(plo, mg, vals, x2, out, q8, kb, xs, os);
+}
+
 // T1: no metadata, so the k axis is a grid axis: the kb x A2R input blocks
 // are contiguous, block z = c * A2R + a.
 template <typename T>
@@ -805,22 +846,46 @@ __global__ void __launch_bounds__(K3_THREADS)
   k3_body<T, MAX_KB>(b.a, b.kb, b.xs, b.xrs, y);
 }
 
-template <typename T, bool DENSE>
-int launch_k1(const void* plo, const void* mg, const void* vals, const void* x2,
-              void* out, long long n_tiles, int q, void* stream) {
-  if (q < 1 || (DENSE && q > 16)) return (int)cudaErrorInvalidValue;
+// The checks of the K1 launchers that stream mg and vals as 16-byte
+// vectors (every kb form, lp's SpMV form): mg, vals and out on 16-byte
+// boundaries (one contract for all of them, though lp stores its outputs
+// one value at a time), 32-bit x indexes in a column (xs values; lp's
+// SpMV form passes 0 and indexes in 64 bits).
+int k1_row_refused(const void* mg, const void* vals, const void* out,
+                   bool dense, int q, int kb, long long xs) {
+  if (q < 1 || (dense && q > 16) || kb < 1 || kb > MAX_KB ||
+      (((uintptr_t)mg | (uintptr_t)vals | (uintptr_t)out) & 15) ||
+      xs > 0x7FFFFFFF)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+template <typename T>
+int launch_k1_lp(const void* plo, const void* mg, const void* vals,
+                 const void* x2, void* out, long long n_tiles, int q8,
+                 void* stream) {
+  if (int err = k1_row_refused(mg, vals, out, false, q8, 1, 0)) return err;
+  const long long blocks = n_tiles * 8 / K1LP_ROWS;
+  if (blocks == 0) return (int)cudaGetLastError();
+  k1_lp_kernel<T><<<(unsigned)blocks, K1LP_ROWS * L, 0,
+                    (cudaStream_t)stream>>>(
+      (const int32_t*)plo, (const int32_t*)mg, (const T*)vals, (const T*)x2,
+      (T*)out, q8);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_k1_sl(const void* plo, const void* mg, const void* vals,
+                 const void* x2, void* out, long long n_tiles, int q,
+                 void* stream) {
+  if (q < 1 || q > 16) return (int)cudaErrorInvalidValue;
   const long long n = n_tiles * 8 * L;
   if (n == 0) return (int)cudaGetLastError();
   const int threads = 256;
   const long long blocks = (n + threads - 1) / threads;
-  if (DENSE)
-    k1_sl_kernel<T><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)plo, (const int32_t*)mg, (const T*)vals,
-        (const T*)x2, (T*)out, n, q);
-  else
-    k1_lp_kernel<T><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)plo, (const int32_t*)mg, (const T*)vals,
-        (const T*)x2, (T*)out, n, q);
+  k1_sl_kernel<T><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)plo, (const int32_t*)mg, (const T*)vals,
+      (const T*)x2, (T*)out, n, q);
   return (int)cudaGetLastError();
 }
 
@@ -933,36 +998,24 @@ int launch_k3(const void* const* e1, const void* const* g3, const int* K,
 // --- the k-batched launchers (kb = 1 .. MAX_KB) ---------------------------
 
 template <typename T>
-int launch_k1_kb(const void* plo, const void* mg, const void* vals,
-                 const void* x2, void* out, long long n_tiles, int q8, int kb,
-                 long long xs, void* stream) {
-  if (q8 < 1 || kb < 1 || kb > MAX_KB) return (int)cudaErrorInvalidValue;
-  const long long n = n_tiles * 8 * L;
-  if (n == 0) return (int)cudaGetLastError();
-  const int threads = 256;
-  const long long blocks = (n + threads - 1) / threads;
-  k1_lp_kb_kernel<T><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)plo, (const int32_t*)mg, (const T*)vals,
-      (const T*)x2, (T*)out, n, q8, kb, xs);
+int launch_k1_lp_kb(const void* plo, const void* mg, const void* vals,
+                    const void* x2, void* out, long long n_tiles, int q8,
+                    int kb, long long xs, void* stream) {
+  if (int err = k1_row_refused(mg, vals, out, false, q8, kb, xs)) return err;
+  const long long blocks = n_tiles * 8 / K1LP_KB_ROWS;
+  if (blocks == 0) return (int)cudaGetLastError();
+  k1_lp_kb_kernel<T><<<(unsigned)blocks, K1LP_KB_ROWS * L, 0,
+                       (cudaStream_t)stream>>>(
+      (const int32_t*)plo, (const int32_t*)mg, (const T*)vals, (const T*)x2,
+      (T*)out, q8, kb, xs, n_tiles * 8 * L);
   return (int)cudaGetLastError();
-}
-
-// The checks of the warp-per-row kb launchers: 16-byte vectors of mg, vals
-// and out, 32-bit x indexes in a column.
-int k1_row_kb_refused(const void* mg, const void* vals, const void* out,
-                      bool dense, int q, int kb, long long xs) {
-  if (q < 1 || (dense && q > 16) || kb < 1 || kb > MAX_KB ||
-      (((uintptr_t)mg | (uintptr_t)vals | (uintptr_t)out) & 15) ||
-      xs > 0x7FFFFFFF)
-    return (int)cudaErrorInvalidValue;
-  return 0;
 }
 
 template <typename T>
 int launch_k1_sl_kb(const void* plo, const void* mg, const void* vals,
                     const void* x2, void* out, long long n_tiles, int q,
                     int kb, long long xs, void* stream) {
-  if (int err = k1_row_kb_refused(mg, vals, out, true, q, kb, xs)) return err;
+  if (int err = k1_row_refused(mg, vals, out, true, q, kb, xs)) return err;
   const long long n_rows = n_tiles * 8;
   const long long blocks = (n_rows + K1KB_WARPS - 1) / K1KB_WARPS;
   if (blocks == 0) return (int)cudaGetLastError();
@@ -978,7 +1031,7 @@ int launch_k1_roll_kb(const void* plo, const void* mg, const void* vals,
                       const void* x2, void* out, long long n_tiles, int q,
                       int W, int kb, long long xs, void* stream) {
   if (W < 2 || W > L || (W & (W - 1))) return (int)cudaErrorInvalidValue;
-  if (int err = k1_row_kb_refused(mg, vals, out, DENSE, q, kb, xs)) return err;
+  if (int err = k1_row_refused(mg, vals, out, DENSE, q, kb, xs)) return err;
   const long long n_rows = n_tiles * 8;
   const long long blocks = (n_rows + K1KB_WARPS - 1) / K1KB_WARPS;
   if (blocks == 0) return (int)cudaGetLastError();
@@ -1033,12 +1086,12 @@ int launch_k3_kb(const void* const* e1, const void* const* g3, const int* K,
   extern "C" int spx_k1_##SFX(const void* plo, const void* mg,                 \
                               const void* vals, const void* x2, void* out,     \
                               long long n_tiles, int q8, void* stream) {       \
-    return launch_k1<T, false>(plo, mg, vals, x2, out, n_tiles, q8, stream);   \
+    return launch_k1_lp<T>(plo, mg, vals, x2, out, n_tiles, q8, stream);       \
   }                                                                            \
   extern "C" int spx_k1_sl_##SFX(const void* plo, const void* mg,              \
                                  const void* vals, const void* x2, void* out,  \
                                  long long n_tiles, int q, void* stream) {     \
-    return launch_k1<T, true>(plo, mg, vals, x2, out, n_tiles, q, stream);     \
+    return launch_k1_sl<T>(plo, mg, vals, x2, out, n_tiles, q, stream);        \
   }                                                                            \
   extern "C" int spx_k1_rlp_##SFX(const void* plo, const void* mg,             \
                                   const void* vals, const void* x2, void* out, \
@@ -1076,8 +1129,8 @@ int launch_k3_kb(const void* const* e1, const void* const* g3, const int* K,
                                  const void* vals, const void* x2, void* out,  \
                                  long long n_tiles, int q8, int kb,            \
                                  long long xs, void* stream) {                 \
-    return launch_k1_kb<T>(plo, mg, vals, x2, out, n_tiles, q8, kb, xs,        \
-                           stream);                                            \
+    return launch_k1_lp_kb<T>(plo, mg, vals, x2, out, n_tiles, q8, kb, xs,     \
+                              stream);                                         \
   }                                                                            \
   extern "C" int spx_k1_sl_kb_##SFX(const void* plo, const void* mg,           \
                                     const void* vals, const void* x2,          \

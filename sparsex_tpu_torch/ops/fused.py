@@ -1071,9 +1071,9 @@ def k1(plo, mg, vals, x2, q: int, style: str = "lp"):
     pages.  Every tile's window must lie inside ``x2``
     (``ops/convert.py`` checks the plan's).  A k-batched grid (kb, npages,
     8, 128), kb <= MAX_KB, gives (kb, T, 8, 128) from the ``_kb`` kernel,
-    which reads mg and vals once for all kb columns; on the card the kb
-    kernels of the styles ``rlp{W}``, ``sl`` and ``run{W}`` raise (CUDA
-    error 1) for mg or vals off a 16-byte boundary."""
+    which reads mg and vals once for all kb columns.  On the card the kb
+    kernels of every style, and the ``lp`` SpMV kernel, raise (CUDA error
+    1) for mg or vals off a 16-byte boundary."""
     dense, W = k1_style(style)
     _value_dtype("vals", vals)
     T = mg.shape[0]

@@ -56,11 +56,14 @@ def _pack(low, g1):
             | ((g1.astype(np.int32) + 1) << 16))
 
 
-@pytest.mark.parametrize("q8", [1, 4, 32])
+@pytest.mark.parametrize("q8,T", [(1, 40), (4, 40), (32, 40), (4, 1),
+                                  (32, 3), (1, 41), (4, 41)])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_k1_cuda_matches_plain(dev, q8, dtype):
-    rng = np.random.default_rng(q8)
-    T, npages = 40, 128
+def test_k1_cuda_matches_plain(dev, q8, T, dtype):
+    """The lp SpMV kernel (a thread per slot, two rows a block) on 1 to 41
+    tiles."""
+    rng = np.random.default_rng(q8 * 100 + T)
+    npages = 128
     # low reaches past the window on purpose: those pages read as 0
     mg = _pack(rng.integers(0, q8 * 8 + 8, (T, 8, L)),
                rng.integers(-1, L, (T, 8, L)))
@@ -73,6 +76,29 @@ def test_k1_cuda_matches_plain(dev, q8, dtype):
     torch.cuda.synchronize()
     assert tf.launches["k1"] == before + 1
     assert torch.equal(got, tf.k1_plain(*args, q8))
+
+
+@pytest.mark.parametrize("operand", ["vals", "mg"])
+def test_k1_cuda_refuses_misaligned(dev, operand):
+    """The lp SpMV kernel streams mg and vals in as 16-byte vectors: either
+    one value past a 16-byte boundary is refused (CUDA error 1), and
+    nothing is launched."""
+    rng = np.random.default_rng(8)
+    T, npages, q8 = 4, 16, 4
+    mg = _pack(rng.integers(0, 8, (T, 8, L)),
+               rng.integers(-1, L, (T, 8, L))).reshape(-1)
+    plo = np.zeros(T, np.int32)
+    vals = rng.standard_normal(T * 8 * L + 1).astype(np.float32)
+    x2 = rng.standard_normal((npages, 8, L)).astype(np.float32)
+    plo_t, mg_t, vals_t, x2_t = _on(dev, plo, np.append(mg, np.int32(0)),
+                                    vals, x2)
+    ops = {"mg": mg_t[:-1], "vals": vals_t[:-1]}
+    ops[operand] = {"mg": mg_t, "vals": vals_t}[operand][1:]
+    before = tf.launches["k1"]
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        tf.k1(plo_t, ops["mg"].view(T, 8, L), ops["vals"].view(T, 8, L),
+              x2_t, q8)
+    assert tf.launches["k1"] == before
 
 
 @pytest.mark.parametrize("W", [2, 4, 8])
@@ -176,9 +202,10 @@ def test_lane_gather_cuda_refuses_misaligned(dev, operand):
 
 
 def test_row_kernels_refuse_misaligned_out(dev):
-    """The launchers of the SpMV lane gather and K1 sl kb refuse an output
-    off a 16-byte boundary (cudaErrorInvalidValue = 1); their wrappers
-    allocate aligned outputs, so the C entry points are called directly."""
+    """The launchers of the SpMV lane gather, K1 lp (both forms) and K1 sl
+    kb refuse an output off a 16-byte boundary (cudaErrorInvalidValue =
+    1); their wrappers allocate aligned outputs, so the C entry points are
+    called directly."""
     from sparsex_tpu_torch.ops import _build
     lib = _build.library()
     R, T, kb = 8, 1, 2
@@ -200,6 +227,14 @@ def test_row_kernels_refuse_misaligned_out(dev):
                                 vals.data_ptr(), x2.data_ptr(),
                                 res.data_ptr(), T, 2, kb, 4 * 8 * L,
                                 stream) == 0
+    for off, want in ((4, 1), (0, 0)):
+        assert lib.spx_k1_kb_f32(plo.data_ptr(), mg.data_ptr(),
+                                 vals.data_ptr(), x2.data_ptr(),
+                                 res.data_ptr() + off, T, 4, kb, 4 * 8 * L,
+                                 stream) == want
+        assert lib.spx_k1_f32(plo.data_ptr(), mg.data_ptr(),
+                              vals.data_ptr(), x2[0].data_ptr(),
+                              res.data_ptr() + off, T, 4, stream) == want
     torch.cuda.synchronize()
 
 
@@ -529,7 +564,8 @@ def _columns_equal(batched, per_column):
     ("rlp8", 1, 40), ("sl", 3, 40), ("sl", 16, 40), ("run16", 3, 40),
     ("run128", 1, 40), ("rlp128", 4, 40), ("run2", 3, 40), ("rlp4", 32, 40),
     ("rlp8", 4, 1), ("run16", 2, 3), ("rlp2", 32, 41), ("run128", 1, 41),
-    ("sl", 1, 1), ("sl", 2, 3), ("sl", 16, 41), ("sl", 1, 41)])
+    ("sl", 1, 1), ("sl", 2, 3), ("sl", 16, 41), ("sl", 1, 41),
+    ("lp", 4, 1), ("lp", 32, 3), ("lp", 1, 41), ("lp", 32, 41)])
 @pytest.mark.parametrize("kb", [1, 3, 8, 5])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_k1_kb_cuda_matches_plain(dev, style, q, T, kb, dtype):
@@ -558,11 +594,13 @@ def test_k1_kb_cuda_matches_plain(dev, style, q, T, kb, dtype):
 
 
 @pytest.mark.parametrize("operand", ["vals", "mg"])
-@pytest.mark.parametrize("style,q", [("rlp8", 4), ("run16", 2), ("sl", 2)])
+@pytest.mark.parametrize("style,q", [("rlp8", 4), ("run16", 2), ("sl", 2),
+                                     ("lp", 4)])
 def test_k1_roll_kb_cuda_refuses_misaligned(dev, style, q, operand):
-    """The warp-per-row kb kernels (the run styles and sl) load mg and vals
-    and store their output as 16-byte vectors: vals or mg one value past a
-    16-byte boundary is refused (CUDA error 1), and nothing is launched."""
+    """The kb kernels of every style stream mg and vals in as 16-byte
+    vectors (and the warp-per-row ones store 16-byte vectors): vals or mg
+    one value past a 16-byte boundary is refused (CUDA error 1), and
+    nothing is launched."""
     rng = np.random.default_rng(7)
     T, npages = 4, 16
     mg = _pack(rng.integers(0, 8, (T, 8, L)),

@@ -79,7 +79,8 @@ def _columns_equal(batched, one_column):
                                      ("sl", 2), ("run16", 2), ("rlp2", 1),
                                      ("rlp2", 32), ("rlp128", 4),
                                      ("rlp128", 32), ("run2", 2),
-                                     ("run128", 1), ("sl", 1), ("sl", 16)])
+                                     ("run128", 1), ("sl", 1), ("sl", 16),
+                                     ("lp", 1)])
 @pytest.mark.parametrize("kb", KBS + (5,))
 def test_k1_kb_matches_pallas(style, q, kb):
     """Lane-placed windows of q8 pages and dense windows of q pages, each
@@ -119,6 +120,34 @@ def test_k1_kb_matches_pallas(style, q, kb):
         np.testing.assert_allclose(want[:, 0, 0, 0], p_arc.sum(-1),
                                    rtol=1e-5,
                                    atol=1e-5 * np.abs(p_arc).sum())
+
+
+@pytest.mark.parametrize("kb", KBS + (5,))
+def test_k1_kb_lp_past_window_matches_pallas(kb):
+    """Lane-placed K1 with most routed slots past their q8-page window:
+    those read 0 (0 x v), the rest x * v, as the Pallas kernel gives."""
+    rng = np.random.default_rng(90 + kb)
+    T, npages, q = 8, 64, 4
+    low = rng.integers(q * 8, 8 * 8, (T, 8, L))       # pages q8 .. 7
+    inside = rng.random((T, 8, L)) < 0.2
+    low[inside] = rng.integers(0, q * 8, int(inside.sum()))
+    g1 = rng.integers(-1, L, (T, 8, L))
+    mg = fused.pack_k1_meta(low, g1)
+    plo = rng.integers(0, npages // q, T).astype(np.int32)
+    vals = rng.standard_normal((T, 8, L)).astype(np.float32)
+    x2 = rng.standard_normal((kb, npages, 8, L)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(fused._build_k1(T, q, "lp", "float32", kb=kb)(
+            jnp.asarray(plo), jnp.asarray(mg), jnp.asarray(vals),
+            jnp.asarray(x2)))
+    args = (_t(plo), _t(mg), _t(vals))
+    got = tf.k1(*args, _t(x2), q, "lp")
+    np.testing.assert_array_equal(got.numpy(), want)
+    _idx, ok = tf.k1_x_index(args[0], args[1], q, "lp")
+    src = np.take_along_axis(ok.numpy(), np.maximum(g1, 0), -1)
+    assert (~src[g1 >= 0]).mean() > 0.7           # routed, past the window
+    assert 0.1 < (want != 0).mean() < 0.3
+    _columns_equal(got, lambda c: tf.k1(*args, _t(x2[c]), q, "lp"))
 
 
 @pytest.mark.parametrize("kb", KBS)
