@@ -39,6 +39,10 @@ this script imports nothing of the JAX package or its benchmark):
     table with an ``fs`` route beside the delta pipeline;
   - ``block3_matrix(3 << 19)`` (9.44M nonzeros of 3x3 blocks, as 3-D FEM
     matrices have): a paged block table with an ``fs`` route;
+  - one untimed check in float32 and float64 of
+    ``overlap_run_matrix(1 << 16)`` (3 width-16 runs a row), whose fused
+    run plan had route instances overlapping outside a merged plan: the
+    port re-plans its run table as a paged table with an ``fs`` route;
 - the non-fused variants, which the fused planners refuse (more than 2^21
   rows, or nothing to fuse):
   - HPCG's 27-point stencil on a 128^3 grid (``hpcg_matrix``: 2^21 rows,
@@ -78,7 +82,10 @@ Every phase is fatal on failure:
 4. the SpMV end to end against a float64 COO oracle (``CHECK_TOL`` in
    float32, 1e-6 in float64) at alpha=1/beta=0 and alpha=2/beta=0.5, with
    the launch counts, derived from the plan, showing that each kernel ran
-   on that path;
+   on that path; the T1, lane-gather and K1 launchers refuse operands off
+   a 16-byte boundary, so this phase also shows that every call site on
+   the path (an instance's row slice, K1's reshaped output) passes aligned
+   tensors;
 5. CUDA-event times, median over 5 runs of 128 calls after a warm-up: the
    SpMV end to end as a Python caller gets it, the host's time to enqueue
    one, and the SpMV replayed from a CUDA graph (device time); each kernel
@@ -131,6 +138,7 @@ N_RUN128 = 1 << 19      # the width-128 wide-run check
 N_BIG = 1 << 22         # past the fused planners' 2^21-row cap
 N_FS_BLOCK = 3 << 19    # the 3x3-block matrix: 2^19 block rows
 HPCG_NX = 128           # the HPCG stencil's grid edge: 2^21 rows
+N_OVERLAP = 1 << 16     # the run matrix whose fused-run route overlapped
 # the card's peaks for the bounds (H100 SXM: 3.35 TB/s of HBM3; 67 TFLOP/s
 # in float32 and 34 in float64 outside the tensor cores, NVIDIA's data
 # sheet), read at the card's full power limit
@@ -456,6 +464,27 @@ def check_fs_plan(kind):
         say(f"[{label}] plan: {desc}")
         return ex
     return check
+
+
+def check_overlap_plan(mat, label):
+    """``overlap_run_matrix``'s plan: no fused run table whose route
+    instances overlap outside a merged plan (the port re-plans it as a
+    paged run table with an ``fs`` route)."""
+    from sparsex_tpu_torch.ops.kernels import _kind, unmerged_overlapping_runs
+    ex = mat.csx.executors[0]
+    fs = fs_tables(ex.meta)
+    runs = [(e[:3], e[3], e[4][0] if e[4] else None, _kind(e))
+            for e in ex.meta[2]]
+    desc = (f"extras {sorted(extras_of(ex.meta))}; run tables (enc, delta, "
+            f"width), pages, route, class: {runs}; fs tables "
+            f"{[(k, e[:3], len(e[4][1])) for k, _i, e in fs]}")
+    if (unmerged_overlapping_runs(ex.meta)
+            or not any(k == "runs" for k, _i, _e in fs)):
+        fail(f"[{label}] expected the width-16 run table re-planned with an "
+             f"fs route, no overlapping fused run outside a merged plan: "
+             f"{desc}")
+    say(f"[{label}] plan: {desc}")
+    return ex
 
 
 def check_pages_plan(mat, kind, label):
@@ -1332,6 +1361,22 @@ def block3_matrix(n, seed=0):
     return _dedup_sort(rows.ravel(), cols.ravel(), n, seed + 1)
 
 
+def overlap_run_matrix(n, W=16, per_row=3, seed=0):
+    """``per_row`` horizontal runs of width W in every row at random start
+    columns, deduplicated.  At n = 2^16, W = 16 and 3 a row (3,145,041
+    nonzeros) the width-16 run table's one-fold route plan is rejected and
+    the multi-fold fallback plans route instances over the same source
+    rows, which no merged plan takes; K1's one G1 grid kept only the last
+    fold's wires (a max relative error of 0.87 before the port re-planned
+    such a table).  W = 8, 4 a row at 2^17 overlaps inside a merged plan,
+    which runs it right."""
+    rng = np.random.default_rng(seed)
+    c0 = rng.integers(0, n - W, (n, per_row))
+    rows = np.repeat(np.arange(n, dtype=np.int64), per_row * W)
+    cols = (c0[:, :, None] + np.arange(W)).ravel()
+    return _dedup_sort(rows, cols, n, seed + 1)
+
+
 def hpcg_matrix(nx):
     """HPCG's problem matrix: the 27-point stencil on an nx^3 grid, 26 on the
     diagonal and -1 for each neighbour in the 3x3x3 cube, rows in
@@ -1438,6 +1483,9 @@ def main():
         ("fs-block 3x2^19 ", N_FS_BLOCK, lambda: block3_matrix(N_FS_BLOCK),
          check_fs_plan("blocks"), fused_kernel_phase, tols, True,
          ((8, False, f32),)),
+        ("overlap-run 2^16 W=16 ", N_OVERLAP,
+         lambda: overlap_run_matrix(N_OVERLAP), check_overlap_plan,
+         fused_kernel_phase, tols, False, ()),
         ("wide-run 2^19 W=128 ", N_RUN128,
          lambda: wide_run_matrix(N_RUN128, 128), check_dense_plan("run128"),
          fused_kernel_phase, tols[:1], False, ()),

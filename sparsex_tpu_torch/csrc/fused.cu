@@ -160,22 +160,106 @@ __global__ void k1_run_kernel(const int32_t* __restrict__ plo,
 }
 
 // ---------------------------------------------------------------------------
-// T1 (replaces fused.py:_build_t1).  (A2R*128, 128) -> (A2R, 128, 128),
-// block a = A1[a*128:(a+1)*128].T.  A 32x32 shared-memory tile transpose:
-// both the read and the write are coalesced; the +1 column pad removes bank
-// conflicts on the transposed read.
+// T1 (replaces fused.py:_build_t1; t1_kb_kernel below, the same over kb x A2R
+// blocks, replaces its kb > 0 form).  (A2R*128, 128) -> (A2R, 128, 128),
+// block a = A1[a*128:(a+1)*128].T.  It only moves data, so what bounds it is
+// device-memory bytes: each 64 KB (f32) / 128 KB (f64) block is read once and
+// written once, and a launch (A2R <= 128 blocks, at most 16 MB in and out)
+// is short enough that the whole input can be in flight at once.
+//
+// A block of T1_THREADS threads takes 32 input rows of one 128 x 128 block
+// (so A2R = 110 gives 440 blocks, about 3 a SM): each thread loads its
+// 32 / GROUPS rows of one 16-byte vector (V = 4 f32 / 2 f64
+// columns) at once, a warp's lanes spanning a 512-byte input row a load;
+// it turns each V x V sub-block around in registers and stores it as V
+// 16-byte vectors into a shared tile held output-row-major; one barrier;
+// then each 16-byte vector of an output row segment (32 values) is
+// read back and written out with a streaming store, a warp's lanes covering
+// whole 128-byte lines (4 rows of 128 bytes in f32, 2 of 256 in f64).  Both
+// shared-memory passes are free of bank conflicts: a vector's slot in its
+// row is XOR-swizzled by (row / V) & 7, so the 8 lanes of a quarter-warp,
+// which hit 8 rows on the way in and 8 slots of one row on the way out,
+// always take 8 different 16-byte bank groups.  Stores that leave a warp
+// as 16 bytes to each of 32 rows (a transpose in registers alone, or after
+// a 1-D bulk copy of the rows) took 1.4 to 2.1 times the old kernel's time;
+// the streaming stores cut the fs-block path's T1 by a fifth (PERF.md §6).
+// The launchers refuse in / out off a 16-byte boundary (CUDA error 1).
 // ---------------------------------------------------------------------------
+constexpr int T1_THREADS = 256;
+
+template <typename T> struct Vec16;
+template <> struct Vec16<float> { using type = float4; };
+template <> struct Vec16<double> { using type = double2; };
+
 template <typename T>
-__global__ void t1_kernel(const T* __restrict__ in, T* __restrict__ out) {
-  __shared__ T tile[32][33];
-  const size_t base = (size_t)blockIdx.z * L * L;
-  const int c0 = blockIdx.x * 32;          // input column = output row
-  const int j0 = blockIdx.y * 32;          // input row = output column
-  for (int k = threadIdx.y; k < 32; k += blockDim.y)
-    tile[k][threadIdx.x] = in[base + (size_t)(j0 + k) * L + c0 + threadIdx.x];
+struct T1Tile {
+  static constexpr int ROWS = 32;                    // input rows a block
+  static constexpr int V = 16 / (int)sizeof(T);      // values a vector
+  static constexpr int LANES = L / V;                // vectors an input row
+  static constexpr int CH = ROWS / V;                // vectors an output row
+  static constexpr int GROUPS = T1_THREADS / LANES;  // threads down a column
+  static constexpr int RT = ROWS / GROUPS;           // input rows a thread
+  static constexpr int OUT = L * CH / T1_THREADS;    // vectors a thread writes
+  static constexpr int PARTS = L / ROWS;             // blocks a 128-row block
+  static_assert(CH >= 8 && RT % V == 0 && OUT * T1_THREADS == L * CH, "");
+};
+
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ double comp(const double2& v, int i) {
+  return i == 0 ? v.x : v.y;
+}
+// Component i of V consecutive vectors (V rows of a V x V sub-block): one
+// vector of output row i.
+__device__ __forceinline__ float4 column(const float4* v, int i) {
+  return make_float4(comp(v[0], i), comp(v[1], i), comp(v[2], i),
+                     comp(v[3], i));
+}
+__device__ __forceinline__ double2 column(const double2* v, int i) {
+  return make_double2(comp(v[0], i), comp(v[1], i));
+}
+
+// Block blockIdx.x takes input rows [part * ROWS, (part + 1) * ROWS) of the
+// 128 x 128 block blockIdx.x / PARTS.
+template <typename T>
+__device__ __forceinline__ void t1_body(const T* __restrict__ in,
+                                        T* __restrict__ out) {
+  using S = T1Tile<T>;
+  using Vec = typename Vec16<T>::type;
+  __shared__ Vec tile[L * S::CH];     // [output row c][swizzled vector]
+  const long long base = (long long)(blockIdx.x / S::PARTS) * TILE3;
+  const int j0 = (blockIdx.x % S::PARTS) * S::ROWS;
+  const int lane = threadIdx.x % S::LANES;
+  const int g = threadIdx.x / S::LANES;
+  const Vec* src = reinterpret_cast<const Vec*>(
+                       in + base + (long long)(j0 + g * S::RT) * L) + lane;
+  Vec v[S::RT];
+#pragma unroll
+  for (int r = 0; r < S::RT; ++r) v[r] = src[r * S::LANES];
+#pragma unroll
+  for (int b = 0; b < S::RT / S::V; ++b) {
+    const int q = g * (S::RT / S::V) + b;           // vector in the row
+#pragma unroll
+    for (int i = 0; i < S::V; ++i) {
+      const int c = lane * S::V + i;                // output row
+      tile[c * S::CH + (q ^ ((c / S::V) & 7))] = column(v + b * S::V, i);
+    }
+  }
   __syncthreads();
-  for (int k = threadIdx.y; k < 32; k += blockDim.y)
-    out[base + (size_t)(c0 + k) * L + j0 + threadIdx.x] = tile[threadIdx.x][k];
+#pragma unroll
+  for (int k = 0; k < S::OUT; ++k) {
+    const int o = k * T1_THREADS + threadIdx.x;
+    const int c = o / S::CH, q = o % S::CH;
+    __stcs(reinterpret_cast<Vec*>(out + base + (long long)c * L + j0) + q,
+           tile[c * S::CH + (q ^ ((c / S::V) & 7))]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(T1_THREADS)
+    t1_kernel(const T* __restrict__ in, T* __restrict__ out) {
+  t1_body<T>(in, out);
 }
 
 // ---------------------------------------------------------------------------
@@ -814,19 +898,12 @@ __global__ void __launch_bounds__(K1LP_KB_ROWS * L)
   k1_slot<T, int, K1LP_KB_ROWS>(plo, mg, vals, x2, out, q8, kb, xs, os);
 }
 
-// T1: no metadata, so the k axis is a grid axis: the kb x A2R input blocks
-// are contiguous, block z = c * A2R + a.
+// T1: no metadata, so the k axis folds into the blocks: the kb x A2R input
+// blocks are contiguous, block c * A2R + a.
 template <typename T>
-__global__ void t1_kb_kernel(const T* __restrict__ in, T* __restrict__ out) {
-  __shared__ T tile[32][33];
-  const size_t base = (size_t)blockIdx.z * L * L;
-  const int c0 = blockIdx.x * 32;
-  const int j0 = blockIdx.y * 32;
-  for (int k = threadIdx.y; k < 32; k += blockDim.y)
-    tile[k][threadIdx.x] = in[base + (size_t)(j0 + k) * L + c0 + threadIdx.x];
-  __syncthreads();
-  for (int k = threadIdx.y; k < 32; k += blockDim.y)
-    out[base + (size_t)(c0 + k) * L + j0 + threadIdx.x] = tile[threadIdx.x][k];
+__global__ void __launch_bounds__(T1_THREADS)
+    t1_kb_kernel(const T* __restrict__ in, T* __restrict__ out) {
+  t1_body<T>(in, out);
 }
 
 // K3: k3_body over kb columns (above): the tiles of every column of an
@@ -910,11 +987,20 @@ int launch_k1_roll(const void* plo, const void* mg, const void* vals,
   return (int)cudaGetLastError();
 }
 
+// T1's arguments: A2R >= 1 blocks (kb times, 1 <= kb <= MAX_KB), in and
+// out on 16-byte boundaries for the kernel's vectors.
+int t1_refused(const void* in, const void* out, int A2R, int kb) {
+  if (A2R < 1 || kb < 1 || kb > MAX_KB ||
+      (((uintptr_t)in | (uintptr_t)out) & 15))
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
 template <typename T>
 int launch_t1(const void* in, void* out, int A2R, void* stream) {
-  dim3 grid(L / 32, L / 32, A2R);
-  dim3 block(32, 8);
-  t1_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>((const T*)in, (T*)out);
+  if (int err = t1_refused(in, out, A2R, 1)) return err;
+  t1_kernel<T><<<A2R * T1Tile<T>::PARTS, T1_THREADS, 0,
+                 (cudaStream_t)stream>>>((const T*)in, (T*)out);
   return (int)cudaGetLastError();
 }
 
@@ -1051,11 +1137,9 @@ int launch_k1_roll_kb(const void* plo, const void* mg, const void* vals,
 
 template <typename T>
 int launch_t1_kb(const void* in, void* out, int A2R, int kb, void* stream) {
-  if (kb < 1 || kb > MAX_KB) return (int)cudaErrorInvalidValue;
-  dim3 grid(L / 32, L / 32, A2R * kb);
-  dim3 block(32, 8);
-  t1_kb_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>((const T*)in,
-                                                            (T*)out);
+  if (int err = t1_refused(in, out, A2R, kb)) return err;
+  t1_kb_kernel<T><<<kb * A2R * T1Tile<T>::PARTS, T1_THREADS, 0,
+                    (cudaStream_t)stream>>>((const T*)in, (T*)out);
   return (int)cudaGetLastError();
 }
 

@@ -3,13 +3,16 @@
 Counterpart of ``CsxExecutor`` (``sparsex_tpu/ops/exec.py:204``), in two
 parts:
 
-- :class:`HostPlan`, the reference executor's host half, copied unchanged
+- :class:`HostPlan`, the reference executor's host half, copied
   (``__init__``'s tables and plain meta, ``_maybe_build_pages``,
   ``_build_fblk``, ``_merge_fused_segments``, exec.py:214-808): it plans
   the paged variant with the port's own planners (NumPy and C++), so its
   ``meta`` / ``arrays`` and ``_pages_meta`` / ``_pages_arrays`` equal the
-  reference executor's array for array.  Its comments cite the reference's
-  TPU measurements (the planners' origins); none is a number of the port;
+  reference executor's array for array, with one repair: a fused run table
+  whose route instances overlap outside the merged plan is re-planned
+  without its fused run (the reference's K1 would route all but one fold
+  through the wrong lanes).  Its comments cite the reference's TPU
+  measurements (the planners' origins); none is a number of the port;
 - :class:`CsxExecutor`, the device half: :meth:`CsxExecutor.from_tables`
   plans on the host and uploads the resulting plan once through
   :func:`~sparsex_tpu_torch.ops.convert.plan_to_torch`.  PyTorch runs
@@ -41,7 +44,8 @@ from sparsex_tpu_torch.ops.fused import (build_fused_delta, build_fused_run,
                                          plan_partial_segment)
 from sparsex_tpu_torch.ops.kernels import (check_slice, fused_mm_contrib,
                                            fused_mm_ok, local_contrib,
-                                           static_meta, tables_to_arrays)
+                                           static_meta, tables_to_arrays,
+                                           unmerged_overlapping_runs)
 from sparsex_tpu_torch.ops.pallas_kernels import (build_delta_pages,
                                                   build_unit_pages)
 from sparsex_tpu_torch.ops.route import build_scatter_plan, fold_sort_key
@@ -118,6 +122,45 @@ class HostPlan:
             entry_arrays["fscatter"] = seg_arrays
             return ("fs", inst_meta, has_res, M_pad)
 
+        def _run_entry(enc_i, delta, width, t):
+            """A run table planned without a fused run pipeline: its
+            unit-page gather plan (x-reading types only) and y-side
+            route; returns (meta entry, arrays, whether either was
+            planned)."""
+            sr, sc = run_step(EncType(enc_i))
+            planned = False
+            plan_entry, entry_arrays = None, t
+            if sc != 0 and width >= 2:
+                lane = np.arange(width, dtype=np.int64)
+                gidx = (t["cols"][:, None].astype(np.int64)
+                        + (sc * delta) * lane[None, :])
+                flat = np.clip(gidx, 0, ncols - 1).reshape(-1)
+                order, n_pageable, plan = build_unit_pages(flat, width,
+                                                           ncols)
+                if plan is not None:
+                    entry_arrays = {
+                        "rows": t["rows"][order], "cols": t["cols"][order],
+                        "vals": t["vals"][order],
+                        "plan": {k: plan[k] for k in ("plo", "sl")},
+                    }
+                    plan_entry = (plan["T"], plan["q"], plan["g"],
+                                  plan["npages"])
+                    planned = True
+            rows64 = np.asarray(entry_arrays["rows"], dtype=np.int64)
+            if sr == 0:
+                dest = rows64  # one partial per unit
+            else:
+                lane = np.arange(width, dtype=np.int64)
+                dest = np.clip(rows64[:, None] + (sr * delta) * lane[None],
+                               0, self.tables.nrows - 1).reshape(-1)
+            if entry_arrays is t:
+                entry_arrays = dict(t)
+            scat_entry = _scatter_entry(entry_arrays, dest)
+            if scat_entry is not None:
+                planned = True
+            return ((enc_i, delta, width, plan_entry, scat_entry),
+                    entry_arrays, planned)
+
         # --- run tables: unit-page gather plans (x-reading types only)
         #     + y-side scatter routes ---
         # vert/diag/anti-diag units write W INDEPENDENT dest rows — they
@@ -136,6 +179,9 @@ class HostPlan:
 
         run_meta = []
         run_arrays = []
+        # run_meta index of each fused run pipeline -> its paged units as a
+        # run table (enc, delta, width, arrays), for the re-plan below
+        frun_units = {}
         for (enc_i, delta, width), t in zip(self.meta[2], arrays["runs"]):
             sr, sc = run_step(EncType(enc_i))
             if sr != 0 and demote_sr:
@@ -164,6 +210,11 @@ class HostPlan:
                     self.tables.nrows, width, step=sc * delta)
                 if fmeta_r is not None:
                     tail = order_r[n_page_r:]
+                    head = order_r[:n_page_r]
+                    frun_units[len(run_meta)] = (
+                        enc_i, delta, width,
+                        {k: np.asarray(t[k])[head]
+                         for k in ("rows", "cols", "vals")})
                     run_meta.append((enc_i, delta, width, None, None,
                                      ("frun", fmeta_r, 0)))
                     run_arrays.append({"frun": farr_r})
@@ -178,36 +229,10 @@ class HostPlan:
                                         tvals[nz]))
                     changed = True
                     continue
-            plan_entry, entry_arrays = None, t
-            if sc != 0 and width >= 2:
-                lane = np.arange(width, dtype=np.int64)
-                gidx = (t["cols"][:, None].astype(np.int64)
-                        + (sc * delta) * lane[None, :])
-                flat = np.clip(gidx, 0, ncols - 1).reshape(-1)
-                order, n_pageable, plan = build_unit_pages(flat, width,
-                                                           ncols)
-                if plan is not None:
-                    entry_arrays = {
-                        "rows": t["rows"][order], "cols": t["cols"][order],
-                        "vals": t["vals"][order],
-                        "plan": {k: plan[k] for k in ("plo", "sl")},
-                    }
-                    plan_entry = (plan["T"], plan["q"], plan["g"],
-                                  plan["npages"])
-                    changed = True
-            rows64 = np.asarray(entry_arrays["rows"], dtype=np.int64)
-            if sr == 0:
-                dest = rows64  # one partial per unit
-            else:
-                lane = np.arange(width, dtype=np.int64)
-                dest = np.clip(rows64[:, None] + (sr * delta) * lane[None],
-                               0, self.tables.nrows - 1).reshape(-1)
-            if entry_arrays is t:
-                entry_arrays = dict(t)
-            scat_entry = _scatter_entry(entry_arrays, dest)
-            if scat_entry is not None:
-                changed = True
-            run_meta.append((enc_i, delta, width, plan_entry, scat_entry))
+            entry, entry_arrays, planned = _run_entry(enc_i, delta, width,
+                                                      t)
+            changed = changed or planned
+            run_meta.append(entry)
             run_arrays.append(entry_arrays)
 
         # --- block tables: unit-page gather plans + y-side routes ---
@@ -233,6 +258,11 @@ class HostPlan:
                     cols_b, rows_b, vals_b, ncols, self.tables.nrows, bc)
                 if fmeta_b is not None:
                     tail = order_b[n_page_b:]
+                    head = order_b[:n_page_b]
+                    frun_units[len(run_meta)] = (
+                        int(EncType.HORIZONTAL), 1, bc,
+                        {"rows": rows_b[head], "cols": cols_b[head],
+                         "vals": vals_b[head]})
                     run_meta.append(
                         (int(EncType.HORIZONTAL), 1, bc, None, None,
                          ("frun", fmeta_b, 0)))
@@ -393,6 +423,20 @@ class HostPlan:
             import traceback
             log_warning("merged fused plan failed; keeping per-segment "
                         "plans:\n%s", traceback.format_exc())
+        # a fused run whose route instances overlap in source rows (the
+        # multi-fold fallback of build_fused_run) runs right only inside
+        # the merged plan, whose lane gathers apply one G1 per instance;
+        # K1's single G1 would keep one fold's wires.  The port re-plans
+        # such a run outside the merged plan as its paged units with their
+        # own route, the way a table without a fused run is planned (its
+        # unpageable tail stays demoted in the delta).  The reference keeps
+        # it, and gives a wrong y wherever its paged variant runs.
+        for ri in unmerged_overlapping_runs((None, None, run_meta, (), (),
+                                             fall_entry)):
+            log_warning("fused run table %d: route instances overlap "
+                        "outside a merged plan; re-planned without its "
+                        "fused run", ri)
+            run_meta[ri], run_arrays[ri], _ = _run_entry(*frun_units[ri])
         # pop host-only stashes regardless of merge outcome
         if "fused" in arrays:
             for k in ("_dest", "_tile_group", "_cols_at_pos",

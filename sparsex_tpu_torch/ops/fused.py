@@ -6,9 +6,12 @@ Counterpart of ``sparsex_tpu/ops/fused.py``, both halves:
   (``build_fused_delta``, ``build_fused_run``, ``merge_segment_plan``,
   ``pad_dias_for_k3``, ``plan_partial_segment``, ``pack_k1_meta`` and the
   lane-placement layouts; unchanged NumPy, reading the port's ``Config``
-  and module thresholds), so both packages plan the same arrays.  Their
-  comments cite the reference's TPU measurements (the thresholds'
-  origins); none of them is a number of the port;
+  and module thresholds), so both packages plan the same arrays, but for
+  one repair: both G1 fills go through ``instance_g1``, and
+  ``build_fused_run`` gives route instances that overlap in source rows
+  identity wires rather than the last fold's.  Their comments cite the
+  reference's TPU measurements (the thresholds' origins); none of them is
+  a number of the port;
 - four kernel wrappers, ``k1`` (the lane-placed styles ``lp`` and
   ``rlp{W}``, the dense-tile styles ``sl`` and ``run{W}``), ``t1``,
   ``k2``, ``k3``, each launching a CUDA kernel of ``csrc/fused.cu`` on a
@@ -542,11 +545,8 @@ def build_fused_delta(cols: np.ndarray, rows: np.ndarray, vals: np.ndarray,
         return None, None
 
     # K1's G1 wires: one (S1_total*L) grid assembled from the instances'
-    # g1 rows (instances cover disjoint row ranges [a0, a1))
-    g1_all = np.full((S1_total, L), -1, dtype=np.int8)
-    for meta_i, arrs_i in zip(metas, arrs_list):
-        S1c, a0, a1 = meta_i[0], meta_i[7], meta_i[8]
-        g1_all[a0:a1] = arrs_i["g1"][:S1c]
+    # g1 rows (the fold-cut chunks make the instances disjoint)
+    g1_all = instance_g1(S1_total, metas, arrs_list)
 
     D2R = metas[0][3]
     # per-part K1 streams, each padded to a whole number of grouped grid
@@ -629,6 +629,32 @@ def build_fused_delta(cols: np.ndarray, rows: np.ndarray, vals: np.ndarray,
         meta = meta + (((part_pads[1], parts[1]["q"],
                          parts[1]["npages"], "lp"), inter),)
     return meta, arrays
+
+
+def instances_overlap(inst_meta) -> bool:
+    """Whether two route instances of one segment (metas holding ``a0``,
+    ``a1`` at [7], [8]) share source rows: the multi-fold fallback of
+    ``route.build_scatter_plan(..., uniform_chunks=True)`` plans several
+    instances over one chunk, one per fold."""
+    spans = sorted((int(m[7]), int(m[8])) for m in inst_meta)
+    return any(b0 < a1 for (_a0, a1), (b0, _b1) in zip(spans, spans[1:]))
+
+
+def instance_g1(S1_total: int, metas, arrs_list) -> np.ndarray:
+    """K1's one G1 grid (S1_total, L) for a segment: each instance's g1
+    rows over its source rows [a0, a1), -1 (masked) elsewhere.  K1 applies
+    one wire per source lane, so instances sharing rows would keep only the
+    last one's wires and route the other folds through the wrong lanes:
+    raises ValueError on them (only the merged plan's per-instance lane
+    gathers run such instances)."""
+    if instances_overlap(metas):
+        raise ValueError("route instances overlap in source rows: K1's one "
+                         "G1 grid cannot route them")
+    g1_all = np.full((S1_total, L), -1, dtype=np.int8)
+    for meta_i, arrs_i in zip(metas, arrs_list):
+        S1c, a0, a1 = meta_i[0], meta_i[7], meta_i[8]
+        g1_all[a0:a1] = arrs_i["g1"][:S1c]
+    return g1_all
 
 
 def build_fused_run(cols_u: np.ndarray, rows_u: np.ndarray,
@@ -726,10 +752,16 @@ def build_fused_run(cols_u: np.ndarray, rows_u: np.ndarray,
     if len(metas) > MAX_INSTANCES:
         return None, None, None, 0
     S1_total = T_pad * 8
-    g1_all = np.full((S1_total, L), -1, dtype=np.int8)
-    for meta_i, arrs_i in zip(metas, arrs_list):
-        S1c, a0, a1 = meta_i[0], meta_i[7], meta_i[8]
-        g1_all[a0:a1] = arrs_i["g1"][:S1c]
+    if instances_overlap(metas):
+        # the fallback's folds share chunks: no one G1 serves them.  K1
+        # takes identity wires, the merged plan's form (the merge rewrites
+        # mg to them anyway); a table the merged plan does not take is
+        # re-planned without its fused run (ops/exec.HostPlan), a port
+        # repair that the reference (last fold's wires) lacks
+        g1_all = np.broadcast_to(np.arange(L, dtype=np.int8),
+                                 (S1_total, L))
+    else:
+        g1_all = instance_g1(S1_total, metas, arrs_list)
 
     mg = pack_k1_meta(sl, g1_all.reshape(T_pad, 8, L))
     arrays: Dict[str, np.ndarray] = {
@@ -1503,7 +1535,8 @@ def launch_counts() -> Dict[str, int]:
 
 __all__: List[str] = [
     "build_fused_delta", "build_fused_run", "merge_segment_plan",
-    "pad_dias_for_k3", "pack_k1_meta", "plan_partial_segment", "k1",
+    "pad_dias_for_k3", "pack_k1_meta", "instance_g1", "instances_overlap",
+    "plan_partial_segment", "k1",
     "k1_key", "k1_plain", "k1_style", "k1_window", "k1_x_index", "t1",
     "t1_plain", "k2", "k2_plain", "k3", "k3_plain", "k3_combine", "fused_delta_a1",
     "fused_delta_e1s", "fused_run_a1", "fused_run_e1s", "merged_e1s",

@@ -56,7 +56,8 @@ import torch.nn.functional as F
 from sparsex_tpu_torch.ops.fused import (MAX_KB, add_products, add_totals,
                                          fused_delta_a1, fused_delta_e1s,
                                          fused_run_a1, fused_run_e1s,
-                                         k1_style, k3_combine, merged_e1s,
+                                         instances_overlap, k1_style,
+                                         k3_combine, merged_e1s,
                                          partial_segment_e1s)
 from sparsex_tpu_torch.ops.pallas_kernels import (delta_pages_spmv,
                                                   dia_spmv, pad_x_pages,
@@ -127,7 +128,19 @@ def _check_scatter(what: str, entry) -> None:
     partial-segment route (``fs``); a legacy scatter plan is refused."""
     if len(entry) > 4 and entry[4] and entry[4][0] != "fs":
         _refuse(f"a routed {what} table (legacy scatter plan)",
-                "Queue 1 item 3 (legacy routed scatters, apply_scatter_plan)")
+                "Queue 1 item 10 (legacy routed scatters, "
+                "apply_scatter_plan)")
+
+
+def unmerged_overlapping_runs(meta):
+    """Indices of the fused run tables (``frun``) whose route instances
+    overlap in source rows and that no merged plan (``fall``) takes: K1's
+    one G1 grid would route all but one fold through the wrong lanes."""
+    fall = next((e for e in meta[5:] if e and e[0] == "fall"), None)
+    merged = ({ids[0] for kind, *ids in fall[1] if kind == "run"}
+              if fall else set())
+    return [ri for ri, e in enumerate(meta[2]) if _kind(e) == "frun"
+            and ri not in merged and instances_overlap(e[5][1][3])]
 
 
 def check_slice(meta) -> None:
@@ -151,6 +164,12 @@ def check_slice(meta) -> None:
         k1_style(fmeta[6] if len(fmeta) > 6 else "sl")
         if len(fmeta) > 7 and fmeta[7] is not None:
             k1_style(fmeta[7][0][3])
+    overlapping = unmerged_overlapping_runs(meta)
+    if overlapping:
+        raise NotImplementedError(
+            f"fused run tables {overlapping}: their route instances overlap "
+            "outside a merged plan, and K1's one G1 grid cannot route them "
+            "(the port's HostPlan re-plans such a table)")
     for e in run_meta:
         kind = _kind(e)
         if kind == "cvt":

@@ -477,14 +477,16 @@ _FR = (1, 1, 8, None, None, ("frun", (8, 4, 32, (), 0, "rlp8"), 0))
      "Queue 1 item 10"),
     ((), ((14, 4, 2, (15, 4, 512, 32), None, ("fblk", (), 0)),), (_DF,),
      "Queue 1 item 10"),
-    ((), ((14, 4, 2, None, ((), False, 1024)),), (_DF,), "Queue 1 item 3"),
+    ((), ((14, 4, 2, None, ((), False, 1024)),), (_DF,),
+     r"Queue 1 item 10 \(legacy routed scatters"),
     ((), (), (_DF, ("dpages", 12, 4, 32), ("dscatter", (), False)),
      "Queue 1 item 10"),
     ((_FR,), (), (_DF, ("fall", (("delta",), ("blk", 0, 0)), (), (), ())),
      "Queue 1 item 10"),
     ((_FR,), (), (_DF, ("fall", (("delta",), ("run", 0)), (), (),
                         (("bres", 0, 0),))), "Queue 1 item 10"),
-    (((1, 1, 16, None, ((), False, 1024)),), (), (), "Queue 1 item 3"),
+    (((1, 1, 16, None, ((), False, 1024)),), (), (),
+     r"Queue 1 item 10 \(legacy routed scatters"),
 ])
 def test_check_slice_refusals(runs, blocks, extras, item):
     """What the port does not run yet is refused, naming its queue item;

@@ -238,13 +238,45 @@ def test_row_kernels_refuse_misaligned_out(dev):
     torch.cuda.synchronize()
 
 
+# T1's block counts: 1 and 2, a headline-sized 46, a full blocky
+# instance's 110 (about one wave of the card's SMs), and 129 (over one)
+T1_A2R = [1, 2, 13, 46, 110, 129]
+
+
+@pytest.mark.parametrize("A2R", T1_A2R)
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_t1_cuda_matches_plain(dev, dtype):
-    a1 = np.random.default_rng(3).standard_normal((46 * L, L)).astype(dtype)
+def test_t1_cuda_matches_plain(dev, A2R, dtype):
+    a1 = np.random.default_rng(A2R).standard_normal(
+        (A2R * L, L)).astype(dtype)
     (t,) = _on(dev, a1)
-    got = tf.t1(t, 46)
+    got = _launched("t1", lambda: tf.t1(t, A2R))
+    assert torch.equal(got, tf.t1_plain(t, A2R))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_t1_refuses_misaligned(dev, dtype):
+    """Both T1 launchers move 16-byte vectors: an input or an output one
+    value off a 16-byte boundary is refused (cudaErrorInvalidValue = 1) and
+    nothing is launched.  The wrapper allocates its output, so the C entry
+    points are called directly for a misaligned output."""
+    from sparsex_tpu_torch.ops import _build
+    lib = _build.library()
+    A2R, kb = 2, 3
+    flat = torch.zeros(kb * A2R * TILE3 + 2, dtype=dtype, device=dev)
+    for shape, key in (((A2R * L, L), "t1"), ((kb, A2R * L, L), "t1_kb")):
+        n = int(np.prod(shape))
+        before = tf.launches[key]
+        with pytest.raises(RuntimeError, match="CUDA error 1"):
+            tf.t1(flat[1:1 + n].view(shape), A2R)
+        assert tf.launches[key] == before
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr, size = flat.data_ptr(), flat.element_size()
+    assert getattr(lib, f"spx_t1_{sfx}")(ptr, ptr + size, A2R, stream) == 1
+    assert getattr(lib, f"spx_t1_kb_{sfx}")(ptr, ptr + size, A2R, kb,
+                                            stream) == 1
+    assert getattr(lib, f"spx_t1_{sfx}")(ptr, ptr, 0, stream) == 1
     torch.cuda.synchronize()
-    assert torch.equal(got, tf.t1_plain(t, 46))
 
 
 # (A2R, W2, D2R, masked): each of A2R, W2 and D2R at 1, 127 and 128, in
@@ -550,6 +582,36 @@ def test_api_cuda_fs_matches_cpu(dev, monkeypatch, build, n, dtype):
                                 "k3"))
 
 
+@pytest.mark.parametrize("dtype,bar", [("float32", 2e-4),
+                                       ("float64", 1e-6)])
+def test_api_cuda_overlap_run_matches_oracle(dev, dtype, bar):
+    """The run matrix whose fused run's route instances overlapped outside
+    a merged plan (``chip_smoke.overlap_run_matrix(1 << 16)``, 3.1M
+    nonzeros): its run table re-planned with an ``fs`` route, on the card
+    against the float64 COO oracle (max |y - y_oracle| / max |y_oracle|),
+    through the paged-units kernel, the lane gather, T1, K2 and K3."""
+    import chip_smoke
+    import sparsex_tpu_torch as spt
+
+    n = 1 << 16
+    rows, cols, vals = chip_smoke.overlap_run_matrix(n)
+    cfg = spt.Config.reset()
+    cfg.set("spx.tpu.value_dtype", dtype)
+    cfg.set("spx.preproc.xform", "all")
+    A = spt.mat_tune(chip_smoke.csr_input(spt, rows, cols, vals, n))
+    x = np.random.default_rng(1).standard_normal(n).astype(dtype)
+    before = tf.launch_counts()
+    y = spt.matvec_mult(1.0, A, x)
+    torch.cuda.synchronize()
+    after = tf.launch_counts()
+    assert all(after[k] > before[k] for k in ("paged_units", "lane_gather",
+                                              "t1", "k2", "k3"))
+    want = np.bincount(rows, weights=vals.astype(dtype).astype(np.float64)
+                       * x.astype(np.float64)[cols], minlength=n)
+    got = y.double().cpu().numpy()
+    assert np.abs(got - want).max() / np.abs(want).max() < bar
+
+
 # ---------------------------------------------------------------------------
 # the k-batched (SpMM) variants
 # ---------------------------------------------------------------------------
@@ -620,15 +682,16 @@ def test_k1_roll_kb_cuda_refuses_misaligned(dev, style, q, operand):
     assert tf.launches[key] == before
 
 
+@pytest.mark.parametrize("A2R", T1_A2R)
 @pytest.mark.parametrize("kb", [1, 3, 8])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_t1_kb_cuda_matches_plain(dev, kb, dtype):
-    a1 = np.random.default_rng(kb).standard_normal(
-        (kb, 13 * L, L)).astype(dtype)
+def test_t1_kb_cuda_matches_plain(dev, A2R, kb, dtype):
+    a1 = np.random.default_rng(kb * 1000 + A2R).standard_normal(
+        (kb, A2R * L, L)).astype(dtype)
     (t,) = _on(dev, a1)
-    got = _launched("t1_kb", lambda: tf.t1(t, 13))
-    assert torch.equal(got, tf.t1_plain(t, 13))
-    _columns_equal(got, [tf.t1(t[c], 13) for c in range(kb)])
+    got = _launched("t1_kb", lambda: tf.t1(t, A2R))
+    assert torch.equal(got, tf.t1_plain(t, A2R))
+    _columns_equal(got, [tf.t1(t[c], A2R) for c in range(kb)])
 
 
 @pytest.mark.parametrize("A2R,W2,D2R,masked", K2_SHAPES)

@@ -548,7 +548,8 @@ def test_check_slice_admits_both_variants():
     ((), (_PBLK[:5] + (("fblk", (), 0),),), (), (), "Queue 1 item 10"),
     ((), (), (), (("dpages", 12, 4, 16), ("dpagesT", 12, 4, 16)),
      "Queue 1 item 8"),
-    ((_PRUN[:4] + (((), False, 1024),),), (), (), (), "Queue 1 item 3"),
+    ((_PRUN[:4] + (((), False, 1024),),), (), (), (),
+     r"Queue 1 item 10 \(legacy routed scatters"),
     ((), (), ((False, None, 3),), (), "Queue 1 item 13"),
 ])
 def test_check_slice_still_refuses(runs, blocks, dias, extras, item):

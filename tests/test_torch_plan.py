@@ -19,9 +19,17 @@ paged plan), the legacy paged variant with and without its scatter
 routes (``dscatter``, ``fs``, ``fblk``: planned alike, though the port runs
 only ``fs`` of them yet), the partial-segment routes of a width-5 run table
 and a 3x3 block table (their ``fscatter`` arrays), the dense-tile K1 styles
-``run16`` and ``sl``, and ``spx.preproc.xform=none``.  Last, no file of the port or
-``chip_smoke.py`` imports ``sparsex_tpu``, ``jax`` or ``bench`` at any
-depth.
+``run16`` and ``sl``, ``spx.preproc.xform=none``, and a width-8 run table
+whose overlapping route instances a merged plan takes.
+
+One case is the intended divergence of the port's plan (ROADMAP,
+"Intended divergences"): a fused run table whose route instances overlap
+in source rows outside a merged plan.  The reference keeps it, and K1's
+one G1 grid keeps the last fold's wires (a wrong y wherever its paged
+variant runs); the port re-plans that table as its paged units with their
+own route.  Everything else of that plan is the reference's.  Last, no
+file of the port or ``chip_smoke.py`` imports ``sparsex_tpu``, ``jax`` or
+``bench`` at any depth.
 """
 
 import ast
@@ -101,6 +109,8 @@ CASES = {
                 "float64", {}, {"MIN_ELEMS": 1024}, {"dfused"}),
     "fs_blocks": (chip_smoke.block3_matrix, 3 << 14, "float32", {}, {},
                   set()),
+    "overlap_merged": (lambda n: chip_smoke.overlap_run_matrix(n, 8, 4),
+                       1 << 17, "float32", {}, {}, {"dfused", "fall"}),
 }
 
 
@@ -133,26 +143,35 @@ def assert_same(a, b, path="plan"):
         assert type(a) is type(b) and a == b, (path, a, b)
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_port_plans_the_reference_arrays(monkeypatch, name):
-    build, n, dtype, options, thresholds, extras = CASES[name]
+def _tune_both(monkeypatch, build, n, dtype, thresholds, options=()):
+    """The port's HostPlan and the reference executor of one matrix, tuned
+    under the same options and thresholds, both planned, after holding
+    their tables and plain metas and arrays equal."""
     _thresholds(monkeypatch, thresholds)
     options = {"spx.tpu.value_dtype": dtype, "spx.preproc.xform": "all",
-               "spx.preproc.sampling": "portion", **options}
+               "spx.preproc.sampling": "portion", **dict(options)}
     for cfg in (spt.Config.instance(), RefConfig.instance()):
         for key, value in options.items():
             cfg.set(key, value)
     rows, cols, vals = build(n)
     ref = RefCsxMatrix.from_coo(n, n, rows, cols, vals)
     (ref_tables,), (ref_ex,) = ref.shards, ref.executors
-    ref_ex._maybe_build_pages()
     _part, tables, _log = encode_coo(n, n, rows, cols, vals,
                                      spt.Config.instance())
     assert_same(tables, ref_tables, "tables")
     plan = HostPlan(tables)
     assert_same(plan.meta, ref_ex.meta, "meta")
     assert_same(plan.arrays, ref_ex.arrays, "arrays")
+    ref_ex._maybe_build_pages()
     plan._maybe_build_pages()
+    return plan, ref_ex
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_port_plans_the_reference_arrays(monkeypatch, name):
+    build, n, dtype, options, thresholds, extras = CASES[name]
+    plan, ref_ex = _tune_both(monkeypatch, build, n, dtype, thresholds,
+                              options)
     assert_same(plan._pages_meta, ref_ex._pages_meta, "pages_meta")
     assert_same(plan._pages_arrays, ref_ex._pages_arrays, "pages_arrays")
     if extras is None:
@@ -169,10 +188,43 @@ def test_port_plans_the_reference_arrays(monkeypatch, name):
         kinds = {e[5][0] for e in plan._pages_meta[3] if len(e) > 5}
         kinds |= {e[4][0] for e in plan._pages_meta[2] if e[4]}
         assert kinds == {"fs", "fblk"}
+    if name == "overlap_merged":  # the merged plan takes overlapping runs
+        (_ri, m), = chip_smoke.fused_runs(plan._pages_meta)
+        assert tf.instances_overlap(m[3])
     if name.startswith("fs_"):   # the routed table carries its fscatter
         (fs,) = chip_smoke.fs_tables(plan._pages_meta)
         kind, i, _e = fs
         assert "g1_0" in plan._pages_arrays[kind][i]["fscatter"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_port_replans_overlapping_fused_runs(monkeypatch, dtype):
+    """The intended divergence: ``overlap_run_matrix(4096, 17, 2)`` under
+    the small thresholds.  The reference plans a fused run32 table whose
+    two route instances cover the same source rows, outside any merged
+    plan; the port plans that table as a paged run table with an ``fs``
+    route.  Every other meta entry and array is the reference's."""
+    plan, ref_ex = _tune_both(
+        monkeypatch, lambda n: chip_smoke.overlap_run_matrix(n, 17, 2),
+        4096, dtype, _SMALL)
+    ref_meta, meta = ref_ex._pages_meta, plan._pages_meta
+    (ri, m), = chip_smoke.fused_runs(ref_meta)
+    assert "fall" not in {e[0] for e in ref_meta[5:] if e}
+    assert tf.instances_overlap(m[3])
+    entry = meta[2][ri]
+    assert len(entry) == 5 and entry[3] is not None and entry[4][0] == "fs"
+    assert chip_smoke.fused_runs(meta) == []
+    others = [i for i in range(len(ref_meta[2])) if i != ri]
+    assert_same([meta[2][i] for i in others],
+                [ref_meta[2][i] for i in others], "run_meta")
+    assert_same(meta[:2] + meta[3:], ref_meta[:2] + ref_meta[3:], "meta")
+    arrays, ref_arrays = plan._pages_arrays, ref_ex._pages_arrays
+    assert_same([arrays["runs"][i] for i in others],
+                [ref_arrays["runs"][i] for i in others], "runs")
+    assert_same({k: v for k, v in arrays.items() if k != "runs"},
+                {k: v for k, v in ref_arrays.items() if k != "runs"},
+                "pages_arrays")
+    assert "fscatter" in arrays["runs"][ri]
 
 
 def test_assert_same_sees_a_difference():

@@ -4,7 +4,7 @@ on chip_smoke.py's paths, on one CUDA GPU.
 
     python3 tools/kernel_ab_torch.py --base DIR [--variant DIR ...]
         [--diagnostic DIR ...] [--kernels k3,k3_kb] [--paths headline,blocky]
-        [--dtypes float32]
+        [--dtypes float32] [--alone]
 
 ``--kernels`` names kernels as ``csrc/*.cu`` does, without ``_kernel``
 (``k1_lp_kb``, ``lane_gather``, ``k3``; a launch-count key such as
@@ -30,6 +30,9 @@ pair):
   bound of chip_smoke.py;
 - the SpMV and the k = 8 SpMM end to end replayed from a CUDA graph;
 - each kernel's device time inside the SpMV / SpMM (torch.profiler).
+
+``--alone`` keeps the first reading only, for a quick pass over several
+variants.
 
 A library is swapped in by pointing the kernel loader at it while a graph
 is captured; the SpMV and the SpMM launch the named kernels through the
@@ -233,6 +236,8 @@ def main():
     ap.add_argument("--kernels", default="k3,k3_kb")
     ap.add_argument("--paths", default=",".join(PATHS))
     ap.add_argument("--dtypes", default="float32,float64")
+    ap.add_argument("--alone", action="store_true",
+                    help="time the kernels alone only, no SpMV / SpMM")
     opt = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -281,7 +286,7 @@ def main():
                 tag = f"{label} V={os.path.basename(v)}"
                 entry = kernel_readings(libs, base, v, seen, tag,
                                         v not in diagnostic)
-                if v in diagnostic:      # its SpMV / SpMM are not right
+                if v in diagnostic or opt.alone:   # diagnostic: not right
                     report["paths"][tag] = entry
                     continue
 
