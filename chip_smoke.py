@@ -80,15 +80,25 @@ Every phase is fatal on failure:
    epilogue (atomic adds, as ``index_add_``'s) within 1e-6 of the largest
    value;
 4. the SpMV end to end against a float64 COO oracle (``CHECK_TOL`` in
-   float32, 1e-6 in float64) at alpha=1/beta=0 and alpha=2/beta=0.5, with
-   the launch counts, derived from the plan, showing that each kernel ran
-   on that path; the T1, lane-gather and K1 launchers refuse operands off
-   a 16-byte boundary, so this phase also shows that every call site on
-   the path (an instance's row slice, K1's reshaped output) passes aligned
-   tensors;
+   float32, 1e-6 in float64) at alpha=1/beta=0 and alpha=2/beta=0.5.  An
+   executor replays a CUDA graph of its own on every call, captured at its
+   first call after one eager warm-up run, so the launch counters see that
+   first call only: its counts must be twice one SpMV's, derived from the
+   plan (warm-up and capture), which shows that each kernel ran on that
+   path; the second call, a replay, must launch nothing from Python, the
+   kernel nodes of the executor's graph (read through the CUDA driver) must
+   be one SpMV's by name and number, and the replay must equal the eager body on the same x
+   (bit for bit, or within 1e-6 of the largest value where atomic adds
+   reorder sums); the T1, lane-gather and K1 launchers refuse operands
+   off a 16-byte boundary, so this phase also shows that every call site
+   on the path (an instance's row slice, K1's reshaped output) passes
+   aligned tensors;
 5. CUDA-event times, median over 5 runs of 128 calls after a warm-up: the
-   SpMV end to end as a Python caller gets it, the host's time to enqueue
-   one, and the SpMV replayed from a CUDA graph (device time); each kernel
+   SpMV end to end as a Python caller gets it (a replay of the executor's
+   graph), the host's time to enqueue one, the SpMV captured in a CUDA
+   graph of this script's (device time), and the eager body called from
+   Python (the dispatch before executors kept graphs); the memory each
+   executor's graphs took at their capture; each kernel
    and its plain version replayed from CUDA graphs, in the order plain,
    kernel, kernel, plain (all of one kernel's calls of an SpMV, 128 times in
    a row: its inputs stay warm in L2), beside its bound (the bytes it must
@@ -102,13 +112,17 @@ Every phase is fatal on failure:
 7. per SpMM (``spmm_phase``): on a fused plan each k-batched kernel
    (``_kb``) against its plain version fed one chunk of X as the SpMM
    feeds it (bit-equal, K3 within 1e-6); two SpMMs against the oracle
-   (alpha=1/beta=0, alpha=2/beta=0.5 with a Y) with their launch counts
-   (ceil(k/8) x the plan's per-SpMV counts under the ``_kb`` keys and no
-   other launch, or k SpMVs on a plan without a fused segment); when timed,
+   (alpha=1/beta=0, alpha=2/beta=0.5 with a Y), the first one's launch
+   counts twice one SpMM's (ceil(k/8) x the plan's per-SpMV counts under
+   the ``_kb`` keys and no other launch, or k SpMVs on a plan without a
+   fused segment), the graph checked as the SpMV's; when timed,
    the SpMM called from Python and replayed from a CUDA graph, Gnnz*k/s,
    SpMV-equivalents (graph time over k x the path's SpMV graph time), each
    kb kernel alone beside its bound and k x its kb = 0 time per SpMV, and
-   a profile of 20 SpMMs.
+   a profile of 20 SpMMs;
+8. on headline 2^20 and blocky 2^21, a bf16 matrix computed in float32
+   (``bf16_phase``): a bf16 SpMV and k = 8 SpMM within ``BF16_TOL`` of the
+   oracle on the bf16-rounded values and x, and the SpMV's times.
 
 The card's name and power limit (nvidia-smi) come two lines before the
 last; the line before the last is a JSON object ``{"kernels": [...]}``
@@ -950,16 +964,108 @@ def say_kernels(res, label):
 # the SpMV end to end
 # ---------------------------------------------------------------------------
 
+# an entry point's mangled name, as the CUDA driver gives it
+_MANGLED = re.compile(r"\d(k1_lp|k1_rlp|k1_sl|k1_run|t1|k2|k3|lane_gather|"
+                      r"dia|delta_pages|paged_gather|paged_units)"
+                      r"(_kb)?_kernelI")
+
+
+def graph_kernels(graph, kb=False):
+    """Launches of our kernels in one replay of ``graph`` (a
+    ``torch.cuda.CUDAGraph`` kept with ``keep_graph=True``, as an
+    executor's are), by key: the names of its kernel nodes, read through
+    the CUDA driver (``cuGraphGetNodes``, ``cuFuncGetName``); a replay
+    runs no Python, so the launch counters cannot see it.  PyTorch's glue
+    kernels are left out.  ``kb`` as in :func:`profile_phase`."""
+    import ctypes
+    drv = ctypes.CDLL("libcuda.so.1")
+
+    def call(fn, *args):
+        rc = getattr(drv, fn)(*args)
+        if rc:
+            fail(f"{fn} returned CUDA driver error {rc}")
+
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    call("cuGraphGetNodes", raw, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    call("cuGraphGetNodes", raw, nodes, ctypes.byref(n))
+    out = {}
+    for node in nodes:
+        kind = ctypes.c_int()
+        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != 0:                  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params = (ctypes.c_byte * 128)()     # CUDA_KERNEL_NODE_PARAMS_v2
+        call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node), params)
+        name = ctypes.c_char_p()
+        call("cuFuncGetName", ctypes.byref(name),
+             ctypes.c_void_p.from_buffer(params))   # its first field: func
+        m = _MANGLED.search(name.value.decode())
+        if m:
+            key = (("k1" if m.group(1) == "k1_lp" else m.group(1))
+                   + (m.group(2) or ""))
+            if kb and not key.endswith("_kb"):
+                key += "_kb"
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def check_graph(ex, key, call, eager, expect, label, kb=False):
+    """The executor's first call for ``key`` ran (before this) as its
+    warm-up and its graph's capture: ``expect`` (one call's launches, from
+    the plan) twice over from Python, which the caller has checked.  Here:
+    the graph is kept, a second call (a replay) launches nothing from
+    Python, the graph's kernel nodes (:func:`graph_kernels`) are
+    ``expect``'s by name and number, and the replay's result equals the eager body's on
+    the same input (bit for bit, else within 1e-6 of its largest value:
+    atomic adds reorder sums).  Returns (bit-equal, max |replay - eager| /
+    max |eager|)."""
+    import torch
+    from sparsex_tpu_torch.ops import fused as tf
+    if key not in ex._graphs:
+        fail(f"[{label}] the executor kept no graph for {key}")
+    tf.launches.clear()
+    got = call()
+    torch.cuda.synchronize()
+    if any(tf.launch_counts().values()):
+        fail(f"[{label}] a replay of {key} launched "
+             f"{ {k: v for k, v in tf.launch_counts().items() if v} } "
+             "from Python")
+    names = graph_kernels(ex._graphs[key].graph, kb)
+    want = {k: v for k, v in expect.items() if v}
+    if names != want:
+        fail(f"[{label}] the graph of {key} launches the kernels {names}, "
+             f"expected {want}")
+    ref = eager()
+    torch.cuda.synchronize()
+    exact = bool(torch.equal(got, ref))
+    rel = float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+    say(f"[{label}] graph {key}: replay "
+        + ("bit-equal to" if exact else f"within {rel:.3e} of")
+        + f" the eager body; kernels in the graph {names}; the graph "
+        f"took {ex.graph_bytes()[key] / 2**20:.2f} MiB")
+    if not exact and not rel <= 1e-6:
+        fail(f"[{label}] the replay of {key} differs from the eager body "
+             f"by {rel:.3e}")
+    return exact, rel
+
+
 def e2e_phase(spx, tf, mat, rows, cols, vals, x, tol, dtype_name,
               timed=True):
-    """Two SpMVs through matvec_kernel against the float64 COO oracle, with
-    the launch counts of that run; returns (counts, ms per SpMV called
-    from Python, host ms to enqueue one, ms per SpMV replayed from a CUDA
-    graph, oracle errors, the timed SpMV call); the times are None when
-    not ``timed``."""
+    """Two SpMVs through matvec_kernel against the float64 COO oracle.  The
+    first runs the SpMV from Python twice, the warm-up and the capture of
+    the executor's graph, and then replays it: its launch counts must be
+    twice one SpMV's (``expected_counts``); the second only replays
+    (:func:`check_graph`).  Returns (counts of the first call, ms per SpMV
+    called from Python, host ms to enqueue one, ms per SpMV replayed from a
+    graph of the caller's, ms per SpMV of the eager body called from
+    Python (the dispatch before graphs), oracle errors, the timed SpMV
+    call); the times are None when not ``timed``."""
     import torch
 
     n = mat.nrows
+    ex = mat.csx.executors[0]
     xh = x.double().cpu().numpy()
     # float64 COO oracle
     want = np.bincount(rows, weights=vals.astype(np.float64) * xh[cols],
@@ -967,16 +1073,30 @@ def e2e_phase(spx, tf, mat, rows, cols, vals, x, tol, dtype_name,
     y0 = np.random.default_rng(2).standard_normal(n)
     y0d = torch.as_tensor(y0, dtype=x.dtype, device=x.device)
     want2 = 2.0 * want + 0.5 * y0d.double().cpu().numpy()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
     tf.launches.clear()
     y = spx.matvec_kernel(1.0, mat, x, 0.0, None)
-    y2 = spx.matvec_kernel(2.0, mat, x, 0.5, y0d)
     torch.cuda.synchronize()
     counts = tf.launch_counts()
-    expect = {k: 2 * v for k, v in expected_counts(
-        mat.csx.executors[0].meta).items()}
+    grown = torch.cuda.memory_allocated() - mem0
+    one = expected_counts(ex.meta)
+    expect = {k: 2 * v for k, v in one.items()}
     if counts != expect:
-        fail(f"[{dtype_name}] launch counts {counts} over two SpMVs, "
-             f"expected {expect}")
+        fail(f"[{dtype_name}] launch counts {counts} of the first SpMV (its "
+             f"warm-up and its graph's capture), expected {expect}")
+    y2 = spx.matvec_kernel(2.0, mat, x, 0.5, y0d)
+
+    def eager():
+        with ex._on_device():
+            return ex._matvec(x)
+
+    def spmv():
+        return spx.matvec_kernel(1.0, mat, x, 0.0, None)
+
+    check_graph(ex, ("mv",), spmv, eager, one, dtype_name)
+    say(f"[{dtype_name}] memory_allocated grew {grown / 2**20:.2f} MiB over "
+        "the first SpMV (the graph's static x and output, and the result)")
     errs = []
     for got, ref in ((y, want), (y2, want2)):
         g = got.double().cpu().numpy()
@@ -986,17 +1106,14 @@ def e2e_phase(spx, tf, mat, rows, cols, vals, x, tol, dtype_name,
         errs.append(_mixed_rel_err(g, ref))
     say(f"spmv [{dtype_name}]: oracle rel err {errs[0]:.3e} (alpha=1, "
         f"beta=0), {errs[1]:.3e} (alpha=2, beta=0.5); bar {tol:g}; "
-        f"launches per 2 SpMVs "
+        f"launches of the first SpMV (warm-up and capture) "
         f"{ {k: v for k, v in counts.items() if v} }")
     if not max(errs) < tol:
         fail(f"[{dtype_name}] SpMV diverges from the oracle: {errs} vs "
              f"{tol:g}")
 
-    def spmv():
-        return spx.matvec_kernel(1.0, mat, x, 0.0, None)
-
     if not timed:
-        return counts, None, None, None, errs, spmv
+        return counts, None, None, None, None, errs, spmv
     ms = cuda_time_ms(spmv)
     # host time to enqueue one SpMV (no synchronisation inside the loop):
     # when it is close to ``ms`` the end-to-end time is set by the host
@@ -1006,7 +1123,8 @@ def e2e_phase(spx, tf, mat, rows, cols, vals, x, tol, dtype_name,
         spmv()
     host_ms = (time.perf_counter() - t0) * 1e3 / LOOPS
     torch.cuda.synchronize()
-    return counts, ms, host_ms, graph_time_ms(spmv), errs, spmv
+    eager_ms = cuda_time_ms(eager)
+    return counts, ms, host_ms, graph_time_ms(spmv), eager_ms, errs, spmv
 
 
 _KERNEL_NAME = re.compile(r"\b(k1_lp|k1_rlp|k1_sl|k1_run|t1|k2|k3|"
@@ -1060,7 +1178,7 @@ def profile_phase(spmv, reps=50, kb=False):
 def report(label, mat, res, timing, profiled):
     """Print the profile and end-to-end lines of one timed path; returns
     its summary."""
-    counts, ms, host_ms, graph_ms, errs, _spmv = timing
+    counts, ms, host_ms, graph_ms, eager_ms, errs, _spmv = timing
     prof, glue = profiled
     if prof is None:
         say(f"[{label}] profile: the trace holds no device events; in-SpMV"
@@ -1079,12 +1197,19 @@ def report(label, mat, res, timing, profiled):
         f"called from Python, host enqueue {host_ms * 1e3:.2f} us; "
         f"{graph_ms * 1e3:.2f} us "
         f"({mat.nnz / (graph_ms * 1e-3) / 1e9:.2f} Gnnz/s) replayed from a "
-        f"CUDA graph; the checked kernels alone {dev_ms * 1e3:.2f} us")
+        f"CUDA graph; the checked kernels alone {dev_ms * 1e3:.2f} us; "
+        f"the eager body called from Python {eager_ms * 1e3:.2f} us")
+    graphs = mat.csx.executors[0].graph_bytes()
+    say(f"[{label}] the executor's graphs hold "
+        + ", ".join(f"{k}: {b / 2**20:.2f} MiB" for k, b in graphs.items()))
     return {"us_per_spmv": ms * 1e3, "gnnz_per_s": gnnz,
             "host_enqueue_us": host_ms * 1e3,
             "graph_us_per_spmv": graph_ms * 1e3,
+            "eager_us_per_spmv": eager_ms * 1e3,
+            "graph_mib": {" ".join(map(str, k)): b / 2**20
+                          for k, b in graphs.items()},
             "kernel_us": dev_ms * 1e3, "oracle_rel_err": errs,
-            "launches_per_2_spmv": counts, "profile_device_us": prof,
+            "launches_first_spmv": counts, "profile_device_us": prof,
             "profile_glue_us": glue}
 
 
@@ -1116,9 +1241,11 @@ def spmm_phase(spx, tf, mat, rows, cols, vals, k, label, tol, timed, spmv):
     its plain version, fed one chunk of X as the SpMM feeds it
     (``fused_kernel_phase`` on the k-major X.T[:8]).  Then two SpMMs
     (alpha=1/beta=0, alpha=2/beta=0.5 with a Y) against the float64 COO
-    oracle, with the launch counts of that run (``expected_counts(meta,
-    k)``: ceil(k/8) x the plan's per-SpMV counts under the ``_kb`` keys and
-    nothing else on a fused plan, k SpMVs otherwise).  When ``timed``: the
+    oracle; the first one's launch counts (warm-up and capture of the
+    executor's ("mm", k) graph) twice ``expected_counts(meta, k)``:
+    ceil(k/8) x the plan's per-SpMV counts under the ``_kb`` keys and
+    nothing else on a fused plan, k SpMVs otherwise; the graph checked by
+    :func:`check_graph`.  When ``timed``: the
     SpMM called from Python and replayed from a CUDA graph, Gnnz*k/s,
     SpMV-equivalents (graph time / (k x the path's SpMV graph time,
     ``spmv[1]``)), each kb kernel beside k x its kb = 0 time per SpMV
@@ -1144,13 +1271,23 @@ def spmm_phase(spx, tf, mat, rows, cols, vals, k, label, tol, timed, spmv):
     want2 = 2.0 * want + 0.5 * Y0.double().cpu().numpy()
     tf.launches.clear()
     Y = spx.matmat_kernel(1.0, mat, X, 0.0, None)
-    Y2 = spx.matmat_kernel(2.0, mat, X, 0.5, Y0)
     torch.cuda.synchronize()
     counts = tf.launch_counts()
-    expect = {key: 2 * v for key, v in expected_counts(ex.meta, k).items()}
+    one = expected_counts(ex.meta, k)
+    expect = {key: 2 * v for key, v in one.items()}
     if counts != expect:
-        fail(f"[{lab}] launch counts {counts} over two SpMMs, expected "
-             f"{expect}")
+        fail(f"[{lab}] launch counts {counts} of the first SpMM (its warm-up "
+             f"and its graph's capture), expected {expect}")
+    Y2 = spx.matmat_kernel(2.0, mat, X, 0.5, Y0)
+
+    def spmm():
+        return spx.matmat_kernel(1.0, mat, X, 0.0, None)
+
+    def eager():
+        return ex.matmat(X)
+
+    check_graph(ex, ("mm", k), spmm, eager, one, lab,
+                kb=fused_mm_ok(ex.meta))
     errs = []
     for got, ref in ((Y, want), (Y2, want2)):
         g = got.double().cpu().numpy()
@@ -1159,17 +1296,14 @@ def spmm_phase(spx, tf, mat, rows, cols, vals, k, label, tol, timed, spmv):
                  "values")
         errs.append(_mixed_rel_err(g, ref))
     say(f"spmm [{lab}]: oracle rel err {errs[0]:.3e} (alpha=1, beta=0), "
-        f"{errs[1]:.3e} (alpha=2, beta=0.5); bar {tol:g}; launches per 2 "
-        f"SpMMs { {key: v for key, v in counts.items() if v} }")
+        f"{errs[1]:.3e} (alpha=2, beta=0.5); bar {tol:g}; launches of the "
+        "first SpMM (warm-up and capture) "
+        f"{ {key: v for key, v in counts.items() if v} }")
     if not max(errs) < tol:
         fail(f"[{lab}] SpMM diverges from the oracle: {errs} vs {tol:g}")
     del Y, Y2, want, want2
     if not timed:
         return {}, []
-
-    def spmm():
-        return spx.matmat_kernel(1.0, mat, X, 0.0, None)
-
     ms = cuda_time_ms(spmm, 2 * MM_LOOPS)
     graph_ms = graph_time_ms(spmm, 2 * MM_LOOPS)
     prof, glue = profile_phase(spmm, reps=20, kb=fused_mm_ok(ex.meta))
@@ -1204,9 +1338,67 @@ def spmm_phase(spx, tf, mat, rows, cols, vals, k, label, tol, timed, spmv):
                "graph_us_per_spmm": graph_ms * 1e3,
                "graph_gnnzk_per_s": nnzk / (graph_ms * 1e-3) / 1e9,
                "spmv_equivalents": equiv, "oracle_rel_err": errs,
-               "launches_per_2_spmm": counts, "profile_device_us": prof,
+               "launches_first_spmm": counts, "profile_device_us": prof,
                "profile_glue_us": glue}
     return summary, kernel_entries(res, counts, prof, lab, col_loop)
+
+
+def bf16_phase(spx, tf, label, n, rows, cols, vals):
+    """A bf16 matrix, computed in float32: tuned with
+    ``spx.tpu.value_dtype=bfloat16``, one SpMV of a bf16 x and one k = 8
+    SpMM of a bf16 X through the executor's graphs, each a bf16 result
+    within ``BF16_TOL`` of the largest value of the float64 COO oracle on
+    the bf16-rounded values and x (the reference's bar,
+    tests/test_route.py:246), the SpMV's first call with the launches of
+    an f32 SpMV on the same plan; then the SpMV called from Python and
+    replayed from a graph of the caller's.  Returns {label: summary}."""
+    import torch
+    mat = tune(spx, rows, cols, vals, n, "bfloat16", label)
+    ex = mat.csx.executors[0]
+    if ex.dtype != torch.float32:
+        fail(f"[{label}] a bf16 matrix computes in {ex.dtype}")
+    vb = torch.from_numpy(vals).bfloat16().double().numpy()
+    X = torch.as_tensor(np.random.default_rng(1).standard_normal((n, 8)),
+                        dtype=torch.bfloat16, device=mat.device)
+    x = X[:, 0].contiguous()
+    Xh = X.double().cpu().numpy()
+    tf.launches.clear()
+    y = spx.matvec_kernel(1.0, mat, x, 0.0, None)
+    torch.cuda.synchronize()
+    expect = {k: 2 * v for k, v in expected_counts(ex.meta).items()}
+    if tf.launch_counts() != expect:
+        fail(f"[{label}] launch counts {tf.launch_counts()} of the first "
+             f"SpMV, expected {expect}")
+    Y = spx.matmat_kernel(1.0, mat, X, 0.0, None)
+    errs = []
+    for got, xs in ((y[:, None], Xh[:, :1]), (Y, Xh)):
+        if got.dtype != torch.bfloat16 or got.shape != (n, xs.shape[1]):
+            fail(f"[{label}] result of dtype {got.dtype}, shape "
+                 f"{tuple(got.shape)}")
+        want = np.stack([np.bincount(rows, weights=vb * xs[cols, j],
+                                     minlength=n)
+                         for j in range(xs.shape[1])], axis=1)
+        g = got.double().cpu().numpy()
+        if not np.isfinite(g).all():
+            fail(f"[{label}] non-finite values")
+        errs.append(float(np.abs(g - want).max() / np.abs(want).max()))
+    if not max(errs) < BF16_TOL:
+        fail(f"[{label}] diverges from the oracle: {errs} vs {BF16_TOL:g}")
+
+    def spmv():
+        return spx.matvec_kernel(1.0, mat, x, 0.0, None)
+
+    ms, graph_ms = cuda_time_ms(spmv), graph_time_ms(spmv)
+    say(f"[{label}] bf16 computed in f32: oracle max err / max "
+        f"{errs[0]:.3e} (SpMV), {errs[1]:.3e} (SpMM k=8); bar {BF16_TOL:g};"
+        f" SpMV {ms * 1e3:.2f} us called from Python, "
+        f"{graph_ms * 1e3:.2f} us replayed from a CUDA graph")
+    out = {label: {"us_per_spmv": ms * 1e3,
+                   "graph_us_per_spmv": graph_ms * 1e3,
+                   "oracle_max_err": errs}}
+    del mat, ex, X, Y, y
+    torch.cuda.empty_cache()
+    return out
 
 
 def x_for(mat, n, dtype_name):
@@ -1256,6 +1448,11 @@ def run_path(spx, tf, label, n, rows, cols, vals, dtype_name, tol, check,
 
 # f32 accumulation-order tolerance of the oracle check (bench.py:49)
 CHECK_TOL = 2e-4
+# a bf16 result against the oracle (max |y - ref| / max |ref|), the
+# reference's bar for bf16 matrices (tests/test_route.py:246)
+BF16_TOL = 2e-2
+# the paths that also run a bf16 matrix (bf16_phase)
+BF16_PATHS = ("", "blocky ")
 
 
 def _mixed_rel_err(a, b) -> float:
@@ -1509,6 +1706,9 @@ def main():
                              if dtype_name in dts])
             summary.update(s)
             kernels_out += k
+        if prefix in BF16_PATHS:
+            summary.update(bf16_phase(spx, tf, prefix + "bfloat16", n, rows,
+                                      cols, vals))
         del rows, cols, vals
 
     say("summary: " + json.dumps(summary))

@@ -226,8 +226,17 @@ class Config:
         return self._typed("spx.matrix.min_coverage")
 
     @property
+    def value_type(self) -> str:
+        """The matrix's value type: "float32", "float64" or "bfloat16"."""
+        return self._typed("spx.tpu.value_dtype")
+
+    @property
     def value_dtype(self) -> np.dtype:
-        return np.dtype(self._typed("spx.tpu.value_dtype"))
+        """The host tables' value dtype: a bf16 matrix keeps float32 tables
+        that hold bf16-rounded values (:func:`~sparsex_tpu_torch.csx.
+        round_values`), so that NumPy needs no ``ml_dtypes``."""
+        vt = self.value_type
+        return np.dtype(np.float32 if vt == "bfloat16" else vt)
 
     @property
     def index_dtype(self) -> np.dtype:

@@ -32,6 +32,16 @@ from sparsex_tpu_torch.preprocess.tables import CsxTables
 from sparsex_tpu_torch.timing import TimerCollection
 
 
+def round_values(vals, value_type: str) -> np.ndarray:
+    """``vals`` as the host tables hold them: in ``value_type``, and for a
+    bf16 matrix rounded to bf16 through torch and kept as float32 (NumPy
+    has no bf16 without ``ml_dtypes``; the reference's tables are bf16)."""
+    if value_type != "bfloat16":
+        return np.asarray(vals, dtype=value_type)
+    v = torch.from_numpy(np.ascontiguousarray(vals, dtype=np.float32))
+    return v.to(torch.bfloat16).float().numpy()
+
+
 def encode_coo(nrows: int, ncols: int, rows, cols, vals,
                cfg: Config) -> Tuple[RowPartition, CsxTables, List[str]]:
     """Partition, mine and encode one shard on the host (the reference's
@@ -41,7 +51,7 @@ def encode_coo(nrows: int, ncols: int, rows, cols, vals,
         tune_host_allocator()   # recycle big host temporaries
     rows = np.asarray(rows, dtype=np.int64)
     cols = np.asarray(cols, dtype=np.int64)
-    vals = np.asarray(vals, dtype=cfg.value_dtype)
+    vals = round_values(vals, cfg.value_type)
     part = split_rows_by_nnz(row_counts_from_coo(rows, nrows), 1)
     if not is_sorted_rc(rows, cols):
         order = lexsort_rc(rows, cols)

@@ -4,7 +4,9 @@ The argument checks, the cpu/cuda route, the launch through the ctypes
 library of ``ops/_build.py`` and the launch counter ``launches``: each
 wrapper adds one to ``launches[name]`` where it launches its CUDA kernel,
 and nowhere else, so a caller can show which kernels a run used (re-exported
-as ``ops.fused.launches``).
+as ``ops.fused.launches``).  A replay of an executor's CUDA graph runs no
+Python and adds nothing: only the first call per graph, its warm-up and
+its capture, is counted (``ops/exec.CsxExecutor._replayed``).
 """
 
 from __future__ import annotations

@@ -15,8 +15,18 @@ parts:
   measurements (the planners' origins); none is a number of the port;
 - :class:`CsxExecutor`, the device half: :meth:`CsxExecutor.from_tables`
   plans on the host and uploads the resulting plan once through
-  :func:`~sparsex_tpu_torch.ops.convert.plan_to_torch`.  PyTorch runs
-  eagerly, so there is no per-signature compile cache to port.
+  :func:`~sparsex_tpu_torch.ops.convert.plan_to_torch`.  On the card
+  each call replays a CUDA graph of the executor's own (one for the SpMV,
+  one per SpMM width k), the counterpart of the reference's compiled-call
+  cache (``_compiled`` / ``_compiled_mm``, exec.py:31-130): one launch a
+  call where the eager path dispatches every kernel and torch op from
+  Python.  On the CPU the path runs eagerly.
+
+A bf16 matrix computes in float32, as the reference's paged variant does
+(exec.py:267-270, :861-867): its tables hold bf16-rounded values in
+float32 arrays, every kernel runs in f32, a bf16 x (or y) is upcast and
+the result cast back to bf16.  The plain-table variant computes in f32 as
+well (the reference's runs in bf16 through XLA).
 
 The variant gate (the counterpart of ``_pages_active``, exec.py:827-849,
 and of the pick in ``__call__``, :889-892) is simpler on the card: the
@@ -31,6 +41,7 @@ number of diagonals.
 from __future__ import annotations
 
 import contextlib
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -53,7 +64,10 @@ from sparsex_tpu_torch.preprocess.encodings import EncType
 from sparsex_tpu_torch.preprocess.tables import CsxTables
 from sparsex_tpu_torch.preprocess.xform import run_step
 
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+# the compute dtype of each value type: bf16 matrices compute in f32
+_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+           "bfloat16": torch.float32}
+MM_GRAPHS = 4   # SpMM graphs an executor keeps (least recently used out)
 
 
 class HostPlan:
@@ -66,8 +80,11 @@ class HostPlan:
         self.tables = tables
         self.meta = static_meta(tables)
         self.arrays = tables_to_arrays(tables)
-        self._dtype = str(np.dtype(tables.delta.vals.dtype)
-                          if tables.delta is not None else "float64")
+        # (the reference's CsxTables, which tests plan here, has no
+        # value_type: its bf16 arrays name their own dtype)
+        self._dtype = getattr(tables, "value_type", None) or str(
+            np.dtype(tables.delta.vals.dtype) if tables.delta is not None
+            else "float64")
         self._pages_tried = False
         self._pages_meta = None
         self._pages_arrays = None
@@ -85,9 +102,10 @@ class HostPlan:
         arrays = dict(self.arrays)
         changed = False
         if self._dtype == "bfloat16":
-            # compute-in-f32: Mosaic tiles are f32; a bf16 matrix keeps its
-            # bf16 tables for the fallback path, and the page/route
-            # variant holds f32 copies of every value stream.
+            # compute-in-f32: a bf16 matrix's page/route variant holds f32
+            # copies of every value stream (the reference keeps its bf16
+            # tables for the fallback path; the port's host tables are
+            # already f32, so these are copies of the same values).
             def _f32(tree):
                 if tree is None:
                     return None
@@ -646,6 +664,17 @@ class HostPlan:
                 tuple(bounds), tuple(res_desc))
 
 
+class _Graph:
+    """One captured executor call: the CUDA graph, the static input it
+    reads, the static output it writes, and the device memory its private
+    pool took during the capture (bytes)."""
+
+    __slots__ = ("graph", "x", "out", "nbytes")
+
+    def __init__(self, graph, x, out, nbytes):
+        self.graph, self.x, self.out, self.nbytes = graph, x, out, nbytes
+
+
 class CsxExecutor:
     """Callable SpMV executor for one partition's plan on a device."""
 
@@ -657,8 +686,12 @@ class CsxExecutor:
         self.arrays = arrays
         self.nrows = nrows
         self.ncols = ncols
-        self.dtype = dtype
+        self.dtype = dtype        # the compute dtype (f32 for a bf16 matrix)
         self.device = device
+        # ("mv",) and ("mm", k) -> _Graph, least recently used first; kept
+        # here, not in a module cache, so that each graph's memory pool is
+        # freed with its executor
+        self._graphs = OrderedDict()
 
     @classmethod
     def from_tables(cls, tables: CsxTables, device) -> "CsxExecutor":
@@ -667,11 +700,6 @@ class CsxExecutor:
         ``device``; raises ``NotImplementedError`` for a plan outside the
         ported slice."""
         plan = HostPlan(tables)
-        if plan._dtype not in _DTYPES:
-            raise NotImplementedError(
-                f"value dtype {plan._dtype} is not ported (float32 and "
-                "float64 only; bf16 compute-in-f32 is ROADMAP.md Queue 1 "
-                "item 4)")
         plan._maybe_build_pages()
         if plan._pages_meta is not None:
             variant, meta, host = "paged", plan._pages_meta, plan._pages_arrays
@@ -685,27 +713,40 @@ class CsxExecutor:
 
     def __call__(self, x, alpha=1.0, beta=0.0, y=None):
         """``alpha * A @ x + beta * y`` for x (ncols,), or the SpMM for X
-        (ncols, k) (:meth:`matmat`); the epilogue is elided when alpha is 1
-        and when beta is 0 or y is absent (exec.py:894-907)."""
+        (ncols, k); the epilogue is elided when alpha is 1 and when beta is
+        0 or y is absent (exec.py:894-907).  On the card ``A @ x`` is
+        replayed from the executor's graph (:meth:`_replayed`) and the
+        epilogue runs after it, so one graph serves every alpha and beta.
+        A bf16 x is computed in the plan's dtype and gives a bf16 result
+        (exec.py:861-867).  The result is always a new tensor."""
+        low = isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16
         x = self._as_vector(x, "x")
-        if x.dim() == 2:
-            acc = self.matmat(x)
-        else:
-            with self._on_device():
-                acc = local_contrib(self.meta, self.arrays, x,
-                                    nrows_part=self.nrows, ncols=self.ncols)
         apply_alpha = not (isinstance(alpha, (int, float))
                            and float(alpha) == 1.0)
         apply_beta = not (y is None or (isinstance(beta, (int, float))
                                         and float(beta) == 0.0))
-        if apply_alpha:
-            acc = acc * alpha
-        if apply_beta:
-            acc = acc + beta * self._as_vector(y, "y")
+        with self._on_device():
+            if x.dim() == 2:
+                # the graph reads X.T, copied in k-major, and writes Y.T
+                acc, static = self._replayed(("mm", x.shape[1]),
+                                             self._matmat, x.T)
+                yt, acc = acc, acc.T.contiguous()   # a view only at k = 1
+                static = static and acc.data_ptr() == yt.data_ptr()
+            else:
+                acc, static = self._replayed(("mv",), self._matvec, x)
+            if apply_alpha:
+                acc = acc * alpha
+            if apply_beta:
+                acc = acc + beta * self._as_vector(y, "y")
+            if low:
+                acc = acc.to(torch.bfloat16)
+            elif static and not (apply_alpha or apply_beta):
+                acc = acc.clone()   # never the graph's own output
         return acc
 
     def matmat(self, X: torch.Tensor) -> torch.Tensor:
-        """``A @ X`` for X (ncols, k) on the plan's device: (nrows, k).
+        """``A @ X`` for X (ncols, k) on the plan's device, run eagerly:
+        (nrows, k).  :meth:`__call__` replays the same body from a graph.
 
         A fused plan (:func:`fused_mm_ok`) runs the reference's k-batched
         path (exec.py:86-101): chunks of ``MM_FUSED_KB`` columns of the
@@ -717,42 +758,104 @@ class CsxExecutor:
         pass (:120-130), which has no kernel of its own.  The reference's
         v5e-measured ``MM_COLUMN_LOOP_MAX`` (:851-876) is not carried over:
         the k-batched kernels run for every k."""
-        k = X.shape[1]
         with self._on_device():
-            if self.variant == "paged" and fused_mm_ok(self.meta):
-                xt = X.T.contiguous()
-                outs = [fused_mm_contrib(self.meta, self.arrays,
-                                         xt[c0:c0 + MM_FUSED_KB],
-                                         nrows_part=self.nrows,
-                                         ncols=self.ncols)
-                        for c0 in range(0, k, MM_FUSED_KB)]
-            else:
-                outs = [local_contrib(self.meta, self.arrays,
-                                      X[:, j].contiguous(),
-                                      nrows_part=self.nrows,
-                                      ncols=self.ncols)[None]
-                        for j in range(k)]
+            return self._matmat(X.T.contiguous()).T.contiguous()
+
+    def _matvec(self, x: torch.Tensor) -> torch.Tensor:
+        return local_contrib(self.meta, self.arrays, x,
+                             nrows_part=self.nrows, ncols=self.ncols)
+
+    def _matmat(self, xt: torch.Tensor) -> torch.Tensor:
+        """The k-major SpMM: (k, ncols) contiguous -> (k, nrows)."""
+        k = xt.shape[0]
+        if self.variant == "paged" and fused_mm_ok(self.meta):
+            outs = [fused_mm_contrib(self.meta, self.arrays,
+                                     xt[c0:c0 + MM_FUSED_KB],
+                                     nrows_part=self.nrows, ncols=self.ncols)
+                    for c0 in range(0, k, MM_FUSED_KB)]
+        else:
+            outs = [self._matvec(xt[j])[None] for j in range(k)]
         if not outs:
-            return X.new_zeros((self.nrows, 0))
-        out = torch.cat(outs) if len(outs) > 1 else outs[0]   # (k, nrows)
-        return out.T.contiguous()
+            return xt.new_zeros((0, self.nrows))
+        return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+    def _replayed(self, key, body, x):
+        """``(body(x), whether that is a graph's static output)``.
+
+        On the card ``body`` runs from this executor's CUDA graph for
+        ``key``: each call copies x into the graph's static input and
+        replays the graph on the current stream.  The graph is captured at
+        the first call for its key (:meth:`_capture`); up to
+        ``MM_GRAPHS`` SpMM widths keep theirs.  On the CPU, and under a
+        capture of the caller's own (the counterpart of the reference's
+        tracer check, exec.py:859-860: the kernels then launch into the
+        caller's graph), ``body`` runs eagerly."""
+        if (x.device.type != "cuda" or not x.numel()
+                or torch.cuda.is_current_stream_capturing()):
+            return body(x.contiguous()), False
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._capture(key, body, x)
+        else:
+            self._graphs.move_to_end(key)
+        g.x.copy_(x)
+        try:
+            g.graph.replay()
+        except RuntimeError as e:
+            raise RuntimeError(f"replaying the CUDA graph of {key} failed: "
+                               f"{e}") from e
+        return g.out, True
+
+    def _capture(self, key, body, x) -> _Graph:
+        """Capture ``body`` on a static copy of x into a new graph for
+        ``key``.  It runs eagerly once first, on a side stream: the kernels'
+        build at first launch and the device copies the launchers cache
+        (``_launch._offsets_tensor``, ``kernels._steps``) cannot happen
+        under a capture.  A failed capture raises, naming ``key``; nothing
+        falls back to the eager path."""
+        static_x = x.clone(memory_format=torch.contiguous_format)
+        current = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            body(static_x)
+        current.wait_stream(side)
+        # keep_graph: the captured graph stays inspectable (its kernel
+        # nodes); it is instantiated at its first replay
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        try:
+            with torch.cuda.graph(graph):
+                reserved = torch.cuda.memory_reserved()
+                out = body(static_x)
+        except Exception as e:
+            raise RuntimeError(f"capturing the CUDA graph of {key} failed: "
+                               f"{e}") from e
+        g = _Graph(graph, static_x, out,
+                   torch.cuda.memory_reserved() - reserved)
+        self._graphs[key] = g
+        widths = [k for k in self._graphs if k[0] == "mm"]
+        for old in widths[:-MM_GRAPHS]:
+            del self._graphs[old]
+        return g
+
+    def graph_bytes(self) -> dict:
+        """Device memory each of the executor's graphs took at its capture,
+        by key (bytes)."""
+        return {key: g.nbytes for key, g in self._graphs.items()}
 
     def _on_device(self):
         """The matrix's CUDA device made current for one executor call, so
         that every kernel launches on the operands' device (the ctypes
         launchers take the CUDA runtime's current device); nothing on the
-        CPU.  Entered once a call, not once a launch: the SpMV called from
-        Python is host-bound."""
+        CPU.  Entered once a call, not once a launch."""
         if self.device.type == "cuda":
             return torch.cuda.device(self.device)
         return contextlib.nullcontext()
 
     def _as_vector(self, v, name: str) -> torch.Tensor:
-        """``v`` as a tensor of the plan's dtype on the plan's device."""
+        """``v`` as a tensor of the plan's compute dtype on the plan's
+        device (a bf16 tensor is upcast)."""
         if isinstance(v, torch.Tensor):
-            if v.dtype == torch.bfloat16:
-                raise NotImplementedError(
-                    f"bf16 {name} is not ported (ROADMAP.md Queue 1 item 4)")
             if v.device != self.device:
                 raise ValueError(f"{name} is on {v.device}; the matrix is "
                                  f"on {self.device}")

@@ -470,4 +470,6 @@ class Encoder:
             nrows=self.nrows, ncols=self.ncols, nnz=self.nnz_total,
             row_start=row_start, delta=delta,
             runs=runs, blocks=self.block_tables, dias=dias,
+            value_type=(None if self.cfg.value_type != "bfloat16"
+                        else "bfloat16"),
         )

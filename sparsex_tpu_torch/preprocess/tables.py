@@ -155,6 +155,9 @@ class CsxTables:
     runs: List[RunTable] = field(default_factory=list)
     blocks: List[BlockTable] = field(default_factory=list)
     dias: List[DiagTable] = field(default_factory=list)
+    # the matrix's value type where it differs from the arrays' dtype: a
+    # bf16 matrix holds bf16-rounded values in float32 arrays
+    value_type: Optional[str] = None
 
     def csx_size(self) -> int:
         """Compressed footprint in bytes (ref ``CsxUtil.hpp:117-180``)."""

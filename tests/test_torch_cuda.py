@@ -761,7 +761,9 @@ def test_lane_gather_kb_cuda_matches_plain(dev, K, R, kb, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_api_cuda_spmm_matches_cpu(dev, dtype):
     """The blocky slice's SpMM (k = 11: chunks of 8 and 3) on the card runs
-    only the k-batched kernels, and matches the same SpMM on the CPU."""
+    only the k-batched kernels, and matches the same SpMM on the CPU.  Its
+    first call runs the body from Python twice, the warm-up and the
+    capture of the executor's graph: two K3 chunks each."""
     import chip_smoke
     import sparsex_tpu_torch as spt
 
@@ -780,6 +782,250 @@ def test_api_cuda_spmm_matches_cpu(dev, dtype):
     counts = tf.launch_counts()
     assert all(counts[key] == 0 for key in tf.KERNELS
                if key not in tf.KB_KERNELS), counts
-    assert counts["k1_rlp_kb"] > 0 and counts["k3_kb"] == 2, counts
+    assert counts["k1_rlp_kb"] > 0 and counts["k3_kb"] == 4, counts
     want = spt.matmat_mult(1.0, B, X)
     assert (Y.cpu() - want).abs().max() <= 1e-6 * want.abs().max()
+
+
+# ---------------------------------------------------------------------------
+# the executor's CUDA graphs (ops/exec.py: CsxExecutor._replayed)
+# ---------------------------------------------------------------------------
+
+# plan class -> (chip_smoke builder, rows, options, route gate MIN_ELEMS or
+# None, whether two runs of the same x give the same bits: not where the
+# residual adds (index_add_) or the paged-units kernel's scatter epilogue
+# add with atomics)
+GRAPH_PLANS = {
+    "lp": ("build_matrix", 1 << 17, {}, None, False),
+    "rlp": ("build_blocky_matrix", 1 << 18, {}, None, False),
+    "run16": ("wide_run_matrix", 1 << 18, {}, None, False),
+    "sl": ("lane_skew_matrix", 1 << 18, {}, None, False),
+    "fs": ("block3_matrix", 3 << 16, {}, 1024, True),
+    "hpcg": ("hpcg_matrix", 32 ** 3, {"spx.preproc.sampling": "none"}, None,
+             True),
+    "paged": ("build_blocky_matrix", 1 << 18,
+              {"spx.tpu.min_fused_nnz": str(1 << 30)}, 1 << 30, False),
+}
+
+
+def _graph_plan(monkeypatch, plan, dtype="float32"):
+    """(matrix tuned on the card, n, rows, cols, vals, bit-exact) of one
+    plan class of GRAPH_PLANS."""
+    import chip_smoke
+    import sparsex_tpu_torch as spt
+
+    build, n, options, min_elems, exact = GRAPH_PLANS[plan]
+    if min_elems is not None:
+        monkeypatch.setattr(troute, "MIN_ELEMS", min_elems)
+    fn = getattr(chip_smoke, build)
+    if build == "hpcg_matrix":
+        _n, rows, cols, vals = fn(32)
+    elif build == "wide_run_matrix":
+        rows, cols, vals = fn(n, 16)
+    else:
+        rows, cols, vals = fn(n)
+    cfg = spt.Config.reset()
+    cfg.set("spx.tpu.value_dtype", dtype)
+    cfg.set("spx.preproc.xform", "all")
+    cfg.set("spx.preproc.sampling", "portion")
+    for key, value in options.items():
+        cfg.set(key, value)
+    A = spt.mat_tune(chip_smoke.csr_input(spt, rows, cols, vals, n))
+    return A, n, rows, cols, vals, exact
+
+
+def _same(got, want, exact):
+    if exact:
+        assert torch.equal(got, want)
+    else:
+        assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+
+
+def _eager(ex, x):
+    if x.dim() == 2:
+        return ex.matmat(x)
+    with ex._on_device():
+        return ex._matvec(x)
+
+
+@pytest.mark.parametrize("plan", sorted(GRAPH_PLANS))
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_graph_replay_equals_eager(dev, monkeypatch, plan, dtype):
+    """On each plan class the SpMV replayed from the executor's graph gives
+    what the eager body gives on the same x (bit for bit, or within 1e-6
+    of the largest value where atomics reorder sums); the first call runs
+    the body from Python twice (warm-up, capture), a replay not at all."""
+    A, n, *_rest, exact = _graph_plan(monkeypatch, plan, dtype)
+    ex = A.csx.executors[0]
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(n),
+                        dtype=ex.dtype, device=dev)
+    tf.launches.clear()
+    first = ex(x)
+    torch.cuda.synchronize()
+    captured = tf.launch_counts()
+    assert list(ex._graphs) == [("mv",)] and sum(captured.values()) > 0
+    tf.launches.clear()
+    replayed = ex(x)
+    torch.cuda.synchronize()
+    assert sum(tf.launch_counts().values()) == 0
+    eager = _eager(ex, x)
+    tf.launches.clear()
+    _eager(ex, x)
+    torch.cuda.synchronize()
+    assert {k: 2 * v for k, v in tf.launch_counts().items()} == captured
+    _same(first, eager, exact)
+    _same(replayed, eager, exact)
+
+
+def test_graph_results_are_fresh(dev, monkeypatch):
+    """Three calls in a row return three tensors, none the graph's static
+    output: the earlier results keep their values after later replays."""
+    A, n, *_rest = _graph_plan(monkeypatch, "rlp")
+    ex = A.csx.executors[0]
+    rng = np.random.default_rng(2)
+    ys, kept = [], []
+    for _ in range(3):
+        x = torch.as_tensor(rng.standard_normal(n), dtype=ex.dtype,
+                            device=dev)
+        ys.append(ex(x))
+        kept.append(ys[-1].clone())
+    torch.cuda.synchronize()
+    ptrs = {y.data_ptr() for y in ys} | {ex._graphs[("mv",)].out.data_ptr()}
+    assert len(ptrs) == 4
+    for y, want in zip(ys, kept):
+        assert torch.equal(y, want)
+    assert not torch.equal(ys[0], ys[1])
+
+
+@pytest.mark.parametrize("plan", ["lp", "paged"])
+def test_graph_epilogue_on_one_graph(dev, monkeypatch, plan):
+    """alpha = 1 / beta = 0, alpha = 2 / beta = 0.5 and alpha = -0.75 /
+    beta = 3 all replay the one SpMV graph; each equals the eager
+    epilogue on the eager body."""
+    A, n, *_rest, exact = _graph_plan(monkeypatch, plan)
+    ex = A.csx.executors[0]
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.standard_normal(n), dtype=ex.dtype, device=dev)
+    y0 = torch.as_tensor(rng.standard_normal(n), dtype=ex.dtype, device=dev)
+    acc = _eager(ex, x)
+    for alpha, beta, y in ((1.0, 0.0, None), (2.0, 0.5, y0),
+                           (-0.75, 3.0, y0)):
+        got = ex(x, alpha=alpha, beta=beta, y=y)
+        want = acc if alpha == 1.0 else acc * alpha
+        if y is not None:
+            want = want + beta * y
+        _same(got, want, exact)
+    assert list(ex._graphs) == [("mv",)]
+
+
+@pytest.mark.parametrize("k", [1, 8, 11])
+@pytest.mark.parametrize("plan", ["rlp", "hpcg"])
+def test_graph_spmm_equals_eager(dev, monkeypatch, plan, k):
+    """The SpMM replayed from its ("mm", k) graph: the k-batched chunks of
+    a fused plan (rlp), the SpMV once per column otherwise (hpcg)."""
+    A, n, *_rest, exact = _graph_plan(monkeypatch, plan)
+    ex = A.csx.executors[0]
+    X = torch.as_tensor(np.random.default_rng(4).standard_normal((n, k)),
+                        dtype=ex.dtype, device=dev)
+    first, again = ex(X), ex(X)
+    assert list(ex._graphs) == [("mm", k)]
+    want = _eager(ex, X)
+    assert first.shape == (n, k) and first.data_ptr() != again.data_ptr()
+    _same(first, want, exact)
+    _same(again, want, exact)
+
+
+def test_graph_spmm_widths_are_bounded(dev, monkeypatch):
+    """An executor keeps the SpMV graph and the ``MM_GRAPHS`` SpMM widths
+    used last."""
+    from sparsex_tpu_torch.ops import exec as texec
+    A, n, *_rest = _graph_plan(monkeypatch, "lp")
+    ex = A.csx.executors[0]
+    rng = np.random.default_rng(5)
+    ex(torch.as_tensor(rng.standard_normal(n), dtype=ex.dtype, device=dev))
+    widths = list(range(1, texec.MM_GRAPHS + 3))
+    for k in widths:
+        ex(torch.as_tensor(rng.standard_normal((n, k)), dtype=ex.dtype,
+                           device=dev))
+    assert list(ex._graphs) == [("mv",)] + [("mm", k) for k in
+                                            widths[-texec.MM_GRAPHS:]]
+    assert all(b > 0 for b in ex.graph_bytes().values())
+
+
+def test_graph_under_outer_capture(dev, monkeypatch):
+    """Called under the caller's own capture, the executor launches its
+    kernels into the caller's graph and replays none of its own; that graph
+    gives what the direct call gives."""
+    A, n, *_rest, exact = _graph_plan(monkeypatch, "rlp")
+    ex = A.csx.executors[0]
+    x = torch.as_tensor(np.random.default_rng(6).standard_normal(n),
+                        dtype=ex.dtype, device=dev)
+    direct = ex(x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ex(x)
+    torch.cuda.current_stream().wait_stream(side)
+    outer = torch.cuda.CUDAGraph()
+    tf.launches.clear()
+    with torch.cuda.graph(outer):
+        captured = ex(x)
+    assert tf.launches["k3"] > 0 and list(ex._graphs) == [("mv",)]
+    outer.replay()
+    torch.cuda.synchronize()
+    _same(captured, direct, exact)
+
+
+@pytest.mark.parametrize("build,n", [("build_matrix", 1 << 17),
+                                     ("build_blocky_matrix", 1 << 18)])
+def test_bf16_cuda_matches_oracle(dev, build, n):
+    """A bf16 matrix on the card, computed in f32 from a bf16 x: a bf16
+    result within 2e-2 of the largest value of the float64 COO oracle on
+    the bf16-rounded values and x (the reference's bar), for the SpMV and
+    a k = 3 SpMM."""
+    import chip_smoke
+    import sparsex_tpu_torch as spt
+
+    rows, cols, vals = getattr(chip_smoke, build)(n)
+    cfg = spt.Config.reset()
+    cfg.set("spx.tpu.value_dtype", "bfloat16")
+    cfg.set("spx.preproc.xform", "all")
+    cfg.set("spx.preproc.sampling", "portion")
+    A = spt.mat_tune(chip_smoke.csr_input(spt, rows, cols, vals, n))
+    assert A.csx.executors[0].dtype == torch.float32
+    vb = torch.from_numpy(vals).bfloat16().double().numpy()
+    X = torch.as_tensor(np.random.default_rng(7).standard_normal((n, 3)),
+                        dtype=torch.bfloat16, device=dev)
+    Xh = X.double().cpu().numpy()
+    for got, xs in ((spt.matvec_mult(1.0, A, X[:, 0].contiguous()),
+                     Xh[:, :1]),
+                    (spt.matmat_mult(1.0, A, X), Xh)):
+        assert got.dtype == torch.bfloat16
+        want = np.stack([np.bincount(rows, weights=vb * xs[cols, j],
+                                     minlength=n)
+                         for j in range(xs.shape[1])], axis=1)
+        g = got.double().cpu().numpy().reshape(want.shape)
+        assert np.abs(g - want).max() / np.abs(want).max() < 2e-2
+
+
+def test_graph_capture_failure_raises(dev, monkeypatch):
+    """A body that cannot be captured (here a host sync forced into it)
+    raises an error naming the graph's key; nothing runs eagerly instead,
+    and no graph is kept."""
+    from sparsex_tpu_torch.ops import exec as texec
+    A, n, *_rest = _graph_plan(monkeypatch, "lp")
+    ex = A.csx.executors[0]
+    x = torch.as_tensor(np.random.default_rng(8).standard_normal(n),
+                        dtype=ex.dtype, device=dev)
+    real = texec.local_contrib
+
+    def syncing(meta, arrs, xv, **kw):
+        float(xv.sum())   # a device-to-host copy: illegal under a capture
+        return real(meta, arrs, xv, **kw)
+
+    monkeypatch.setattr(texec, "local_contrib", syncing)
+    with pytest.raises(RuntimeError,
+                       match=r"capturing the CUDA graph of \('mv',\)"):
+        ex(x)
+    assert not ex._graphs
+    torch.cuda.synchronize()

@@ -248,8 +248,10 @@ def test_api_errors():
               * X.astype(np.float64)[cols])
     assert Y.shape == (n, 2)
     assert np.abs(Y.double().numpy() - want).max() / np.abs(want).max() < 1e-5
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        spt.matvec_mult(1.0, A, torch.ones(n, dtype=torch.bfloat16))
+    # a bf16 x is computed in the matrix's dtype and gives a bf16 y
+    yb = spt.matvec_mult(1.0, A, torch.ones(n, dtype=torch.bfloat16))
+    assert yb.dtype == torch.bfloat16
+    assert torch.equal(yb, spt.matvec_mult(1.0, A, torch.ones(n)).bfloat16())
     spt.Config.instance().set("spx.matrix.symmetric", "true")
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         spt.mat_tune(inp, device="cpu")

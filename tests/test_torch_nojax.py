@@ -1,15 +1,18 @@
 """sparsex_tpu_torch stands on its own, and refuses what it does not run.
 
 A subprocess blocks every import of ``jax``, of the JAX package
-``sparsex_tpu`` (but not ``sparsex_tpu_torch``) and of its benchmark
-``bench`` with a ``sys.meta_path`` finder, then tunes and runs on the CPU,
+``sparsex_tpu`` (but not ``sparsex_tpu_torch``), of its benchmark
+``bench`` and of ``ml_dtypes`` (NumPy's bf16, which only JAX brings) with
+a ``sys.meta_path`` finder, then tunes and runs on the CPU,
 each SpMV against a numpy COO oracle within ``chip_smoke.CHECK_TOL``: the
 headline matrix at 2^17 rows, the blocky matrix at 2^18 (fused runs and a
 merged plan), the HPCG stencil at 16^3 (the plain-table DIA variant, its
 meta recomputed from the port's own tables), the wide-run matrix at 2^15
 (K1 style run16), the lane-skewed one at 2^15 (K1 style sl) and the 3x3
 block matrix at 3 * 2^14 (a block table through a partial segment,
-``fs``).  Then it
+``fs``); then the headline matrix at 2^17 as a bf16 matrix (computed in
+float32), its SpMV and a k = 2 SpMM of a bf16 x within 2e-2 of the largest
+value of the oracle on the bf16-rounded values and x.  Then it
 checks two refusals, no default device without CUDA and no kernel build
 without nvcc, and that a plan outside the ported slice (the paged delta
 with its scatter route) raises NotImplementedError; at the end no module
@@ -34,7 +37,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = r"""
 import json, sys, tempfile
 
-BLOCKED = ("jax", "jaxlib", "sparsex_tpu", "bench")
+BLOCKED = ("jax", "jaxlib", "sparsex_tpu", "bench", "ml_dtypes")
 
 class _Blocked:
     def find_spec(self, name, path=None, target=None):
@@ -128,6 +131,23 @@ ex = A.csx.executors[0]
 out["fs"] = ([e[4][0] for e in ex.meta[3] if len(e) > 4 and e[4]],
              spmv_err(A, n, rows, cols, vals, 6))
 
+n = 1 << 17              # a bf16 matrix, computed in float32
+rows, cols, vals = cs.build_matrix(n)
+A = tune(n, rows, cols, vals, **{"spx.tpu.value_dtype": "bfloat16"})
+X = torch.from_numpy(np.random.default_rng(7).standard_normal((n, 2))
+                     .astype(np.float32)).bfloat16()
+y = spx.matvec_kernel(1.0, A, X[:, 0].contiguous(), 0.0, None, device="cpu")
+Y = spx.matmat_kernel(1.0, A, X, 0.0, None, device="cpu")
+vb = torch.from_numpy(vals).bfloat16().double().numpy()
+Xh = X.double().numpy()
+want = np.stack([np.bincount(rows, weights=vb * Xh[cols, j], minlength=n)
+                 for j in range(2)], axis=1)
+out["bf16"] = (str(y.dtype), str(Y.dtype), extras(A),
+               float(np.abs(y.double().numpy() - want[:, 0]).max()
+                     / np.abs(want[:, 0]).max()),
+               float(np.abs(Y.double().numpy() - want).max()
+                     / np.abs(want).max()))
+
 torch.cuda.is_available = lambda: False
 try:
     spx.resolve_device()
@@ -186,6 +206,9 @@ def test_port_runs_and_refuses_without_jax():
     assert out["sl"][:2] == [["dfused"], "sl"]
     assert out["sl"][2] < tol
     assert out["fs"][0] == ["fs"] and out["fs"][1] < tol
+    assert out["bf16"][:3] == ["torch.bfloat16", "torch.bfloat16",
+                               ["dfused", "k3dias"]]
+    assert max(out["bf16"][3:]) < 2e-2
     assert out["no_cuda"] == "SparsexError"
     assert out["no_nvcc"] == "KernelBuildError"
     assert out["out_of_slice"] == "NotImplementedError"

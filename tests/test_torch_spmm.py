@@ -519,7 +519,8 @@ def test_executor_makes_its_device_current_once_a_call(monkeypatch):
 
 def test_matmat_api_and_dim_errors(monkeypatch):
     """tests/test_spmm.py:91-110 on the port: matmat_mult / matmat_kernel,
-    SPX_ERR_VEC_DIM on an X or Y of the wrong shape, bf16 X refused."""
+    SPX_ERR_VEC_DIM on an X or Y of the wrong shape, a bf16 X computed in
+    the matrix's dtype with a bf16 result."""
     _thresholds(monkeypatch)
     n = 8192
     rows, cols, vals = _fused_mm_matrix(n, np.random.default_rng(5))
@@ -535,8 +536,10 @@ def test_matmat_api_and_dim_errors(monkeypatch):
         with pytest.raises(spt.SparsexError) as ei:
             spt.matmat_kernel(1.0, A, bad_x, 1.0, bad_y)
         assert ei.value.code == spt.ErrorCode.SPX_ERR_VEC_DIM
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        spt.matmat_mult(1.0, A, torch.ones(n, 2, dtype=torch.bfloat16))
+    Xb = torch.from_numpy(X[:, :2].copy()).bfloat16()
+    Yb = spt.matmat_mult(1.0, A, Xb)
+    assert Yb.dtype == torch.bfloat16
+    assert torch.equal(Yb, spt.matmat_mult(1.0, A, Xb.double()).bfloat16())
     with pytest.raises(spt.SparsexError):
         spt.matmat_mult(1.0, A, X, device="cuda:0")
 
