@@ -43,6 +43,17 @@ this script imports nothing of the JAX package or its benchmark):
     ``overlap_run_matrix(1 << 16)`` (3 width-16 runs a row), whose fused
     run plan had route instances overlapping outside a merged plan: the
     port re-plans its run table as a paged table with an ``fs`` route;
+- the fused pipeline kept off (``spx.tpu.min_fused_nnz`` above the
+  nonzeros, a public option), at 2^20 rows in float32 and float64:
+  - ``build_matrix(1 << 20)``: the legacy paged delta with its scatter
+    route (``dscatter``: the delta-pages product, then five lane gathers
+    per route instance with torch transposes between them) beside the DIA
+    kernel on the 5 diagonals;
+  - ``build_blocky_matrix(1 << 20)``: the same routed delta, the fblk
+    chain of its 4x2 block table (the unit-page gather, per block row a
+    multiply and lane-roll sums) into a merged plan of ``blk`` segments
+    with ``bres`` residuals (G1 lane gather, T1, K2, K3), and a paged
+    width-8 run table with an ``fs`` route;
 - the non-fused variants, which the fused planners refuse (more than 2^21
   rows, or nothing to fuse):
   - HPCG's 27-point stencil on a 128^3 grid (``hpcg_matrix``: 2^21 rows,
@@ -54,8 +65,8 @@ this script imports nothing of the JAX package or its benchmark):
   - ``build_blocky_matrix(1 << 22)`` (13.6M nonzeros): the paged delta
     stream and the paged run and block tables, whose partials the
     paged-units kernel forms and scatter-adds itself (the unit-page
-    gather it replaced is held against its plain version on the same
-    windows, off the path);
+    gather is held against its plain version on the same windows, off
+    this path);
 - the SpMM (``matmat_kernel``, X of shape (n, k) from a numpy seed) on the
   matrix each path has tuned: timed at k = 8 (one k-batched chunk) on
   headline 2^20, blocky 2^21, wide-run and lane-skew 2^21 in float32 and
@@ -63,8 +74,9 @@ this script imports nothing of the JAX package or its benchmark):
   row scatter) in float32 (blocky 2^19: bench.py's SpMM configuration,
   whose SpMV is timed too); untimed checks in float32 at k = 11 on
   headline 2^20 (chunks of 8 and 3), k = 3 on blocky 2^19 (the masked g3
-  instance), k = 8 on fs-block (the SpMV once per column), k = 2 on HPCG
-  128^3 and headline 2^22 (the SpMV once per column).
+  instance), k = 8 on fs-block (the SpMV once per column), k = 2 on the
+  two fused-gate-off paths, HPCG 128^3 and headline 2^22 (the SpMV once
+  per column).
 
 Every phase is fatal on failure:
 
@@ -74,8 +86,10 @@ Every phase is fatal on failure:
    and K1 styles;
 3. each kernel of the path against its plain PyTorch version on that
    plan's arrays, at every shape the path gives it, each stage fed what the
-   SpMV feeds it: K1 (every style), T1, K2, the lane gather, the DIA
-   kernel, the delta-pages product, the unit-page gather and the
+   SpMV feeds it (``kernel_phase``): K1 (every style), T1, K2, the lane
+   gather (G1 of every route instance and each stage of a legacy scatter
+   route), the DIA kernel, the delta-pages product, the unit-page gather
+   (on the fblk tables' window streams where the path runs it) and the
    paged-units kernel bit-equal, K3 and the paged-units kernel's scatter
    epilogue (atomic adds, as ``index_add_``'s) within 1e-6 of the largest
    value;
@@ -153,6 +167,9 @@ N_BIG = 1 << 22         # past the fused planners' 2^21-row cap
 N_FS_BLOCK = 3 << 19    # the 3x3-block matrix: 2^19 block rows
 HPCG_NX = 128           # the HPCG stencil's grid edge: 2^21 rows
 N_OVERLAP = 1 << 16     # the run matrix whose fused-run route overlapped
+# the fused pipeline kept off (a public option): the legacy paged variant
+# with its routed delta scatter, fused block tables and their merged plan
+NO_FUSE = (("spx.tpu.min_fused_nnz", str(1 << 30)),)
 # the card's peaks for the bounds (H100 SXM: 3.35 TB/s of HBM3; 67 TFLOP/s
 # in float32 and 34 in float64 outside the tensor cores, NVIDIA's data
 # sheet), read at the card's full power limit
@@ -303,16 +320,35 @@ def fs_tables(meta):
             if len(e) > 4 and e[4] and e[4][0] == "fs"]
 
 
+def routed_tables(meta):
+    """(kind, index, entry) of every run or block table routed through a
+    legacy scatter plan (its route metas at ``entry[4][0]``)."""
+    return [(kind, i, e) for kind, metas in (("runs", meta[2]),
+                                             ("blocks", meta[3]))
+            for i, e in enumerate(metas)
+            if len(e) > 4 and e[4] and e[4][0] != "fs"]
+
+
+def fblk_tables(meta):
+    """(index, entry) of every fused block table (``fblk``)."""
+    return [(bi, e) for bi, e in enumerate(meta[3])
+            if len(e) > 5 and e[5] and e[5][0] == "fblk"]
+
+
 def expected_counts(meta, k=0):
     """Kernel launches of one SpMV (``k`` = 0), derived from the plan: one
     K1 per delta part and per fused run table, under the key of the kernel
     its style runs (``k1`` lp, ``k1_rlp``, ``k1_sl``, ``k1_run``); per route
     instance one T1 and one K2 (and one lane gather for a merged plan's
     G1) and per instance of a partial-segment route (``fs``) one lane
-    gather, T1 and K2; one K3 per 8 instances; one DIA kernel per
-    standalone DIA table, one delta-pages product for the paged delta
-    stream, one paged-units kernel per paged table (the unit-page gather
-    is no longer on any path).  Of one SpMM of ``k`` columns: on a fused
+    gather, T1 and K2; per fused block table (``fblk``) one unit-page
+    gather and, unless a merged plan takes its block rows, per instance of
+    each row's segment one lane gather, T1 and K2; one K3 per 8 instances;
+    one DIA kernel per standalone DIA table, one delta-pages product for
+    the paged delta stream and five lane gathers per instance of its
+    scatter route (``dscatter``) and of a table's legacy scatter plan, one
+    paged-units kernel per paged table.  Of one SpMM of ``k`` columns: on a
+    fused
     plan ceil(k / 8) times the counts of the fused segments under the
     k-batched kernels' keys (``_kb``) and no other launch (a paged table's
     gather and an ``fs`` table's scatter are torch glue there); else k
@@ -349,9 +385,15 @@ def _spmv_counts(tf, meta, unit_tables=True):
         n_inst = counts["lane_gather"] = len(fall[1])
     if unit_tables:
         n_fs = sum(len(e[4][1]) for _k, _i, e in fs_tables(meta))
-        counts["lane_gather"] += n_fs
+        if fall is None:
+            n_fs += sum(len(inst) for _bi, e in fblk_tables(meta)
+                        for inst, _res, _m in e[5][1])
+        counts["lane_gather"] += n_fs + 5 * (
+            len(ex["dscatter"][0]) if "dscatter" in ex else 0) + 5 * sum(
+            len(e[4][0]) for _k, _i, e in routed_tables(meta))
         n_inst += n_fs
         counts["paged_units"] = len(paged_tables(meta))
+        counts["paged_gather"] = len(fblk_tables(meta))
     counts["t1"] = counts["k2"] = n_inst
     counts["k3"] = -(-n_inst // 8) if n_inst else int("k3dias" in ex)
     counts["dia"] = (0 if "k3dias" in ex
@@ -360,12 +402,16 @@ def _spmv_counts(tf, meta, unit_tables=True):
     return counts
 
 
-def tune(spx, rows, cols, vals, n, dtype_name, label):
+def tune(spx, rows, cols, vals, n, dtype_name, label, options=()):
+    """mat_tune under bench.py's config and the extra ``options`` (key,
+    value) pairs."""
     import torch
     cfg = spx.Config.reset()
     cfg.set("spx.tpu.value_dtype", dtype_name)
     cfg.set("spx.preproc.xform", "all")
     cfg.set("spx.preproc.sampling", "portion")
+    for key, value in options:
+        cfg.set(key, value)
     t0 = time.perf_counter()
     mat = spx.mat_tune(csr_input(spx, rows, cols, vals, n))
     torch.cuda.synchronize()
@@ -529,6 +575,47 @@ def check_pages_plan(mat, kind, label):
         fail(f"[{label}] unexpected {kind} plan: {desc}")
     say(f"[{label}] plan: {desc}")
     return ex
+
+
+def check_nofuse_plan(kind):
+    """A plan check for the fused pipeline kept off (``NO_FUSE``):
+    ``headline`` the paged delta stream with its scatter route (``dpages``
+    + ``dscatter``) and one standalone DIA table of 5 diagonals;
+    ``blocky`` the routed paged delta stream, a fused block table
+    (``fblk``) whose block rows a merged plan takes (``fall`` of ``blk``
+    segments, with ``bres`` residuals), and a paged run table routed
+    through a partial segment (``fs``)."""
+    def check(mat, label):
+        ex = mat.csx.executors[0]
+        meta = ex.meta
+        extras = extras_of(meta)
+        dias = [(anti, len(offs)) for anti, offs, _n in meta[4]]
+        fall = extras.get("fall")
+        if kind == "headline":
+            ok = set(extras) == {"dpages", "dscatter"} and dias == [
+                (False, 5)]
+        else:
+            ok = (set(extras) == {"dpages", "dscatter", "fall"}
+                  and len(fblk_tables(meta)) == 1
+                  and {seg[0] for seg in fall[0]} == {"blk"}
+                  and {rd[0] for rd in fall[3]} == {"bres"}
+                  and [k for k, _i, _e in fs_tables(meta)] == ["runs"])
+        dscatter = extras.get("dscatter", ((), None))
+        desc = (f"{ex.variant} variant; extras {sorted(extras)}; DIA "
+                f"tables {dias}; dscatter instances "
+                f"{[m[:10] for m in dscatter[0]]} residuals {dscatter[1]}; "
+                f"fblk tables {[e[:4] for _bi, e in fblk_tables(meta)]}; "
+                f"fs tables {[e[:4] for _k, _i, e in fs_tables(meta)]}; "
+                f"run tables {[e[:3] for e in meta[2]]}")
+        if fall is not None:
+            desc += (f"; merged segments {fall[0]} instances "
+                     f"{[m[:10] for m in fall[1]]} residuals {fall[3]}")
+        if not (ex.variant == "paged" and ok):
+            fail(f"[{label}] unexpected {kind} plan with the fused pipeline "
+                 f"off: {desc}")
+        say(f"[{label}] plan: {desc}")
+        return ex
+    return check
 
 
 # ---------------------------------------------------------------------------
@@ -777,10 +864,12 @@ def unit_kernels(res, ex, x, label, timed, loops=LOOPS, outer=OUTER):
     """The paged-units kernel on every paged table of an SpMV (bit-equal
     to its plain version where it writes partials, within 1e-6 where it
     scatter-adds them, as ``index_add_`` does, in no fixed order), then the
-    unit-page gather, which left the path for it, on the same window
-    streams (held against ``gather_plain`` and ``torch.take``).  No path
-    has both forms: bit-equality is asked where every call writes
-    partials."""
+    unit-page gather (held against ``gather_plain`` and ``torch.take``):
+    on each fused block table's window stream (``fblk``, where the path
+    runs it), else on the paged tables' streams, which the paged-units
+    kernel took it off.  No path has both paged-units forms: bit-equality
+    is asked where every call writes partials."""
+    from sparsex_tpu_torch.ops import kernels as tk
     from sparsex_tpu_torch.ops import pallas_kernels as tpk
     args = paged_units_args(ex, x)
     if args:
@@ -788,30 +877,79 @@ def unit_kernels(res, ex, x, label, timed, loops=LOOPS, outer=OUTER):
                      tpk.paged_units_plain, args,
                      all(len(a) == 6 for a in args), loops, outer,
                      fresh=_fresh_acc)
+    gathers = [a[:2] + a[3:5] for a in args]
+    if fblk_tables(ex.meta):
+        x2 = tk.paged_grid(ex.meta, x, ex.ncols)
+        gathers = [(ex.arrays["blocks"][bi]["plan"]["plo"],
+                    ex.arrays["blocks"][bi]["plan"]["sl"], x2, e[3][1])
+                   for bi, e in fblk_tables(ex.meta)]
+    if gathers:
         check_kernel(res, label, timed, "paged_gather", tpk.gather,
-                     tpk.gather_plain, [a[:2] + a[3:5] for a in args],
-                     loops=loops, outer=outer)
+                     tpk.gather_plain, gathers, loops=loops, outer=outer)
 
 
-def fused_kernel_phase(ex, x, label, timed=True, loops=LOOPS, outer=OUTER):
-    """Every kernel of a fused path against its plain version, on the
-    plan's arrays at the main path's shapes, each stage fed what
+def scatter_lane_args(ex, x):
+    """The lane gathers' argument tuples of every legacy scatter route of
+    an SpMV: the paged delta products' (``dscatter``) and each routed
+    table's partials', five a route instance, each stage's input made from
+    the previous stage's output as ``route.apply_scatter_plan`` makes it
+    (through the plain lane gather)."""
+    import torch.nn.functional as F
+    from sparsex_tpu_torch.ops import kernels as tk
+    from sparsex_tpu_torch.ops import pallas_kernels as tpk
+    from sparsex_tpu_torch.ops import route as troute
+    meta, arrs, ncols = ex.meta, ex.arrays, ex.ncols
+    extras = extras_of(meta)
+    x2 = tk.paged_grid(meta, x, ncols)
+    args = []
+
+    def record(xs, idx):
+        args.append((xs, idx))
+        return troute.lane_gather_plain(xs, idx)
+
+    if "dscatter" in extras:
+        prods = tpk.delta_pages_products(extras["dpages"],
+                                         arrs["delta_pages"], x, ncols, x2=x2)
+        troute.apply_scatter_plan(extras["dscatter"][0],
+                                  arrs["delta_scatter"]["chunks"], prods,
+                                  ex.nrows, gather=record)
+    for kind, i, e in routed_tables(meta):
+        t = arrs[kind][i]
+        part = tk.unit_table_partials(kind, e, t, x, ncols, ex.nrows,
+                                      x2)[0].reshape(-1)
+        troute.apply_scatter_plan(e[4][0], t["scatter"]["chunks"],
+                                  F.pad(part, (0, e[4][2] - part.shape[0])),
+                                  ex.nrows, gather=record)
+    return args
+
+
+def kernel_phase(ex, x, label, timed=True, loops=LOOPS, outer=OUTER):
+    """Every kernel of a path against its plain version, on the plan's
+    arrays at the main path's shapes, each stage fed what
     ``local_contrib`` feeds it: K1 on every part (the delta bulk and tail,
-    each fused run table), grouped by the kernel its style runs; then per
-    route instance, the merged plan's (its G1 lane gather over the merged
-    source grid) or each segment's own, T1 and K2 (raw g2b wires where um &
-    1); the paged-units kernel on each paged table (``unit_kernels``) and,
-    per instance of a table's partial-segment route (``fs``), the G1 lane
-    gather over its partials, T1 and K2; then K3 over every instance in
-    calls of 8, the first with the DIA tables that ride it (masked g3 where
-    um & 2 is 0).  A k-major x (kb, ncols), kb <= 8, is one chunk of an
-    SpMM (``fused_mm_contrib``'s input): every kernel then runs its
-    k-batched variant, named with ``_kb``, and the unit tables take torch
-    glue.  Returns {name: entry} (``check_kernel``)."""
+    each fused run table), grouped by the kernel its style runs; the DIA
+    kernel per standalone DIA table (in its zero-padded x frame), the
+    delta-pages product over the shared page grid; the paged-units kernel
+    on each paged table and the unit-page gather (``unit_kernels``); then
+    per route instance, the merged plan's (its G1 lane gather over the
+    merged source grid, fblk block-row streams included) or each
+    segment's own, T1 and K2 (raw g2b wires where um & 1); per instance of
+    a table's partial-segment route (``fs``) and of each fblk block row's
+    segment outside a merged plan, the G1 lane gather over its partials,
+    T1 and K2; the five lane gathers of each instance of a legacy scatter
+    route (``scatter_lane_args``) with the other lane gathers; then K3,
+    where the path runs it, over every instance in calls of 8, the first
+    with the DIA tables that ride it (masked g3 where um & 2 is 0).  A
+    k-major x (kb, ncols), kb <= 8, is one chunk of an SpMM
+    (``fused_mm_contrib``'s input): every kernel then runs its k-batched
+    variant, named with ``_kb``, and the unit tables take torch glue.  All
+    but K3 and the paged-units scatter epilogue must be bit-equal.
+    Returns {name: entry} (``check_kernel``)."""
     import torch
     import torch.nn.functional as F
     from sparsex_tpu_torch.ops import fused as tf
     from sparsex_tpu_torch.ops import kernels as tk
+    from sparsex_tpu_torch.ops import pallas_kernels as tpk
     from sparsex_tpu_torch.ops import route as troute
 
     meta, arrs, ncols = ex.meta, ex.arrays, ex.ncols
@@ -851,14 +989,33 @@ def fused_kernel_phase(ex, x, label, timed=True, loops=LOOPS, outer=OUTER):
         if key in k1_args:
             run(key, tf.k1, tf.k1_plain, k1_args[key])
 
+    x2 = tk.paged_grid(meta, x, ncols)
+    scatter_args = []
+    if not sfx:    # the SpMV's non-fused parts
+        if meta[4] and "k3dias" not in extras:
+            args = []
+            for offs, dv, xs in tk.dia_tables(meta[4], arrs["dias"], x,
+                                              ncols):
+                xp, pad_lo = tpk.dia_frame(offs, xs, ex.nrows, ncols)
+                args.append((dv, xp, offs, pad_lo))
+            run("dia", tpk.dia, tpk.dia_plain, args)
+        if "dpages" in extras:
+            rep = arrs["delta_pages"]
+            run("delta_pages", tpk.delta_pages, tpk.delta_pages_plain,
+                [(rep["plo"], rep["sl"], rep["vals"], x2,
+                  extras["dpages"][1])])
+        unit_kernels(res, ex, x, label, timed, loops, outer)
+        scatter_args = scatter_lane_args(ex, x)
+
     def padded(src, m):   # an instance's source rows, padded to S1p
         return F.pad(src[..., m[7]:m[8], :],
                      (0, 0, 0, m[1] - m[0])).contiguous()
 
     fall = extras.get("fall")
     g1_args, g1_insts = [], []     # (source rows, G1 wires), (w, i, m)
+    blk = tk.fblk_streams(meta, arrs, x, ncols, x2) if not sfx else {}
     if fall is not None:
-        src = tk.merged_source(meta, arrs, x, ncols, x2f)
+        src = tk.merged_source(meta, arrs, x, ncols, x2f, blk)
         fa = arrs["fall"]
         g1_insts = [(fa, i, m) for i, m in enumerate(fall[1])]
         g1_args = [(padded(src, m), fa[f"g1_{i}"][None])
@@ -875,71 +1032,50 @@ def fused_kernel_phase(ex, x, label, timed=True, loops=LOOPS, outer=OUTER):
         insts = [(w, i, m) for _a1, w, inst in segs
                  for i, m in enumerate(inst)]
         a1s = [padded(a1, m) for a1, _w, inst in segs for m in inst]
-    if not sfx:    # the SpMV's unit tables: partials, fs routes
-        unit_kernels(res, ex, x, label, timed, loops, outer)
-        x2 = tk.paged_grid(meta, x, ncols)
+    if not sfx:    # the SpMV's routed partials: fs routes, fblk rows
+        streams = []
         for kind, ti, e in fs_tables(meta):
             t = arrs[kind][ti]
             part = tk.unit_table_partials(kind, e, t, x, ncols, ex.nrows,
                                           x2)[0].reshape(-1)
-            src = F.pad(part, (0, e[4][3] - part.shape[0])).view(-1, 128)
-            fs = t["fscatter"]
-            for i, m in enumerate(e[4][1]):
-                g1_insts.append((fs, i, m))
-                g1_args.append((padded(src, m), fs[f"g1_{i}"][None]))
-    if g1_args:
+            streams.append((F.pad(part, (0, e[4][3] - part.shape[0])),
+                            t["fscatter"], e[4][1]))
+        if fall is None:
+            for bi, e in fblk_tables(meta):
+                streams += [(blk[(bi, r)], arrs["blocks"][bi][f"fb_{r}"],
+                             inst) for r, (inst, _res, _m)
+                            in enumerate(e[5][1])]
+        for flat, w, inst in streams:
+            src = flat.view(-1, 128)
+            for i, m in enumerate(inst):
+                g1_insts.append((w, i, m))
+                g1_args.append((padded(src, m), w[f"g1_{i}"][None]))
+    if g1_args or scatter_args:
         insts += g1_insts
         a1s += run("lane_gather", troute.lane_gather,
-                   troute.lane_gather_plain, g1_args)
-    a1ts = run("t1", tf.t1, tf.t1_plain,
-               [(a1, m[2]) for a1, (_w, _i, m) in zip(a1s, insts)])
-    e1s = run("k2", tf.k2, tf.k2_plain,
-              [(a1t, w[f"g2a_{i}"], w[f"g2b_{i}"], w[f"g2c_{i}"], m[6], D2R)
-               for a1t, (w, i, m) in zip(a1ts, insts)])
-    g3s = [w[f"g3_{i}"] for w, i, _m in insts]
-    dia_offs, anti_offs = extras.get("k3dias", ((), ()))
-    dias = (arrs.get("dias_fused_dv"), tuple(dia_offs),
-            arrs.get("dias_fused_adv"),
-            tuple(ncols - 1 - s for s in anti_offs),
-            tf._to_blocks(x)[0] if dia_offs else None,
-            tf._to_blocks(torch.flip(x, (-1,)))[0] if anti_offs else None)
-    step = tf.MAX_INSTANCES
-    run("k3", tf.k3, tf.k3_plain,
-        [(e1s[s:s + step], g3s[s:s + step],
-          *(dias if s == 0 else (None, (), None, (), None, None)), ncols,
-          D2R) for s in range(0, max(len(insts), 1), step)], exact=False)
-    say_kernels(res, label)
-    return res
-
-
-def pages_kernel_phase(ex, x, label, timed=True):
-    """Each kernel of a non-fused path against its plain version, on the
-    plan's arrays at the main path's shapes: the DIA kernel per standalone
-    DIA table (in its zero-padded x frame), the delta-pages product over
-    the shared page grid, the paged-units kernel and the unit-page gather
-    per paged table (``unit_kernels``).  All must be bit-equal.  Returns
-    {name: entry} (``check_kernel``)."""
-    from sparsex_tpu_torch.ops import kernels as tk
-    from sparsex_tpu_torch.ops import pallas_kernels as tpk
-
-    meta, arrs = ex.meta, ex.arrays
-    nrows, ncols = ex.nrows, ex.ncols
-    extras = extras_of(meta)
-    res = {}
-    if meta[4] and "k3dias" not in extras:
-        args = []
-        for offs, dv, xs in tk.dia_tables(meta[4], arrs["dias"], x, ncols):
-            xp, pad_lo = tpk.dia_frame(offs, xs, nrows, ncols)
-            args.append((dv, xp, offs, pad_lo))
-        check_kernel(res, label, timed, "dia", tpk.dia, tpk.dia_plain, args)
-    x2 = tk.paged_grid(meta, x, ncols)
-    if "dpages" in extras:
-        rep = arrs["delta_pages"]
-        check_kernel(res, label, timed, "delta_pages", tpk.delta_pages,
-                     tpk.delta_pages_plain, [(rep["plo"], rep["sl"],
-                                              rep["vals"], x2,
-                                              extras["dpages"][1])])
-    unit_kernels(res, ex, x, label, timed)
+                   troute.lane_gather_plain,
+                   g1_args + scatter_args)[:len(g1_args)]
+    if insts:
+        a1ts = run("t1", tf.t1, tf.t1_plain,
+                   [(a1, m[2]) for a1, (_w, _i, m) in zip(a1s, insts)])
+        e1s = run("k2", tf.k2, tf.k2_plain,
+                  [(a1t, w[f"g2a_{i}"], w[f"g2b_{i}"], w[f"g2c_{i}"], m[6],
+                    D2R) for a1t, (w, i, m) in zip(a1ts, insts)])
+    if insts or "k3dias" in extras:
+        g3s = [w[f"g3_{i}"] for w, i, _m in insts]
+        dia_offs, anti_offs = extras.get("k3dias", ((), ()))
+        dias = (arrs.get("dias_fused_dv"), tuple(dia_offs),
+                arrs.get("dias_fused_adv"),
+                tuple(ncols - 1 - s for s in anti_offs),
+                tf._to_blocks(x)[0] if dia_offs else None,
+                tf._to_blocks(torch.flip(x, (-1,)))[0] if anti_offs
+                else None)
+        step = tf.MAX_INSTANCES
+        run("k3", tf.k3, tf.k3_plain,
+            [(e1s[s:s + step] if insts else [], g3s[s:s + step],
+              *(dias if s == 0 else (None, (), None, (), None, None)),
+              ncols, D2R) for s in range(0, max(len(insts), 1), step)],
+            exact=False)
     say_kernels(res, label)
     return res
 
@@ -1215,10 +1351,10 @@ def report(label, mat, res, timing, profiled):
 
 def kernel_entries(res, counts, prof, label, extra=None):
     """The ``kernels`` JSON entries of one timed path, for each kernel that
-    the path launched (the unit-page gather, held against its plain
-    version beside the paged-units kernel, is no longer on a path):
-    ``ms_in_spmv`` is the profile's device time per SpMV (per SpMM on an
-    SpMM path); ``extra`` adds keys per kernel name."""
+    the path launched (the unit-page gather checked off the path, on the
+    paged tables' windows, is left out): ``ms_in_spmv`` is the profile's
+    device time per SpMV (per SpMM on an SpMM path); ``extra`` adds keys
+    per kernel name."""
     return [{"name": f"{name}[{label}]", "route": "cuda",
              "source": SOURCE.get(name, FUSED_SOURCE),
              "replaces": REPLACES[name], "launches": counts[name],
@@ -1239,7 +1375,7 @@ def spmm_phase(spx, tf, mat, rows, cols, vals, k, label, tol, timed, spmv):
 
     On a fused plan (``fused_mm_ok``) first each k-batched kernel against
     its plain version, fed one chunk of X as the SpMM feeds it
-    (``fused_kernel_phase`` on the k-major X.T[:8]).  Then two SpMMs
+    (``kernel_phase`` on the k-major X.T[:8]).  Then two SpMMs
     (alpha=1/beta=0, alpha=2/beta=0.5 with a Y) against the float64 COO
     oracle; the first one's launch counts (warm-up and capture of the
     executor's ("mm", k) graph) twice ``expected_counts(meta, k)``:
@@ -1262,7 +1398,7 @@ def spmm_phase(spx, tf, mat, rows, cols, vals, k, label, tol, timed, spmv):
                          dtype=ex.dtype, device=mat.device)
     res = {}
     if fused_mm_ok(ex.meta):
-        res = fused_kernel_phase(ex, X.T[:tf.MAX_KB].contiguous(), lab,
+        res = kernel_phase(ex, X.T[:tf.MAX_KB].contiguous(), lab,
                                  timed, MM_LOOPS, MM_OUTER)
     xh = X.double().cpu().numpy()
     v64 = vals.astype(np.float64)
@@ -1410,18 +1546,19 @@ def x_for(mat, n, dtype_name):
 
 
 def run_path(spx, tf, label, n, rows, cols, vals, dtype_name, tol, check,
-             phase, timed=True, spmm=()):
-    """One path in one value type: tune, check the plan, each kernel
-    against its plain version, the SpMV against the oracle with its launch
-    counts, and when ``timed`` the times and a profile; then on the same
-    tuned matrix one ``spmm_phase`` per (k, timed) in ``spmm``.  Returns
-    ({label: summary}, kernel entries) of the timed parts."""
+             options=(), timed=True, spmm=()):
+    """One path in one value type: tune (under the extra ``options``),
+    check the plan, each kernel against its plain version
+    (``kernel_phase``), the SpMV against the oracle with its launch counts,
+    and when ``timed`` the times and a profile; then on the same tuned
+    matrix one ``spmm_phase`` per (k, timed) in ``spmm``.  Returns ({label:
+    summary}, kernel entries) of the timed parts."""
     import torch
     t0 = time.perf_counter()
-    mat = tune(spx, rows, cols, vals, n, dtype_name, label)
+    mat = tune(spx, rows, cols, vals, n, dtype_name, label, options)
     ex = check(mat, label)
     x = x_for(mat, n, dtype_name)
-    res = phase(ex, x, label, timed)
+    res = kernel_phase(ex, x, label, timed)
     timing = e2e_phase(spx, tf, mat, rows, cols, vals, x, tol, label, timed)
     summary, entries = {}, []
     if timed:
@@ -1659,49 +1796,53 @@ def main():
     # k-batched chunk (bench.py's SpMM figure), k = 11 two chunks (8 + 3)
     both, f32 = ("float32", "float64"), ("float32",)
     mm8 = ((8, True, both),)
-    # (label, rows of the matrix, its builder, plan check, kernel phase,
-    # value types to run, timed, SpMMs)
+    # (label, rows of the matrix, its builder, plan check, extra tune
+    # options, value types to run, timed, SpMMs)
     paths = (
-        ("", N, lambda: build_matrix(N), check_plan, fused_kernel_phase,
-         tols, True, mm8 + ((11, False, f32),)),
+        ("", N, lambda: build_matrix(N), check_plan, (), tols, True,
+         mm8 + ((11, False, f32),)),
         ("blocky ", N_BLOCKY, lambda: build_blocky_matrix(N_BLOCKY),
-         check_blocky_plan, fused_kernel_phase, tols, True, mm8),
+         check_blocky_plan, (), tols, True, mm8),
         ("blocky 2^19 ", N_BLOCKY_CHECK,
          lambda: build_blocky_matrix(N_BLOCKY_CHECK),
-         check_masked_blocky_plan, fused_kernel_phase, tols[:1], True,
+         check_masked_blocky_plan, (), tols[:1], True,
          ((8, True, f32), (3, False, f32))),
         ("wide-run 2^21 W=16 ", N_DENSE, lambda: wide_run_matrix(N_DENSE, 16),
-         check_dense_plan("run16"), fused_kernel_phase, tols, True, mm8),
+         check_dense_plan("run16"), (), tols, True, mm8),
         ("lane-skew 2^21 ", N_DENSE, lambda: lane_skew_matrix(N_DENSE),
-         check_dense_plan("sl"), fused_kernel_phase, tols, True, mm8),
+         check_dense_plan("sl"), (), tols, True, mm8),
         ("fs-run 2^21 W=5 ", N_DENSE, lambda: wide_run_matrix(N_DENSE, 5),
-         check_fs_plan("runs"), fused_kernel_phase, tols, True,
-         ((8, True, f32),)),
+         check_fs_plan("runs"), (), tols, True, ((8, True, f32),)),
         ("fs-block 3x2^19 ", N_FS_BLOCK, lambda: block3_matrix(N_FS_BLOCK),
-         check_fs_plan("blocks"), fused_kernel_phase, tols, True,
-         ((8, False, f32),)),
+         check_fs_plan("blocks"), (), tols, True, ((8, False, f32),)),
         ("overlap-run 2^16 W=16 ", N_OVERLAP,
-         lambda: overlap_run_matrix(N_OVERLAP), check_overlap_plan,
-         fused_kernel_phase, tols, False, ()),
+         lambda: overlap_run_matrix(N_OVERLAP), check_overlap_plan, (),
+         tols, False, ()),
         ("wide-run 2^19 W=128 ", N_RUN128,
          lambda: wide_run_matrix(N_RUN128, 128), check_dense_plan("run128"),
-         fused_kernel_phase, tols[:1], False, ()),
+         (), tols[:1], False, ()),
+        ("headline-nofuse 2^20 ", N, lambda: build_matrix(N),
+         check_nofuse_plan("headline"), NO_FUSE, tols, True,
+         ((2, False, f32),)),
+        ("blocky-nofuse 2^20 ", N, lambda: build_blocky_matrix(N),
+         check_nofuse_plan("blocky"), NO_FUSE, tols, True,
+         ((2, False, f32),)),
         ("hpcg 128^3 ", HPCG_NX ** 3, lambda: hpcg_matrix(HPCG_NX)[1:],
-         lambda m, lb: check_pages_plan(m, "hpcg", lb), pages_kernel_phase,
-         tols, True, ((2, False, f32),)),
+         lambda m, lb: check_pages_plan(m, "hpcg", lb), (), tols, True,
+         ((2, False, f32),)),
         ("headline 2^22 ", N_BIG, lambda: build_matrix(N_BIG),
-         lambda m, lb: check_pages_plan(m, "headline", lb),
-         pages_kernel_phase, tols, True, ((2, False, f32),)),
+         lambda m, lb: check_pages_plan(m, "headline", lb), (), tols, True,
+         ((2, False, f32),)),
         ("blocky 2^22 ", N_BIG, lambda: build_blocky_matrix(N_BIG),
-         lambda m, lb: check_pages_plan(m, "blocky", lb),
-         pages_kernel_phase, tols, True, ()),
+         lambda m, lb: check_pages_plan(m, "blocky", lb), (), tols, True,
+         ()),
     )
-    for prefix, n, build, check, phase, types, timed, mms in paths:
+    for prefix, n, build, check, options, types, timed, mms in paths:
         rows, cols, vals = build()
         for dtype_name, tol in types:
             label = prefix + dtype_name
             s, k = run_path(spx, tf, label, n, rows, cols, vals, dtype_name,
-                            tol, check, phase, timed,
+                            tol, check, options, timed,
                             [(kk, t) for kk, t, dts in mms
                              if dtype_name in dts])
             summary.update(s)

@@ -11,16 +11,28 @@
 // int32 for the unit plans.  On the TPU the window's q pages are streamed
 // into VMEM and each element is picked with q * 8 lane shuffles and
 // selects, because a (8, 128) VREG shuffle is Mosaic's only vector gather.
-// On the card the window is just an offset: one thread per element reads
+// On the card the window is just an offset: the element reads
 //   x2flat[plo[t] * 1024 + sl]
-// straight from the zero-padded page grid x2 through L1/L2 (a tile's window
-// is at most q * 4 KB of f32, shared by the tile's 1024 threads), and 0
-// where sl is outside [0, q * 1024), as the Pallas kernels' selects give 0.
-// Both kernels are bound by the bytes of their streams (sl, vals, output),
-// read and written once, coalesced.
+// from the zero-padded page grid x2, and 0 where sl is outside
+// [0, q * 1024), as the Pallas kernels' selects give 0.  Both kernels are
+// bound by the bytes of their streams (sl, vals, output), read and written
+// once, and the distinct x values the windows hold.
 //
-//   delta_pages_kernel:  out[e] = vals[e] * x  (one multiply, no sum)
+//   delta_pages_kernel:  out[e] = vals[e] * x  (one multiply, no sum; one
+//                        thread per element, x through L1/L2)
 //   paged_gather_kernel: out[e] = x           (a copy: bit-exact)
+//
+// paged_gather_kernel (the fblk chain's gather, kernels.py:607-621) runs a
+// block per tile, each thread on V = 16 / sizeof(T) consecutive elements (4
+// in f32, 2 in f64): it reads its V offsets as one vector (16 or 8 bytes of
+// int32, 8 or 4 of int16), issues its V gathers from the tile's window at
+// once, through L1, which the block's threads share (a window is at most
+// q * 4 KB of f32), and writes its values with one 16-byte streaming store.
+// One thread a scattered 4-byte load, as before, left it slower than
+// torch.take; staging the whole window in shared memory with cp.async
+// first read up to q times the tile's distinct x values and was slower than
+// this in both types on blocky 2^22 (PERF.md).  The launcher refuses sl off
+// its vector boundary, out off 16 bytes, or q outside 1..16: CUDA error 1.
 //
 // paged_units_kernel takes a paged run or block table's pageable prefix a
 // step further: the gather, the multiply by the table's values and each
@@ -82,15 +94,59 @@ __global__ void delta_pages_kernel(const int32_t* __restrict__ plo,
   out[e] = mul_rn(window_x(plo, sl, x2, e, win), vals[e]);
 }
 
+// A thread's V consecutive window offsets (V = 16 / sizeof(T): 4 in f32, 2
+// in f64, the values of its one 16-byte store), loaded as one vector that
+// streams past the caches (each offset is read once).
+__device__ __forceinline__ void load_offsets(const int32_t* p, int (&s)[4]) {
+  const int4 v = __ldcs(reinterpret_cast<const int4*>(p));
+  s[0] = v.x; s[1] = v.y; s[2] = v.z; s[3] = v.w;
+}
+
+__device__ __forceinline__ void load_offsets(const int32_t* p, int (&s)[2]) {
+  const int2 v = __ldcs(reinterpret_cast<const int2*>(p));
+  s[0] = v.x; s[1] = v.y;
+}
+
+__device__ __forceinline__ void load_offsets(const int16_t* p, int (&s)[4]) {
+  const int2 v = __ldcs(reinterpret_cast<const int2*>(p));
+  s[0] = (int16_t)(v.x & 0xFFFF); s[1] = (int16_t)((unsigned)v.x >> 16);
+  s[2] = (int16_t)(v.y & 0xFFFF); s[3] = (int16_t)((unsigned)v.y >> 16);
+}
+
+__device__ __forceinline__ void load_offsets(const int16_t* p, int (&s)[2]) {
+  const int v = __ldcs(reinterpret_cast<const int*>(p));
+  s[0] = (int16_t)(v & 0xFFFF); s[1] = (int16_t)((unsigned)v >> 16);
+}
+
+// A thread's values as one 16-byte streaming store.
+__device__ __forceinline__ void store_values(float* p, const float (&v)[4]) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+}
+
+__device__ __forceinline__ void store_values(double* p, const double (&v)[2]) {
+  __stcs(reinterpret_cast<double2*>(p), make_double2(v[0], v[1]));
+}
+
+// One block per tile, V elements a thread (a block of 1024 / V threads):
+// the thread's offsets as one vector, its V gathers from the tile's window
+// (q * 1024 values, contiguous in x2 from plo[t] * 1024, which the block's
+// threads share through L1) all in flight at once, its values as one
+// 16-byte store.
 template <typename T, typename S>
-__global__ void paged_gather_kernel(const int32_t* __restrict__ plo,
-                                    const S* __restrict__ sl,
-                                    const T* __restrict__ x2,
-                                    T* __restrict__ out, long long n_elems,
-                                    int win) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n_elems) return;
-  out[e] = window_x(plo, sl, x2, e, win);
+__global__ void __launch_bounds__(PAGE * sizeof(T) / 16)
+paged_gather_kernel(const int32_t* __restrict__ plo, const S* __restrict__ sl,
+                    const T* __restrict__ x2, T* __restrict__ out, int win) {
+  constexpr int V = 16 / sizeof(T);
+  const long long t = blockIdx.x;
+  const T* src = x2 + (long long)plo[t] * PAGE;
+  const long long e = t * PAGE + V * threadIdx.x;
+  int s[V];
+  load_offsets(sl + e, s);
+  T v[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    v[j] = (s[j] >= 0 && s[j] < win) ? __ldg(src + s[j]) : T(0);
+  store_values(out + e, v);
 }
 
 // One block per tile: win = q * 1024 values of the window, staged from
@@ -163,21 +219,23 @@ template <typename T>
 int launch_paged_gather(const void* plo, const void* sl, const void* x2,
                         void* out, long long T_tiles, int q, int sl_bytes,
                         void* stream) {
-  const long long n = T_tiles * PAGE;
-  if (n == 0) return (int)cudaGetLastError();
-  if (sl_bytes == 2) {
-    paged_gather_kernel<T, int16_t>
-        <<<n_blocks(n), THREADS, 0, (cudaStream_t)stream>>>(
-            (const int32_t*)plo, (const int16_t*)sl, (const T*)x2, (T*)out,
-            n, q * PAGE);
-  } else if (sl_bytes == 4) {
-    paged_gather_kernel<T, int32_t>
-        <<<n_blocks(n), THREADS, 0, (cudaStream_t)stream>>>(
-            (const int32_t*)plo, (const int32_t*)sl, (const T*)x2, (T*)out,
-            n, q * PAGE);
-  } else {
+  // a thread's offsets are one vector load, its values one 16-byte store
+  constexpr int V = 16 / sizeof(T);
+  const uintptr_t sl_align = (uintptr_t)(V * sl_bytes) - 1;
+  if (q < 1 || q > 16 || (sl_bytes != 2 && sl_bytes != 4) ||
+      ((uintptr_t)sl & sl_align) || ((uintptr_t)out & 15))
     return (int)cudaErrorInvalidValue;
-  }
+  if (T_tiles == 0) return (int)cudaGetLastError();
+  const unsigned grid = (unsigned)T_tiles;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (sl_bytes == 2)
+    paged_gather_kernel<T, int16_t><<<grid, PAGE / V, 0, st>>>(
+        (const int32_t*)plo, (const int16_t*)sl, (const T*)x2, (T*)out,
+        q * PAGE);
+  else
+    paged_gather_kernel<T, int32_t><<<grid, PAGE / V, 0, st>>>(
+        (const int32_t*)plo, (const int32_t*)sl, (const T*)x2, (T*)out,
+        q * PAGE);
   return (int)cudaGetLastError();
 }
 

@@ -48,15 +48,15 @@ __device__ __forceinline__ void store4(double* p, const double (&v)[4]) {
 // and its 4 wires of plane 0 (one 4-byte word) together, so neither load
 // waits on the other, and puts the values in the warp's own shared row;
 // after one __syncwarp it reads its gathered values there and stores its 4
-// sums as one 16-byte vector.  Planes k > 0 (no path has them) load after
-// the row.  The one-thread-one-output kernel it replaced made every x read
-// wait on its 1-byte wire load from device memory and moved 1 and 4 bytes
-// an instruction.  Now the shared-row gather costs nothing measurable and
-// the output stores take about 40 % of the time (PERF.md).  The wires are
-// read once and stream past the caches; x and the output use the default
-// cache policy (streaming them gained nothing alone and cost the SpMV:
-// T1 reads the output next).  Two rows a warp, and 4 or 16 warps a block,
-// measured no faster.
+// sums as one 16-byte vector.  Planes k > 0 (the g3 planes of a legacy
+// scatter route) load after the row.  The one-thread-one-output kernel it
+// replaced made every x read wait on its 1-byte wire load from device memory
+// and moved 1 and 4 bytes an instruction.  Now the shared-row gather costs
+// nothing measurable and the output stores take about 40 % of the time
+// (PERF.md).  The wires are read once and stream past the caches; x and the
+// output use the default cache policy (streaming them gained nothing alone
+// and cost the SpMV: T1 reads the output next).  Two rows a warp, and 4 or
+// 16 warps a block, measured no faster.
 constexpr int LG_WARPS = 8;                   // rows (warps) a block
 constexpr int LG_THREADS = LG_WARPS * 32;
 

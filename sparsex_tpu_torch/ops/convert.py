@@ -14,9 +14,12 @@ instances the planner bakes K2's batched-transpose lane offset into
 ``g2b`` (``fused._g2b_lane_offset``), which the CUDA K2 does not use, so
 the offset is taken off again, in the delta pipeline's, each fused run
 table's, the merged plan's and each partial-segment route's (``fscatter``)
-instances.  The planner keeps raw um2 targets
-below ``ceil8(A2R)`` (``route.py:274-281``), so
-``raw = g2b - (c % _k2_gba(A2R)) * ceil8(A2R)`` is exact.
+instances and each fblk block-row segment's (``fb_{r}``).  The planner
+keeps raw um2 targets below ``ceil8(A2R)`` (``route.py:274-281``), so
+``raw = g2b - (c % _k2_gba(A2R)) * ceil8(A2R)`` is exact.  A legacy scatter
+plan (``route.build_scatter_plan``: the paged delta's ``delta_scatter`` and
+a routed table's ``scatter``) keeps its raw wires, each array shaped (K, R,
+128) as the lane gather takes it.
 """
 
 from __future__ import annotations
@@ -34,12 +37,13 @@ _INDEX_KEYS = frozenset((
     "res_cols_u", "tail_rows", "tail_cols",              # frun
     "rows", "cols", "row_ids",                           # plain tables
     "dres_cols", "dres_dest",                            # fall
-    "res_pos"))                                          # fs residuals
+    "res_pos"))                                   # fs / fb_{r} residuals
 
 
 def _is_index(key: str) -> bool:
-    return key in _INDEX_KEYS or (key.startswith("rres_")
-                                  and key.endswith(("_cols", "_dest")))
+    return key in _INDEX_KEYS or (
+        key.startswith("rres_") and key.endswith(("_cols", "_dest"))) or (
+        key.startswith("bres_") and key.endswith(("_pos", "_dest")))
 
 
 def g2b_raw(g2b: np.ndarray, A2R: int) -> np.ndarray:
@@ -168,17 +172,90 @@ def _check_pages(pages_meta, pages_arrays, nrows: int) -> None:
             raise ValueError(f"delta_pages rows outside [0, {nrows}]")
 
 
+def _scatter_plans(pages_meta, pages_arrays):
+    """(name, metas, arrays, source length) of every legacy scatter plan
+    (``route.build_scatter_plan``) of the plan: the ``dscatter`` route of
+    the paged delta stream's products and each routed run or block table's
+    (its partials, padded to M_pad)."""
+    extras = {e[0]: e[1:] for e in pages_meta[5:] if e}
+    plans = []
+    if "dscatter" in extras:
+        plans.append(("delta_scatter", extras["dscatter"][0],
+                      pages_arrays["delta_scatter"],
+                      extras["dpages"][0] * 1024))
+    for kind, metas, key in (("run", pages_meta[2], "runs"),
+                             ("block", pages_meta[3], "blocks")):
+        for i, (entry, t) in enumerate(zip(metas, pages_arrays.get(key,
+                                                                   ()))):
+            if len(entry) > 4 and entry[4] and "scatter" in t:
+                plans.append((f"{kind} {i} scatter", entry[4][0],
+                               t["scatter"], entry[4][2]))
+    return plans
+
+
+def _check_scatter_plans(pages_meta, pages_arrays, nrows: int) -> None:
+    """The lane gathers of a legacy scatter plan read whole rows of the
+    shapes the route metas give, and the residual adds index the source
+    stream: every instance's wires must have those shapes and take source
+    rows inside the stream, every residual position must lie in the stream
+    and every residual row in [0, nrows)."""
+    for name, metas, plan, n_src in _scatter_plans(pages_meta, pages_arrays):
+        for i, (m, arrs) in enumerate(zip(metas, plan["chunks"])):
+            S1c, S1p, A2R, D2R, Dp, K, W2, a0, a1 = m[:9]
+            want = {"g1": (S1p, L), "g2a": (L * A2R, L),
+                    "g2b": (L * W2, L), "g2c": (L * D2R, L),
+                    "g3": (K, Dp, L)}
+            got = {k: tuple(np.shape(arrs[k])) for k in want}
+            if got != want or a1 - a0 != S1c or a1 * L > n_src:
+                raise ValueError(f"{name} instance {i}: wires {got}, rows "
+                                 f"{a0}:{a1} of {n_src // L}, expected "
+                                 f"{want}")
+        if len(plan["chunks"]) != len(metas):
+            raise ValueError(f"{name}: {len(plan['chunks'])} wire sets for "
+                             f"{len(metas)} route instances")
+        pos = np.asarray(plan["res_pos"], dtype=np.int64)
+        dest = np.asarray(plan["res_dest"], dtype=np.int64)
+        if pos.shape != dest.shape or (pos.size and (
+                pos.min() < 0 or pos.max() >= n_src or dest.min() < 0
+                or dest.max() >= nrows)):
+            raise ValueError(f"{name}: residuals outside the {n_src}-value "
+                             f"stream or the rows [0, {nrows})")
+
+
+def _upload_scatter(plan, device) -> Dict[str, object]:
+    """A legacy scatter plan: each instance's wires as the lane gather
+    takes them, (K, R, 128) int8 (K = 1 but for g3), the residuals int64."""
+    return {"chunks": [{k: _upload(np.asarray(a).reshape(
+                            (-1,) + np.shape(a)[-2:]), device)
+                        for k, a in arrs.items()}
+                       for arrs in plan["chunks"]],
+            "res_pos": _upload(np.asarray(plan["res_pos"]), device,
+                               torch.int64),
+            "res_dest": _upload(np.asarray(plan["res_dest"]), device,
+                                torch.int64)}
+
+
 def _upload_table(entry, t, device, dtype) -> Dict[str, object]:
     """One run or block table's arrays; the instances of a fused run table
-    (``frun``) and of a partial-segment route (``fscatter``) take their
-    raw g2b wires."""
+    (``frun``), of a partial-segment route (``fscatter``) and of an fblk
+    table's block-row segments (``fb_{r}``) take their raw g2b wires, a
+    legacy scatter plan (``scatter``) the lane gather's wire form."""
+    special = ("frun", "fscatter", "scatter")
     up = _upload_tree({k: v for k, v in t.items()
-                       if k not in ("frun", "fscatter")}, device, dtype)
+                       if k not in special and not k.startswith("fb_")},
+                      device, dtype)
     if "frun" in t:
         up["frun"] = _upload_tree(t["frun"], device, dtype, entry[5][1][3])
     if "fscatter" in t:
         up["fscatter"] = _upload_tree(t["fscatter"], device, dtype,
                                       entry[4][1])
+    if "scatter" in t:
+        up["scatter"] = _upload_scatter(t["scatter"], device)
+    if len(entry) > 5 and entry[5] and entry[5][0] == "fblk":
+        for r, (inst, _res, _m_pad) in enumerate(entry[5][1]):
+            if f"fb_{r}" in t:     # not merged into the fall plan
+                up[f"fb_{r}"] = _upload_tree(t[f"fb_{r}"], device, dtype,
+                                             inst)
     return up
 
 
@@ -195,6 +272,7 @@ def plan_to_torch(pages_meta, pages_arrays, device,
     extras = {e[0]: e[1:] for e in pages_meta[5:] if e}
     _check_windows(pages_meta, pages_arrays)
     _check_pages(pages_meta, pages_arrays, pages_meta[0])
+    _check_scatter_plans(pages_meta, pages_arrays, pages_meta[0])
     out: Dict[str, object] = {}
     if "dfused" in extras:
         out["fused"] = _upload_tree(pages_arrays["fused"], device, dtype,
@@ -208,6 +286,9 @@ def plan_to_torch(pages_meta, pages_arrays, device,
     if "dpages" in extras:
         out["delta_pages"] = _upload_tree(pages_arrays["delta_pages"],
                                           device, dtype)
+    if "dscatter" in extras:
+        out["delta_scatter"] = _upload_scatter(pages_arrays["delta_scatter"],
+                                               device)
     delta = pages_arrays.get("delta")
     out["delta"] = (None if delta is None
                     else _upload_tree(delta, device, dtype))

@@ -15,7 +15,9 @@ end:
   :78-127), through the DIA kernel;
 - the shared ``x2`` page grid of every legacy paged consumer (:392-402,
   ``paged_grid``) and ``dpages``, the page-bucketed delta product and its
-  scatter-add (:403-422, without ``dscatter``);
+  scatter-add, or its products through their scatter route ``dscatter``
+  (:403-422, ``route.apply_scatter_plan``: five lane gathers per route
+  instance) and the route's residual adds;
 - the plain delta singles (gather + segment sum, :454-459);
 - ``frun`` fused run tables (:541-569; K1 ``rlp{W}`` or ``run{W}``) and
   the plain or paged run tables (:570-588), their partials through the
@@ -23,20 +25,26 @@ end:
   :471-491 and the sums, in one kernel); ``cvt`` tables are skipped
   (:536-540, :603-606);
 - the plain or paged block tables (:647-665), likewise;
+- ``fblk`` fused block tables (:607-646): the unit-page gather of x in
+  grid form, per block row the products and a log-step lane-roll sum
+  (``fblk_streams``), each row's stream through its own routed segment
+  (as ``fs``) or the merged plan, the unpageable tail by an einsum;
 - a run or block table's partial-segment route ``fs`` (``_scatter_partials``
   :493-515: G1 lane gather, T1 and K2 per instance into the shared K3, its
-  residuals in ``k3_post``); the other tables scatter-add;
-- the ``fall`` merged plan over the trimmed, concatenated K1 outputs of
-  its segments (``merged_source``) with its ``dres`` / ``rres`` residuals
-  (:684-716);
+  residuals in ``k3_post``) or its legacy scatter plan (:516-528, through
+  ``route.apply_scatter_plan``); the other tables scatter-add;
+- the ``fall`` merged plan over the trimmed, concatenated K1 outputs and
+  fblk block-row streams of its segments (``merged_source``) with its
+  ``dres`` / ``rres`` / ``bres`` residuals (:684-716);
 - the shared K3 with the ``k3dias`` DIA tables, then the ``k3_post`` adds
   (:718-734).
 
 A k-major x (k, ncols) runs the same composition with every kernel in its
 k-batched variant (``fused_mm_ok`` / ``fused_mm_contrib``,
-kernels.py:739-916): plans with a fused segment only, no paged delta or
-standalone DIA table; a paged run or block table's units are gathered by
-a clipped take there, as the reference's SpMM does.
+kernels.py:739-916): plans with a fused segment only, no paged delta,
+fblk table or standalone DIA table; a paged run or block table's units
+are gathered by a clipped take there and scatter-added, as the
+reference's SpMM does.
 
 Every other table class or extra raises ``NotImplementedError`` naming the
 ROADMAP.md queue item that ports it; nothing runs silently by another
@@ -53,15 +61,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sparsex_tpu_torch.ops.fused import (MAX_KB, add_products, add_totals,
-                                         fused_delta_a1, fused_delta_e1s,
+from sparsex_tpu_torch.ops.fused import (MAX_KB, L, add_products,
+                                         add_totals, fused_delta_a1,
+                                         fused_delta_e1s,
                                          fused_run_a1, fused_run_e1s,
                                          instances_overlap, k1_style,
                                          k3_combine, merged_e1s,
                                          partial_segment_e1s)
-from sparsex_tpu_torch.ops.pallas_kernels import (delta_pages_spmv,
+from sparsex_tpu_torch.ops.pallas_kernels import (delta_pages_products,
+                                                  delta_pages_spmv,
                                                   dia_spmv, pad_x_pages,
-                                                  page_grid, paged_units)
+                                                  page_grid,
+                                                  paged_gather_grid,
+                                                  paged_units)
+from sparsex_tpu_torch.ops.route import apply_scatter_plan
 from sparsex_tpu_torch.preprocess.encodings import EncType
 from sparsex_tpu_torch.preprocess.tables import CsxTables
 from sparsex_tpu_torch.preprocess.xform import run_step
@@ -101,11 +114,7 @@ def tables_to_arrays(tables: CsxTables) -> Dict[str, Any]:
 # table classes, extras and merged-plan parts of the reference executor ->
 # where their port is queued in ROADMAP.md
 _QUEUED = {
-    "fblk": "Queue 1 item 10 (the fblk chain)",
-    "blk": "Queue 1 item 10 (the fblk chain)",
-    "bres": "Queue 1 item 10 (bres residuals of the fblk chain)",
     "dpagesT": "Queue 1 item 8 (symmetric per-shard delta)",
-    "dscatter": "Queue 1 item 10 (dscatter, apply_scatter_plan)",
     "dscatterT": "Queue 1 item 8 (symmetric per-shard scatter)",
     "dsfused": "Queue 1 item 13 (stacked sharded fused delta)",
 }
@@ -121,15 +130,6 @@ def _kind(entry):
     """The execution class tag of a run/block entry (``cvt``, ``frun``,
     ``fblk``) or None for a plain table."""
     return entry[5][0] if len(entry) > 5 and entry[5] else None
-
-
-def _check_scatter(what: str, entry) -> None:
-    """A plain or paged unit table scatters through ``index_add_`` or its
-    partial-segment route (``fs``); a legacy scatter plan is refused."""
-    if len(entry) > 4 and entry[4] and entry[4][0] != "fs":
-        _refuse(f"a routed {what} table (legacy scatter plan)",
-                "Queue 1 item 10 (legacy routed scatters, "
-                "apply_scatter_plan)")
 
 
 def unmerged_overlapping_runs(meta):
@@ -148,15 +148,17 @@ def check_slice(meta) -> None:
     port runs.  ``meta`` is the executor's paged ``_pages_meta`` or, when
     the planner made none, its plain-table ``meta``.  Ported: fused delta
     and run segments in every K1 style (lane-placed ``lp`` / ``rlp{W}``,
-    dense-tile ``sl`` / ``run{W}``), their merged plan, DIA tables riding
-    K3 or standalone (static offsets), the legacy paged delta (``dpages``)
-    without its scatter route, plain delta singles, and plain or paged
-    (unit-page) run and block tables, scatter-added or routed through a
-    partial segment (``fs``)."""
+    dense-tile ``sl`` / ``run{W}``), fused block tables (``fblk``), their
+    merged plan with its ``dres`` / ``rres`` / ``bres`` residuals, DIA
+    tables riding K3 or standalone (static offsets), the legacy paged delta
+    (``dpages``) with or without its scatter route (``dscatter``), plain
+    delta singles, and plain or paged (unit-page) run and block tables,
+    scatter-added, routed through a partial segment (``fs``) or through a
+    legacy scatter plan."""
     _nr, _nc, run_meta, block_meta, dia_meta = meta[:5]
     extras = {e[0]: e[1:] for e in meta[5:] if e}
     for key in extras:
-        if key not in ("dfused", "k3dias", "fall", "dpages"):
+        if key not in ("dfused", "k3dias", "fall", "dpages", "dscatter"):
             _refuse(f"the {key!r} execution class",
                     _QUEUED.get(key, "Queue 1"))
     if "dfused" in extras:
@@ -179,23 +181,21 @@ def check_slice(meta) -> None:
             continue
         if kind is not None:
             _refuse(f"run table class {kind!r}", _QUEUED.get(kind, "Queue 1"))
-        _check_scatter("run", e)
     for e in block_meta:
         kind = _kind(e)
-        if kind == "cvt":
-            continue
-        if kind is not None:
+        if kind not in (None, "cvt", "fblk"):
             _refuse(f"block table class {kind!r}",
                     _QUEUED.get(kind, "Queue 1"))
-        _check_scatter("block", e)
     if "fall" in extras:
         segs, _inst, _bounds, res_desc = extras["fall"]
         for seg in segs:
-            if seg[0] not in ("delta", "run"):
-                _refuse(f"merged-plan segment {seg[0]!r}", _QUEUED[seg[0]])
+            if seg[0] not in ("delta", "run", "blk"):
+                _refuse(f"merged-plan segment {seg[0]!r}",
+                        _QUEUED.get(seg[0], "Queue 1"))
         for rd in res_desc:
-            if rd[0] not in ("dres", "rres"):
-                _refuse(f"merged-plan residual {rd[0]!r}", _QUEUED[rd[0]])
+            if rd[0] not in ("dres", "rres", "bres"):
+                _refuse(f"merged-plan residual {rd[0]!r}",
+                        _QUEUED.get(rd[0], "Queue 1"))
     if "k3dias" not in extras and any(offs is None
                                       for _a, offs, _n in dia_meta):
         _refuse("a DIA table with per-shard (dynamic) offsets",
@@ -354,8 +354,9 @@ def unit_table_partials(kind: str, entry, t, x, ncols: int,
 
 def _queue_partial_segment(scat, fs, partials, k3_pending, k3_post,
                            nrows_part: int):
-    """A table's partial-segment route (``fs``, kernels.py:502-515): the
-    flat partials, padded to M_pad, are the source of the route's instances
+    """A table's partial-segment route (``fs``, kernels.py:502-515), or an
+    fblk block row's segment (:622-628): the flat partials, padded to
+    M_pad, are the source of the route's instances
     (queued on ``k3_pending`` for the shared K3), their over-capacity
     residuals a ``take`` add on ``k3_post``."""
     _, inst_meta, has_res, m_pad = scat
@@ -367,12 +368,49 @@ def _queue_partial_segment(scat, fs, partials, k3_pending, k3_post,
         k3_post.append(("take", flat, fs["res_pos"], fs["res_dest"]))
 
 
-def merged_source(meta, arrs, x, ncols: int, x2f):
+def _routed_add(acc, metas, plan, flat, has_res: bool, nrows_part: int):
+    """``acc`` plus the flat stream ``flat`` scatter-added through a legacy
+    scatter plan (``route.apply_scatter_plan``: the ``dscatter`` route,
+    kernels.py:403-418, or a routed table's, :516-528), then its
+    over-capacity residuals ``flat[res_pos]`` added at ``res_dest`` in
+    place; ``acc`` None gives the routed sum itself."""
+    y = apply_scatter_plan(metas, plan["chunks"], flat, nrows_part)
+    acc = y if acc is None else acc + y
+    if has_res:
+        add_totals(acc, flat[plan["res_pos"]], plan["res_dest"])
+    return acc
+
+
+def fblk_streams(meta, arrs, x, ncols: int, x2):
+    """``{(bi, r): flat}``: the partial stream of block row r of each fused
+    block table ``bi`` (``fblk``, kernels.py:607-621): the unit-page gather
+    of the table's x values in (T, 8, 128) grid form (``x2`` the shared
+    page grid, :func:`paged_grid`), times ``valsg[r]``, then a width-bc
+    sliding lane sum by lane rolls of 1, 2, 4, ... < bc in the reference's
+    order, so each unit's bc products sum onto its last lane."""
+    out = {}
+    for bi, (entry, t) in enumerate(zip(meta[3], arrs["blocks"])):
+        if _kind(entry) != "fblk":
+            continue
+        bc = entry[2]
+        xgd = paged_gather_grid(entry[3], t["plan"], x, ncols, x2=x2)
+        for r, vg in enumerate(t["valsg"]):
+            prod = xgd * vg
+            d = 1
+            while d < bc:
+                prod = prod + torch.roll(prod, d, dims=2)
+                d *= 2
+            out[(bi, r)] = prod.reshape(-1)
+    return out
+
+
+def merged_source(meta, arrs, x, ncols: int, x2f, blk):
     """The merged (``fall``) plan's source grid (S, L): each segment's raw
-    K1 output (the delta bulk and tail, or a fused run table), trimmed to
-    its bound width (K1 outputs are padded to whole tile groups; the plan's
-    bounds use the unpadded grids), concatenated in the plan's segment
-    order (kernels.py:684-691); (k, S, L) for k-major x."""
+    K1 output (the delta bulk and tail, or a fused run table) or a fused
+    block table's block-row stream (from ``blk``, :func:`fblk_streams`),
+    trimmed to its bound width (K1 outputs are padded to whole tile
+    groups; the plan's bounds use the unpadded grids), concatenated in the
+    plan's segment order (kernels.py:684-691); (k, S, L) for k-major x."""
     extras = {e[0]: e[1:] for e in meta[5:] if e}
     segs, _inst, bounds, _res = extras["fall"]
     fall_pieces = []
@@ -380,9 +418,11 @@ def merged_source(meta, arrs, x, ncols: int, x2f):
         if seg[0] == "delta":
             a1 = fused_delta_a1(extras["dfused"][0], arrs["fused"], x, ncols,
                                 x2=x2f)
-        else:
+        elif seg[0] == "run":
             a1 = fused_run_a1(meta[2][seg[1]][5][1],
                               arrs["runs"][seg[1]]["frun"], x, ncols, x2=x2f)
+        else:
+            a1 = blk[seg[1:]].view(-1, L)
         fall_pieces.append(a1[..., : bounds[i + 1] - bounds[i], :])
     return (torch.cat(fall_pieces, dim=-2) if len(fall_pieces) > 1
             else fall_pieces[0])
@@ -420,10 +460,11 @@ def fused_mm_contrib(meta, arrs, xt, *, nrows_part: int, ncols: int):
 
 def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int):
     """The dense (nrows_part,) contribution of one partition: every fused
-    segment's K1 (the delta bulk and tail, each fused run table), then
-    either their per-segment T1 + K2 route instances or the merged plan's
-    (per-instance G1 lane gather + T1 + K2); the standalone DIA tables and
-    the paged delta stream; the plain and paged tables' adds; one K3 with
+    segment's K1 (the delta bulk and tail, each fused run table) and each
+    fblk table's block-row streams, then either their per-segment route
+    instances or the merged plan's (per-instance G1 lane gather + T1 +
+    K2); the standalone DIA tables and the paged delta stream, scatter-added
+    or routed; the plain and paged tables' adds; one K3 with
     the DIA tables that ride it, then the residual and spill adds.  A
     k-major x (k, ncols) of a :func:`fused_mm_ok` plan gives (k,
     nrows_part) through the same composition (:func:`fused_mm_contrib`)."""
@@ -448,10 +489,12 @@ def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int):
         raise ValueError("k-major x needs a plan with a fused segment and no "
                          "segment that runs once per column (fused_mm_ok)")
     x2f = shared_page_grid(meta, x, ncols)
-    if fall is not None:  # every fused segment's K1 feeds the merged plan
+    x2 = paged_grid(meta, x, ncols)      # shared by every paged consumer
+    blk = fblk_streams(meta, arrs, x, ncols, x2)
+    if fall is not None:  # every fused segment feeds the merged plan
         k3_pending += merged_e1s(fall[1], arrs["fall"],
-                                 merged_source(meta, arrs, x, ncols, x2f),
-                                 nrows_part)
+                                 merged_source(meta, arrs, x, ncols, x2f,
+                                               blk), nrows_part)
     if dfused is not None:
         fmeta, far = dfused[0], arrs["fused"]
         if fall is None:
@@ -464,16 +507,20 @@ def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int):
             k3_post.append(("prod", far["left_vals"], far["left_cols"],
                             far["left_rows"]))
 
-    dpages = extras.get("dpages")
-    if dpages is not None:
+    dpages, dscatter = extras.get("dpages"), extras.get("dscatter")
+    if dpages is not None and dscatter is None:
         # one spare slot past the rows takes the padding slots' sentinel
         # row nrows_part, which the reference drops
         base = torch.zeros(nrows_part + 1, dtype=x.dtype, device=x.device)
         acc = base[:nrows_part]
     if meta[4] and k3dias is None:       # standalone DIA tables
         acc = dia_contrib(meta[4], arrs["dias"], x, nrows_part, ncols, acc)
-    x2 = paged_grid(meta, x, ncols)      # shared by every paged consumer
-    if dpages is not None:
+    if dscatter is not None:   # the products through their scatter route
+        acc = _routed_add(acc, dscatter[0], arrs["delta_scatter"],
+                          delta_pages_products(dpages, arrs["delta_pages"],
+                                               x, ncols, x2=x2),
+                          dscatter[1], nrows_part)
+    elif dpages is not None:
         delta_pages_spmv(dpages, arrs["delta_pages"], x, nrows_part, ncols,
                          base, x2=x2)
 
@@ -500,25 +547,54 @@ def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int):
                 t["tail_vals"], t["tail_cols"], steps, x, ncols),
                 t["tail_rows"], None))
 
+    for bi, (entry, t) in enumerate(zip(meta[3], arrs["blocks"])):
+        if _kind(entry) != "fblk":
+            continue
+        # a fused block table (kernels.py:607-646): each block row's stream
+        # through a partial segment of its own, unless the merged plan took
+        # them all
+        _, seg_metas, n_tail = entry[5]
+        if fall is None:
+            for r, seg in enumerate(seg_metas):
+                _queue_partial_segment(("fs",) + seg, t[f"fb_{r}"],
+                                       blk[(bi, r)], k3_pending, k3_post,
+                                       nrows_part)
+        if n_tail:           # unpageable tail blocks
+            _enc, br, bc = entry[:3]
+            dev = str(x.device)
+            xt = x[(t["tail_cols"][:, None] + _steps(bc, 1, dev)).clamp(
+                0, ncols - 1)]
+            rows = (t["tail_rows"][:, None] + _steps(br, 1, dev)).clamp(
+                0, nrows_part - 1)
+            k3_post.append(("acc", torch.einsum(
+                "urc,uc->ur", t["tail_vals"], xt).reshape(-1),
+                rows.reshape(-1), None))
+
     for kind, metas in (("runs", run_meta), ("blocks", meta[3])):
         for entry, t in zip(metas, arrs[kind]):
-            if _kind(entry) is not None:   # cvt and frun, handled above
+            if _kind(entry) is not None:   # cvt, frun, fblk: handled above
                 continue
             # a plain or paged unit table: its partials through its
             # partial-segment route (the SpMV of an fs table; the
-            # reference's SpMM keeps the row scatter, kernels.py:497-501),
-            # else scatter-added, the pageable prefix's by the kernel
+            # reference's SpMM keeps the row scatter, kernels.py:497-501)
+            # or its legacy scatter plan, else scatter-added, the pageable
+            # prefix's by the kernel
             if acc is None:
                 acc = zeros()
-            scat = entry[4] if len(entry) > 4 else None
-            routed = (not lead and scat is not None and scat[0] == "fs"
-                      and "fscatter" in t)
+            scat = entry[4] if len(entry) > 4 and not lead else None
+            fs = scat is not None and scat[0] == "fs" and "fscatter" in t
+            legacy = scat is not None and not fs and "scatter" in t
             partials, dest = unit_table_partials(
                 kind, entry, t, x, ncols, nrows_part, x2,
-                None if routed else acc)
-            if routed:
+                None if fs or legacy else acc)
+            if fs:
                 _queue_partial_segment(scat, t["fscatter"], partials,
                                        k3_pending, k3_post, nrows_part)
+            elif legacy:
+                smetas, has_res, m_pad = scat
+                flat = partials.reshape(-1)
+                acc = _routed_add(acc, smetas, t["scatter"], F.pad(
+                    flat, (0, m_pad - flat.shape[0])), has_res, nrows_part)
             else:
                 add_totals(acc, partials.reshape(lead + (-1,)), dest)
 
@@ -528,6 +604,11 @@ def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int):
             if rd[0] == "dres":
                 k3_post.append(("prod", fa["dres_vals"], fa["dres_cols"],
                                 fa["dres_dest"]))
+            elif rd[0] == "bres":   # a merged block row's stream
+                bi, r = rd[1:]
+                k3_post.append(("take", blk[(bi, r)],
+                                fa[f"bres_{bi}_{r}_pos"],
+                                fa[f"bres_{bi}_{r}_dest"]))
             else:          # "rres": a merged run segment's unit totals
                 ri = rd[1]
                 steps = _run_steps(run_meta[ri], x.device)[1]

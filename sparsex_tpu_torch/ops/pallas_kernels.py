@@ -365,7 +365,10 @@ def delta_pages(plo, sl, vals, x2, q: int):
 
 def gather(plo, sl, x2, q: int):
     """The unit-page gather over a (T, 8, 128) tile stream, ``sl`` int16 or
-    int32; returns (T, 8, 128) x values."""
+    int32, 1 <= q <= 16; returns (T, 8, 128) x values.  The kernel reads a
+    thread's offsets (4 in f32, 2 in f64) as one vector and writes its
+    values with one 16-byte store: on the card an ``sl`` off that vector's
+    boundary, or q outside 1..16, raises (CUDA error 1)."""
     _value_dtype("x2", x2)
     dev = x2.device
     T = _check_pages(plo, sl, x2, q, (torch.int16, torch.int32), dev)
@@ -512,8 +515,7 @@ def delta_pages_spmv(rep_meta, rep, x, nrows_part: int, ncols: int, acc,
 
 def paged_gather_grid(plan_meta, plan, x, ncols: int, x2=None):
     """Gathered x in raw (T, 8, 128) grid form (element / tile order), as
-    the reference's fblk chain reads it (kernels.py:607-646, Queue 1 item
-    10)."""
+    the reference's fblk chain reads it (kernels.py:607-646)."""
     _T, q, _g, npages = plan_meta
     if x2 is None:
         x2 = pad_x_pages(x, ncols, q, npages)

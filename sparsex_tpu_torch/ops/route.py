@@ -8,6 +8,9 @@ packages plan the same wires.  Its device half, the ``_build_lane_gather``
 Pallas kernel, is the CUDA kernel of ``csrc/route.cu``: ``lane_gather``
 launches it on a CUDA tensor and runs ``lane_gather_plain`` only on a CPU
 tensor; each launch adds one to ``ops.fused.launches["lane_gather"]``.
+``apply_scatter_plan``, the routed scatter-add of a legacy plan, is five
+lane gathers per route instance with torch transposes and pads between
+them, as the reference's is XLA glue around its Pallas gathers.
 
 The copied planner keeps the reference's comments, which cite its TPU
 measurements (the thresholds' origins); none of them is a number of the
@@ -20,6 +23,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from sparsex_tpu_torch.ops._launch import (L, _batch, _check, _launch,
                                            _route, _stream, _value_dtype)
@@ -453,6 +457,39 @@ def lane_gather(x, idx):
     return out
 
 
-__all__ = ["apply_scatter_plan_np", "build_scatter_plan",
+def apply_scatter_plan(metas, arrays, src, n_dest: int, gather=None):
+    """Dense (n_dest,) scatter-add of the flat source values ``src`` through
+    the plan's route instances (``route.py:apply_scatter_plan``, :491-529):
+    per instance five lane gathers (g1, g2a, g2b, g2c and the K planes of
+    g3) with the reference's transposes and zero pads between them, each
+    made contiguous (the lane gather takes whole 128-lane rows); the
+    instances' outputs summed in plan order.  ``arrays`` holds each
+    instance's wires as ``(K, R, 128)`` int8 (K = 1 but for g3).  Masked
+    source lanes are never read, so no zeroing is needed.  ``gather``
+    (default :func:`lane_gather`) takes the place of the lane gather, as
+    ``chip_smoke.py`` uses it to see each stage's input."""
+    gather = gather or lane_gather
+    y = None
+    for meta, arrs in zip(metas, arrays):
+        S1c, S1p, A2R, D2R, Dp, _K, W2, a0, a1 = meta[:9]
+        A0 = F.pad(src[a0 * L: a1 * L].view(S1c, L),
+                   (0, 0, 0, S1p - S1c)).contiguous()
+        A1 = gather(A0, arrs["g1"])
+        B = A1.t().contiguous().view(L * A2R, L)      # rows (c, asr)
+        C1 = gather(B, arrs["g2a"])
+        C2 = C1.view(L, A2R, L).transpose(1, 2)[:, :W2]
+        C2p = F.pad(C2, (0, L - A2R)).contiguous()     # rows (c, c2)
+        D1 = gather(C2p.view(L * W2, L), arrs["g2b"])
+        D2 = D1.view(L, W2, L)[:, :, :D2R].transpose(1, 2)
+        D2p = F.pad(D2, (0, L - W2)).contiguous()      # rows (c, dsr)
+        E1 = gather(D2p.view(L * D2R, L), arrs["g2c"])
+        E2 = E1.view(L, D2R * L)[:, :Dp].t().contiguous()  # rows p
+        part = gather(E2, arrs["g3"]).view(-1)
+        y = part if y is None else y + part
+    return y[:n_dest]
+
+
+__all__ = ["apply_scatter_plan", "apply_scatter_plan_np",
+           "build_scatter_plan",
            "demote_small_instances", "fold_sort_key", "lane_gather",
            "lane_gather_plain"]

@@ -357,7 +357,7 @@ def test_chip_smoke_blocky_kernel_phase_feeds_the_path_inputs(
     ex = chip_smoke.check_blocky_plan(
         SimpleNamespace(csx=SimpleNamespace(executors=[port])), "cpu")
     assert {m[9] for m in chip_smoke.extras_of(ex.meta)["fall"][1]} == {1}
-    res = chip_smoke.fused_kernel_phase(ex, x, "cpu", timed=False)
+    res = chip_smoke.kernel_phase(ex, x, "cpu", timed=False)
     assert set(res) == {"k1", "k1_rlp", "lane_gather", "t1", "k2", "k3"}
     assert set(calls) == path
     assert {c[0] for c in path} == {"k1", "t1", "k2", "k3", "lane_gather"}
@@ -469,24 +469,6 @@ _FR = (1, 1, 8, None, None, ("frun", (8, 4, 32, (), 0, "rlp8"), 0))
               ("dsfused", 8, 4, 32, (), False, "lp")), "Queue 1 item 13"),
     ((_FR[:5] + (("frun", (8, 4, 32, (), 0, "run8"), 0),),), (),
      (_DF, ("dscatterT", (), False)), "Queue 1 item 8"),
-    (((1, 1, 8, (15, 3, 128, 32), None),),
-     ((14, 4, 2, (15, 4, 512, 32), None, ("fblk", (), 0)),), (_DF,),
-     "Queue 1 item 10"),
-    (((1, 1, 8, None, ("fs", (), False, 128)),), (),
-     (_DF, ("dpages", 12, 4, 32), ("dscatter", (), False)),
-     "Queue 1 item 10"),
-    ((), ((14, 4, 2, (15, 4, 512, 32), None, ("fblk", (), 0)),), (_DF,),
-     "Queue 1 item 10"),
-    ((), ((14, 4, 2, None, ((), False, 1024)),), (_DF,),
-     r"Queue 1 item 10 \(legacy routed scatters"),
-    ((), (), (_DF, ("dpages", 12, 4, 32), ("dscatter", (), False)),
-     "Queue 1 item 10"),
-    ((_FR,), (), (_DF, ("fall", (("delta",), ("blk", 0, 0)), (), (), ())),
-     "Queue 1 item 10"),
-    ((_FR,), (), (_DF, ("fall", (("delta",), ("run", 0)), (), (),
-                        (("bres", 0, 0),))), "Queue 1 item 10"),
-    (((1, 1, 16, None, ((), False, 1024)),), (), (),
-     r"Queue 1 item 10 \(legacy routed scatters"),
 ])
 def test_check_slice_refusals(runs, blocks, extras, item):
     """What the port does not run yet is refused, naming its queue item;
@@ -496,6 +478,28 @@ def test_check_slice_refusals(runs, blocks, extras, item):
     meta = (1 << 14, 1 << 14, runs, blocks, ()) + extras
     with pytest.raises(NotImplementedError, match=item):
         check_slice(meta)
+
+
+@pytest.mark.parametrize("runs,blocks,extras", [
+    (((1, 1, 8, (15, 3, 128, 32), None),),
+     ((14, 4, 2, (15, 4, 512, 32), None, ("fblk", (), 0)),), (_DF,)),
+    (((1, 1, 8, None, ("fs", (), False, 128)),), (),
+     (_DF, ("dpages", 12, 4, 32), ("dscatter", (), False))),
+    ((), ((14, 4, 2, (15, 4, 512, 32), None, ("fblk", (), 0)),), (_DF,)),
+    ((), ((14, 4, 2, None, ((), False, 1024)),), (_DF,)),
+    ((), (), (_DF, ("dpages", 12, 4, 32), ("dscatter", (), False))),
+    ((_FR,), (), (_DF, ("fall", (("delta",), ("blk", 0, 0)), (), (), ()))),
+    ((_FR,), (), (_DF, ("fall", (("delta",), ("run", 0)), (), (),
+                        (("bres", 0, 0),)))),
+    (((1, 1, 16, None, ((), False, 1024)),), (), ()),
+])
+def test_check_slice_admits_the_routed_classes(runs, blocks, extras):
+    """The legacy routed classes run since ROADMAP Queue 1 item 10 was
+    ported (they were refused before): fused block tables (``fblk``), the
+    merged plan's ``blk`` segments and ``bres`` residuals, the paged
+    delta's scatter route (``dscatter``) and run or block tables routed
+    through a legacy scatter plan."""
+    check_slice((1 << 14, 1 << 14, runs, blocks, ()) + extras)
 
 
 def test_check_slice_admits_the_blocky_classes():

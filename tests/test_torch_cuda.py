@@ -7,8 +7,9 @@ not installed; there, skip the JAX-based ``tests/conftest.py``:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 K1 (styles lp, rlp{W}, sl and run{W}), T1, K2, the lane gather, the DIA
-kernel, the delta-pages product, the unit-page gather and the paged-units
-kernel must equal their plain versions bit for bit; K3 must agree to 1e-6 of the largest value
+kernel, the delta-pages product, the unit-page gather (1 to 16 window
+pages, misaligned operands refused) and the paged-units kernel must equal
+their plain versions bit for bit; K3 must agree to 1e-6 of the largest value
 (both sum in the same order, without FMA).  The k-batched (SpMM) variants
 of K1, T1, K2, K3 and the lane gather, at kb = 1, 3 and 8 (K2 at every
 kb from 1 to 8), must equal
@@ -441,6 +442,45 @@ def test_paged_gather_cuda_matches_plain(dev, T, sl_dtype, dtype):
     assert torch.equal(got, tpk.gather_plain(*args, q))
 
 
+@pytest.mark.parametrize("q", [1, 8, 16])
+@pytest.mark.parametrize("sl_dtype", [np.int16, np.int32])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_paged_gather_cuda_window_sizes(dev, q, sl_dtype, dtype):
+    """The staged window from 1 to 16 pages (past 48 KB of shared memory in
+    f64 at q = 8 and 16), and a page grid whose windows start off a 16-byte
+    boundary (element copies)."""
+    rng = np.random.default_rng(q)
+    T, npages = 37, 40
+    plo = rng.integers(0, npages - q + 1, T).astype(np.int32)
+    sl = rng.integers(-3, q * 1024 + 3, (T, 8, L)).astype(sl_dtype)
+    x2f = rng.standard_normal(npages * 8 * L + 1).astype(dtype)
+    plo_d, sl_d, x2_d = _on(dev, plo, sl, x2f)
+    for x2 in (x2_d[:-1].view(npages, 8, L), x2_d[1:].view(npages, 8, L)):
+        got = _launched("paged_gather", lambda: tpk.gather(plo_d, sl_d, x2,
+                                                           q))
+        assert torch.equal(got, tpk.gather_plain(plo_d, sl_d, x2, q))
+
+
+@pytest.mark.parametrize("sl_dtype", [np.int16, np.int32])
+def test_paged_gather_cuda_refuses_misaligned(dev, sl_dtype):
+    """A thread's 4 offsets load as one vector: ``sl`` one element past its
+    boundary is refused (CUDA error 1), and so is q = 17; nothing is
+    launched."""
+    rng = np.random.default_rng(3)
+    T, q = 4, 2
+    plo, x2 = _on(dev, np.zeros(T, np.int32),
+                  rng.standard_normal((8, 8, L)).astype(np.float32))
+    (slf,) = _on(dev, rng.integers(0, q * 1024, T * 8 * L + 1)
+                 .astype(sl_dtype))
+    before = tf.launches["paged_gather"]
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        tpk.gather(plo, slf[1:].view(T, 8, L), x2, q)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        tpk.gather(plo, slf[:-1].view(T, 8, L), x2[:8].contiguous()
+                   .repeat(3, 1, 1), 17)
+    assert tf.launches["paged_gather"] == before
+
+
 @pytest.mark.parametrize("form,width,q", [
     ("runs", 5, 2), ("runs", 8, 1), ("diag", 3, 3), ("blocks", 3, 2),
     ("blocks", 2, 8)])
@@ -480,6 +520,20 @@ def test_paged_units_cuda_matches_plain(dev, form, width, q, sl_dtype, dtype):
                                  acc0.clone(), dest)
     assert got.shape == (n,)
     assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+
+
+def route_singles(n, m=6000, seed=6):
+    """m random singles, deduplicated and sorted, f32 values
+    (tests/test_route.py:220-250): under ``xform=none`` and lowered
+    thresholds the paged delta with its scatter route (``dscatter``)."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, n, m)
+    cols = rng.integers(0, n, m)
+    _, uniq = np.unique(rows * n + cols, return_index=True)
+    rows, cols = rows[uniq], cols[uniq]
+    order = np.lexsort((cols, rows))
+    rows, cols = rows[order], cols[order]
+    return rows, cols, rng.standard_normal(rows.size).astype(np.float32)
 
 
 def _api_cuda_vs_cpu(build, n, dtype, kernels, **options):
@@ -561,6 +615,33 @@ def test_api_cuda_paged_matches_cpu(dev, monkeypatch, build, n, kernels,
     import chip_smoke
     monkeypatch.setattr(troute, "MIN_ELEMS", 1 << 30)
     _api_cuda_vs_cpu(getattr(chip_smoke, build), n, dtype, kernels,
+                     **{"spx.tpu.min_fused_nnz": str(1 << 30)})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_api_cuda_dscatter_matches_cpu(dev, monkeypatch, dtype):
+    """The paged delta with its scatter route (``dscatter``: 4096 rows of
+    random singles under ``xform=none`` and lowered gates): the delta-pages
+    product, then five lane gathers per route instance."""
+    monkeypatch.setattr(tpk, "MIN_PAGE_NNZ", 64)
+    monkeypatch.setattr(troute, "MIN_ELEMS", 64)
+    _api_cuda_vs_cpu(route_singles, 4096, dtype,
+                     ("delta_pages", "lane_gather"),
+                     **{"spx.preproc.xform": "none"})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_api_cuda_paged_routed_matches_cpu(dev, monkeypatch, dtype):
+    """The fused pipeline kept off on blocky 2^16 (gates at 1024): the
+    routed delta, an fs run table, and an fblk table whose block rows a
+    merged plan takes (the unit-page gather, the lane rolls, G1, T1, K2,
+    K3, the bres residuals)."""
+    import chip_smoke
+    monkeypatch.setattr(tpk, "MIN_PAGE_NNZ", 1024)
+    monkeypatch.setattr(troute, "MIN_ELEMS", 1024)
+    _api_cuda_vs_cpu(chip_smoke.build_blocky_matrix, 1 << 16, dtype,
+                     ("delta_pages", "lane_gather", "paged_gather",
+                      "paged_units", "t1", "k2", "k3"),
                      **{"spx.tpu.min_fused_nnz": str(1 << 30)})
 
 

@@ -254,7 +254,7 @@ def test_chip_smoke_fused_phase_feeds_the_dense_paths(monkeypatch, kind):
     path = list(calls)
     calls.clear()
     ex = chip_smoke.check_dense_plan(kind)(SimpleNamespace(csx=A.csx), "cpu")
-    res = chip_smoke.fused_kernel_phase(ex, x, "cpu", timed=False)
+    res = chip_smoke.kernel_phase(ex, x, "cpu", timed=False)
     assert set(calls) == set(path)
     counted = Counter(name for name, _ in path)
     want = chip_smoke.expected_counts(ex.meta)

@@ -231,7 +231,7 @@ def test_chip_smoke_fs_phase_feeds_the_path_inputs(monkeypatch, name):
     calls.clear()
     kind = "runs" if name == "runs_res" else "blocks"
     chip_smoke.check_fs_plan(kind)(SimpleNamespace(csx=A.csx), "cpu")
-    res = chip_smoke.fused_kernel_phase(ex, x, "cpu", timed=False)
+    res = chip_smoke.kernel_phase(ex, x, "cpu", timed=False)
     assert set(c for c in calls if c[0] != "gather") == set(path)
     assert "paged_gather" in res and "gather" not in {c[0] for c in path}
     want = chip_smoke.expected_counts(ex.meta)

@@ -14,11 +14,13 @@ block matrix at 3 * 2^14 (a block table through a partial segment,
 float32), its SpMV and a k = 2 SpMM of a bf16 x within 2e-2 of the largest
 value of the oracle on the bf16-rounded values and x.  Then it
 checks two refusals, no default device without CUDA and no kernel build
-without nvcc, and that a plan outside the ported slice (the paged delta
-with its scatter route) raises NotImplementedError; at the end no module
-of ``jax``, ``sparsex_tpu`` or ``bench`` is loaded.  ``chip_smoke.py``
-imports none of them either, and without a CUDA device it exits non-zero
-and prints no result.
+without nvcc; that 2^15 random singles with the fused pipeline kept off
+(``spx.tpu.min_fused_nnz``) plan the paged delta with its scatter route
+(``dscatter``) and run within the same bar; and that a class outside the
+ported slice (a symmetric matrix) raises NotImplementedError; at the end
+no module of ``jax``, ``sparsex_tpu`` or ``bench`` is loaded.
+``chip_smoke.py`` imports none of them either, and without a CUDA device
+it exits non-zero and prints no result.
 """
 
 import ast
@@ -162,19 +164,23 @@ try:
 except _build.KernelBuildError as e:
     out["no_nvcc"] = "KernelBuildError" if "nvcc not found" in str(e) else str(e)
 
-# singles under the fused gate plan the paged delta with its scatter route
-# (dscatter), which is not ported
+# singles with the fused pipeline kept off plan the paged delta with its
+# scatter route (dscatter), which runs since ROADMAP Queue 1 item 10
 rng = np.random.default_rng(4)
 ns, m = 1 << 15, 40000
 key = np.unique(rng.integers(0, ns * ns, m))
 r, c = key // ns, key % ns
+v = rng.standard_normal(r.size).astype(np.float32)
+A = tune(ns, r, c, v, **{"spx.tpu.min_fused_nnz": str(1 << 30)})
+out["dscatter"] = (extras(A), spmv_err(A, ns, r, c, v, 8))
+
+# a class still queued: symmetric matrices (ROADMAP Queue 1 item 8)
 try:
-    tune(ns, r, c, np.ones(r.size, np.float32),
-         **{"spx.tpu.min_fused_nnz": str(1 << 30)})
+    tune(ns, r, c, v, **{"spx.matrix.symmetric": "true"})
     out["out_of_slice"] = "tuned"
 except NotImplementedError as e:
     out["out_of_slice"] = ("NotImplementedError" if "ROADMAP.md" in str(e)
-                           and "dscatter" in str(e) else str(e))
+                           and "symmetric" in str(e) else str(e))
 
 out["blocked_modules"] = sorted(m for m in sys.modules
                                 if m.split(".")[0] in BLOCKED)
@@ -211,6 +217,8 @@ def test_port_runs_and_refuses_without_jax():
     assert max(out["bf16"][3:]) < 2e-2
     assert out["no_cuda"] == "SparsexError"
     assert out["no_nvcc"] == "KernelBuildError"
+    assert out["dscatter"][0] == ["dpages", "dscatter"]
+    assert out["dscatter"][1] < tol
     assert out["out_of_slice"] == "NotImplementedError"
 
 

@@ -16,8 +16,8 @@ asserts that the port produces, array for array with the same dtypes:
 
 The cases cover the headline and blocky matrices, the HPCG stencil (no
 paged plan), the legacy paged variant with and without its scatter
-routes (``dscatter``, ``fs``, ``fblk``: planned alike, though the port runs
-only ``fs`` of them yet), the partial-segment routes of a width-5 run table
+routes (``dscatter``, ``fs``, ``fblk`` with its merged ``blk`` segments and
+``bres`` residuals), the partial-segment routes of a width-5 run table
 and a 3x3 block table (their ``fscatter`` arrays), the dense-tile K1 styles
 ``run16`` and ``sl``, ``spx.preproc.xform=none``, and a width-8 run table
 whose overlapping route instances a merged plan takes.
@@ -184,7 +184,7 @@ def test_port_plans_the_reference_arrays(monkeypatch, name):
     if name == "sl":
         fmeta = next(e for e in plan._pages_meta[5:] if e[0] == "dfused")[1]
         assert fmeta[6] == "sl"
-    if name == "paged_routed":   # fblk: planned, not run by the port yet
+    if name == "paged_routed":   # an fs run table and an fblk block table
         kinds = {e[5][0] for e in plan._pages_meta[3] if len(e) > 5}
         kinds |= {e[4][0] for e in plan._pages_meta[2] if e[4]}
         assert kinds == {"fs", "fblk"}

@@ -576,7 +576,7 @@ def _record_wrappers(monkeypatch, calls):
 
 @pytest.mark.parametrize("merged", [True, False])
 def test_chip_smoke_spmm_phase_feeds_the_path_inputs(monkeypatch, merged):
-    """chip_smoke's SpMM kernel phase (``fused_kernel_phase`` on a k-major
+    """chip_smoke's SpMM kernel phase (``kernel_phase`` on a k-major
     chunk) calls every kernel wrapper with exactly the inputs one chunk of
     the port's SpMM gives it, all k-batched; and ``expected_counts(meta,
     k)`` is the SpMM's calls: ceil(k/8) x the SpMV's, under ``_kb`` keys."""
@@ -603,7 +603,7 @@ def test_chip_smoke_spmm_phase_feeds_the_path_inputs(monkeypatch, merged):
     ex(X[:, :8])
     path = set(calls)
     calls.clear()
-    res = chip_smoke.fused_kernel_phase(ex, X[:, :8].T.contiguous(), "cpu",
+    res = chip_smoke.kernel_phase(ex, X[:, :8].T.contiguous(), "cpu",
                                         timed=False)
     assert set(calls) == path
     assert set(res) == {key for key, _ in path}

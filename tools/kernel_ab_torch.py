@@ -55,22 +55,29 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
-# label: (rows, builder, plan check), as chip_smoke.main's paths
+# label: (rows, builder, plan check, extra tune options), as
+# chip_smoke.main's paths
 PATHS = {
-    "headline": (cs.N, lambda: cs.build_matrix(cs.N), cs.check_plan),
+    "headline": (cs.N, lambda: cs.build_matrix(cs.N), cs.check_plan, ()),
     "blocky": (cs.N_BLOCKY, lambda: cs.build_blocky_matrix(cs.N_BLOCKY),
-               cs.check_blocky_plan),
+               cs.check_blocky_plan, ()),
     "blocky-2^19": (cs.N_BLOCKY_CHECK,
                     lambda: cs.build_blocky_matrix(cs.N_BLOCKY_CHECK),
-                    cs.check_masked_blocky_plan),
+                    cs.check_masked_blocky_plan, ()),
     "wide-run": (cs.N_DENSE, lambda: cs.wide_run_matrix(cs.N_DENSE, 16),
-                 cs.check_dense_plan("run16")),
+                 cs.check_dense_plan("run16"), ()),
     "lane-skew": (cs.N_DENSE, lambda: cs.lane_skew_matrix(cs.N_DENSE),
-                  cs.check_dense_plan("sl")),
+                  cs.check_dense_plan("sl"), ()),
     "fs-run": (cs.N_DENSE, lambda: cs.wide_run_matrix(cs.N_DENSE, 5),
-               cs.check_fs_plan("runs")),
+               cs.check_fs_plan("runs"), ()),
     "fs-block": (cs.N_FS_BLOCK, lambda: cs.block3_matrix(cs.N_FS_BLOCK),
-                 cs.check_fs_plan("blocks")),
+                 cs.check_fs_plan("blocks"), ()),
+    "headline-nofuse": (cs.N, lambda: cs.build_matrix(cs.N),
+                        cs.check_nofuse_plan("headline"), cs.NO_FUSE),
+    "blocky-nofuse": (cs.N, lambda: cs.build_blocky_matrix(cs.N),
+                      cs.check_nofuse_plan("blocky"), cs.NO_FUSE),
+    "blocky-2^22": (cs.N_BIG, lambda: cs.build_blocky_matrix(cs.N_BIG),
+                    lambda m, lb: cs.check_pages_plan(m, "blocky", lb), ()),
 }
 
 
@@ -145,7 +152,7 @@ def using(lib, fn):
 
 def captured_args(ex, x, label, names):
     """{name: (wrapper, plain, argument tuples)} of the kernels in
-    ``names`` as chip_smoke's fused kernel phase feeds them on this path
+    ``names`` as chip_smoke's kernel phase feeds them on this path
     (untimed; every kernel of the phase is still checked)."""
     seen = {}
     original = cs.check_kernel
@@ -157,7 +164,7 @@ def captured_args(ex, x, label, names):
 
     cs.check_kernel = capture
     try:
-        cs.fused_kernel_phase(ex, x, label, timed=False)
+        cs.kernel_phase(ex, x, label, timed=False)
     finally:
         cs.check_kernel = original
     return seen
@@ -268,11 +275,11 @@ def main():
     tol = {"float32": cs.CHECK_TOL, "float64": 1e-6}
     report = {"card": card, "base": base, "paths": {}}
     for path in opt.paths.split(","):
-        n, build, check = PATHS[path]
+        n, build, check, options = PATHS[path]
         rows, cols, vals = build()
         for dtype in opt.dtypes.split(","):
             label = f"{path} {dtype}"
-            mat = cs.tune(spx, rows, cols, vals, n, dtype, label)
+            mat = cs.tune(spx, rows, cols, vals, n, dtype, label, options)
             ex = check(mat, label)
             x = cs.x_for(mat, n, dtype)
             X = torch.as_tensor(np.random.default_rng(3).standard_normal(
