@@ -60,13 +60,25 @@ this script imports nothing of the JAX package or its benchmark):
     55.7M nonzeros): the plain-table variant, one DIA kernel launch of 27
     diagonals;
   - ``build_matrix(1 << 22)`` (23.1M nonzeros): the legacy paged variant,
-    the delta-pages product with its scatter-add and the DIA kernel on the
-    5 diagonals;
+    the delta-pages kernel's scatter epilogue (the products added into y
+    by the kernel) and the DIA kernel on the 5 diagonals;
   - ``build_blocky_matrix(1 << 22)`` (13.6M nonzeros): the paged delta
     stream and the paged run and block tables, whose partials the
     paged-units kernel forms and scatter-adds itself (the unit-page
     gather is held against its plain version on the same windows, off
     this path);
+- symmetric matrices (``spx.matrix.symmetric``), each tuned once as its
+  lower triangle and diagonal and run in both modes (``spx.tpu.sym_full``
+  on, then off): bench.py's CSX-Sym matrix ``build_symmetric_matrix(1 <<
+  20)`` (7.9M nonzeros of the full matrix; the rates count them all) and
+  HPCG's stencil on a 128^3 grid: the full mirror on the main path (the
+  fused lp pipeline with 7 DIAs in K3; one DIA kernel of 27 diagonals)
+  and the per-shard plan (the DIA kernel on the lower diagonals, the
+  delta-pages product on the direct and the transposed delta streams,
+  ``dpages`` and ``dpagesT``, each routed by five lane gathers per
+  instance of ``dscatter`` / ``dscatterT``; the 13 lower diagonals and
+  the transposed windows in torch), the scatter epilogue held on the
+  transposed stream off the path;
 - the SpMM (``matmat_kernel``, X of shape (n, k) from a numpy seed) on the
   matrix each path has tuned: timed at k = 8 (one k-batched chunk) on
   headline 2^20, blocky 2^21, wide-run and lane-skew 2^21 in float32 and
@@ -75,8 +87,9 @@ this script imports nothing of the JAX package or its benchmark):
   whose SpMV is timed too); untimed checks in float32 at k = 11 on
   headline 2^20 (chunks of 8 and 3), k = 3 on blocky 2^19 (the masked g3
   instance), k = 8 on fs-block (the SpMV once per column), k = 2 on the
-  two fused-gate-off paths, HPCG 128^3 and headline 2^22 (the SpMV once
-  per column).
+  two fused-gate-off paths, HPCG 128^3, headline 2^22 and the symmetric
+  paths in both modes (the SpMV once per column, but on the fused full
+  mirror).
 
 Every phase is fatal on failure:
 
@@ -90,9 +103,9 @@ Every phase is fatal on failure:
    gather (G1 of every route instance and each stage of a legacy scatter
    route), the DIA kernel, the delta-pages product, the unit-page gather
    (on the fblk tables' window streams where the path runs it) and the
-   paged-units kernel bit-equal, K3 and the paged-units kernel's scatter
-   epilogue (atomic adds, as ``index_add_``'s) within 1e-6 of the largest
-   value;
+   paged-units kernel bit-equal, K3 and the scatter epilogues of the
+   delta-pages and paged-units kernels (atomic adds, as ``index_add_``'s)
+   within 1e-6 of the largest value;
 4. the SpMV end to end against a float64 COO oracle (``CHECK_TOL`` in
    float32, 1e-6 in float64) at alpha=1/beta=0 and alpha=2/beta=0.5.  An
    executor replays a CUDA graph of its own on every call, captured at its
@@ -170,6 +183,11 @@ N_OVERLAP = 1 << 16     # the run matrix whose fused-run route overlapped
 # the fused pipeline kept off (a public option): the legacy paged variant
 # with its routed delta scatter, fused block tables and their merged plan
 NO_FUSE = (("spx.tpu.min_fused_nnz", str(1 << 30)),)
+N_SYM = 1 << 20         # bench.py's CSX-Sym matrix (build_symmetric_matrix)
+# a symmetric matrix, tuned as its lower triangle and diagonal; its two
+# modes (spx.tpu.sym_full): the full mirror and the per-shard plan
+SYMMETRIC = (("spx.matrix.symmetric", "true"),)
+SYM_MODES = {"full": "on", "per-shard": "off"}
 # the card's peaks for the bounds (H100 SXM: 3.35 TB/s of HBM3; 67 TFLOP/s
 # in float32 and 34 in float64 outside the tensor cores, NVIDIA's data
 # sheet), read at the card's full power limit
@@ -179,6 +197,7 @@ SOURCE = {"lane_gather": "sparsex_tpu_torch/csrc/route.cu",
           "lane_gather_kb": "sparsex_tpu_torch/csrc/route.cu",
           "dia": "sparsex_tpu_torch/csrc/dia.cu",
           "delta_pages": "sparsex_tpu_torch/csrc/pages.cu",
+          "delta_pages_acc": "sparsex_tpu_torch/csrc/pages.cu",
           "paged_gather": "sparsex_tpu_torch/csrc/pages.cu",
           "paged_units": "sparsex_tpu_torch/csrc/pages.cu"}
 FUSED_SOURCE = "sparsex_tpu_torch/csrc/fused.cu"
@@ -193,6 +212,8 @@ REPLACES = {
     "lane_gather": "sparsex_tpu/ops/route.py:425",
     "dia": "sparsex_tpu/ops/pallas_kernels.py:40",
     "delta_pages": "sparsex_tpu/ops/pallas_kernels.py:233",
+    # the delta-pages product with the scatter-add after it (:312-321)
+    "delta_pages_acc": "sparsex_tpu/ops/pallas_kernels.py:233",
     "paged_gather": "sparsex_tpu/ops/pallas_kernels.py:389",
     # the unit-page gather with the multiply and unit sums around it
     "paged_units": "sparsex_tpu/ops/pallas_kernels.py:389",
@@ -344,10 +365,13 @@ def expected_counts(meta, k=0):
     gather, T1 and K2; per fused block table (``fblk``) one unit-page
     gather and, unless a merged plan takes its block rows, per instance of
     each row's segment one lane gather, T1 and K2; one K3 per 8 instances;
-    one DIA kernel per standalone DIA table, one delta-pages product for
-    the paged delta stream and five lane gathers per instance of its
-    scatter route (``dscatter``) and of a table's legacy scatter plan, one
-    paged-units kernel per paged table.  Of one SpMM of ``k`` columns: on a
+    one DIA kernel per standalone DIA table; per paged delta stream (the
+    direct ``dpages`` and a symmetric shard's transposed ``dpagesT``) one
+    delta-pages product and five lane gathers per instance of its scatter
+    route (``dscatter``, ``dscatterT``), or one launch of the product's
+    scatter epilogue (``delta_pages_acc``) where it has no route; five lane
+    gathers per instance of a table's legacy scatter plan, one paged-units
+    kernel per paged table.  Of one SpMM of ``k`` columns: on a
     fused
     plan ceil(k / 8) times the counts of the fused segments under the
     k-batched kernels' keys (``_kb``) and no other launch (a paged table's
@@ -388,8 +412,9 @@ def _spmv_counts(tf, meta, unit_tables=True):
         if fall is None:
             n_fs += sum(len(inst) for _bi, e in fblk_tables(meta)
                         for inst, _res, _m in e[5][1])
-        counts["lane_gather"] += n_fs + 5 * (
-            len(ex["dscatter"][0]) if "dscatter" in ex else 0) + 5 * sum(
+        counts["lane_gather"] += n_fs + 5 * sum(
+            len(ex[key][0]) for key in ("dscatter", "dscatterT")
+            if key in ex) + 5 * sum(
             len(e[4][0]) for _k, _i, e in routed_tables(meta))
         n_inst += n_fs
         counts["paged_units"] = len(paged_tables(meta))
@@ -398,7 +423,9 @@ def _spmv_counts(tf, meta, unit_tables=True):
     counts["k3"] = -(-n_inst // 8) if n_inst else int("k3dias" in ex)
     counts["dia"] = (0 if "k3dias" in ex
                      else sum(1 for _a, offs, _n in meta[4] if offs))
-    counts["delta_pages"] = int("dpages" in ex)
+    for stream, route in (("dpages", "dscatter"), ("dpagesT", "dscatterT")):
+        if stream in ex:
+            counts["delta_pages" if route in ex else "delta_pages_acc"] += 1
     return counts
 
 
@@ -618,6 +645,53 @@ def check_nofuse_plan(kind):
     return check
 
 
+def check_sym_plan(kind):
+    """A plan check for a symmetric matrix (``SYMMETRIC``) in its mode in
+    use.  The full mirror: a plain executor of the mirrored tables,
+    ``hpcg`` the plain-table variant with one DIA table of 27 diagonals,
+    ``symmetric`` the fused delta pipeline (the mirrored singles) with the
+    DIA tables in K3.  Per shard: the shard's own executor, ``hpcg`` its 13
+    lower diagonals and nothing else (the diagonal in ``dvals``),
+    ``symmetric`` both paged delta streams (``dpages``, ``dpagesT``)."""
+    def check(mat, label):
+        from sparsex_tpu_torch.symmetric import SymShardExecutor
+        csx = mat.csx
+        ex = csx.executors[0]
+        meta = ex.meta
+        extras = extras_of(meta)
+        dias = [(anti, len(offs)) for anti, offs, _n in meta[4]]
+        full = csx._full_active()
+        shard = isinstance(ex, SymShardExecutor)
+        if kind == "hpcg":
+            ok = (not extras and (dias == [(False, 13)] and shard
+                                  and ex.arrays["delta"] is None
+                                  if not full else
+                                  dias == [(False, 27)] and not shard))
+        else:
+            ok = ({"dpages", "dpagesT"} <= set(extras) and shard
+                  if not full else "dfused" in extras and not shard)
+        desc = (f"{'full mirror' if full else 'per shard'}: {ex.variant} "
+                f"variant; extras {sorted(extras)}; DIA tables {dias}; run "
+                f"tables {[e[:3] for e in meta[2]]}; block tables "
+                f"{[e[:3] for e in meta[3]]}")
+        for stream, route in (("dpages", "dscatter"),
+                              ("dpagesT", "dscatterT")):
+            if stream in extras:
+                desc += f"; {stream} {extras[stream]}"
+            if route in extras:
+                desc += (f"; {route} instances "
+                         f"{[m[:10] for m in extras[route][0]]} residuals "
+                         f"{extras[route][1]}")
+        if full:
+            desc += "; " + _fused_desc(meta)
+        desc += f"; {csx.nnz} nonzeros stored (lower triangle, diagonal)"
+        if not ok:
+            fail(f"[{label}] unexpected {kind} plan: {desc}")
+        say(f"[{label}] plan: {desc}")
+        return ex
+    return check
+
+
 # ---------------------------------------------------------------------------
 # kernels against their plain versions, with their bounds
 # ---------------------------------------------------------------------------
@@ -682,6 +756,18 @@ def _bound_pages(a, out):
             vals[0].numel() if vals else 0)
 
 
+def _bound_pages_acc(a, out):
+    """The delta-pages product's scatter epilogue (plo, sl, vals, x2, q,
+    acc, rows): the streams once, each distinct x value the windows read,
+    and a read and a write of each distinct accumulator row in range; a
+    multiply and an add per value."""
+    plo, sl, vals, x2, q, acc, rows = a
+    nbytes, _ops = _bound_pages((plo, sl, vals, x2, q), None)
+    return (nbytes + _nbytes(rows) + 2 * _distinct(
+        rows, (rows >= 0) & (rows < acc.shape[0])) * acc.element_size(),
+        2 * vals.numel())
+
+
 def _bound_units(a, out):
     """The paged-units kernel (plo, sl, vals, x2, q, each): plo, sl and
     vals read and the partials written once, plus each distinct x value
@@ -729,6 +815,7 @@ BOUNDS = {
                                    _kb(out, 2) * a[1].numel()),
     "dia": lambda a, out: (_nbytes(a[0], a[1], out), 2 * a[0].numel()),
     "delta_pages": _bound_pages,
+    "delta_pages_acc": _bound_pages_acc,
     "paged_gather": _bound_pages,
     "paged_units": _bound_units,
 }
@@ -751,6 +838,23 @@ def _library_paged_gather(a):
     idx, _ok = tpk.window_index(plo, sl, q)
     flat = x2.reshape(-1)
     return lambda: torch.take(flat, idx)
+
+
+def _library_delta_pages(a):
+    """``torch.take`` of the window values times the values, and for the
+    scatter epilogue ``index_add_`` of the products of the slots whose row
+    is in range (selected beforehand)."""
+    import torch
+    from sparsex_tpu_torch.ops import pallas_kernels as tpk
+    plo, sl, vals, x2, q, *scatter = a
+    idx = tpk.window_index(plo, sl, q)[0].reshape(-1)
+    flat, v = x2.reshape(-1), vals.reshape(-1)
+    if not scatter:
+        return lambda: torch.take(flat, idx) * v
+    acc, rows = scatter
+    keep = (rows >= 0) & (rows < acc.shape[0])
+    idx, v, rows = idx[keep], v[keep], rows[keep]
+    return lambda: acc.index_add_(0, rows, torch.take(flat, idx) * v)
 
 
 def _library_paged_units(a):
@@ -782,6 +886,8 @@ def _library_paged_units(a):
 # per kernel with one: the PyTorch call that computes the same function on
 # the same inputs (indices precomputed), timed as a yardstick only
 LIBRARY = {"t1": _library_t1, "t1_kb": _library_t1,
+           "delta_pages": _library_delta_pages,
+           "delta_pages_acc": _library_delta_pages,
            "paged_gather": _library_paged_gather,
            "paged_units": _library_paged_units}
 
@@ -860,6 +966,17 @@ def _fresh_acc(a):
     return a if len(a) == 6 else a[:6] + (a[6].clone().zero_(), a[7])
 
 
+def _fresh_delta_acc(a):
+    """A delta-pages epilogue argument tuple with a zeroed copy of its
+    accumulator."""
+    return a[:5] + (a[5].clone().zero_(), a[6])
+
+
+# per kernel that adds into an operand in place: the argument tuple each
+# checked call gets (check_kernel's ``fresh``)
+FRESH = {"paged_units": _fresh_acc, "delta_pages_acc": _fresh_delta_acc}
+
+
 def unit_kernels(res, ex, x, label, timed, loops=LOOPS, outer=OUTER):
     """The paged-units kernel on every paged table of an SpMV (bit-equal
     to its plain version where it writes partials, within 1e-6 where it
@@ -888,12 +1005,75 @@ def unit_kernels(res, ex, x, label, timed, loops=LOOPS, outer=OUTER):
                      tpk.gather_plain, gathers, loops=loops, outer=outer)
 
 
+def delta_pages_kernels(res, ex, x, x2, label, timed, loops=LOOPS,
+                        outer=OUTER):
+    """The delta-pages kernel on each paged delta stream of an SpMV (the
+    direct ``dpages`` and a symmetric shard's transposed ``dpagesT``): the
+    product form (bit-equal to its plain version) on each stream with a
+    scatter route, the scatter epilogue (``delta_pages_acc``, within 1e-6:
+    atomic adds in no fixed order) on each stream without one, into an
+    accumulator of the stream's rows.  A shard whose transposed stream is
+    routed has its epilogue held too, on that stream, off the path."""
+    import torch
+    from sparsex_tpu_torch.ops import pallas_kernels as tpk
+    extras = extras_of(ex.meta)
+    products, epilogue = [], []
+    for stream, key, route, n in (("dpages", "delta_pages", "dscatter",
+                                   ex.nrows),
+                                  ("dpagesT", "delta_pages_t", "dscatterT",
+                                   ex.ncols)):
+        if stream not in extras:
+            continue
+        rep = ex.arrays[key]
+        a = (rep["plo"], rep["sl"], rep["vals"], x2, extras[stream][1])
+        if route in extras:
+            products.append(a)
+        else:
+            epilogue.append(a + (torch.zeros(n, dtype=x.dtype,
+                                             device=x.device), rep["rows"]))
+    if not epilogue and "dscatterT" in extras:    # off the path
+        rep = ex.arrays["delta_pages_t"]
+        epilogue.append((rep["plo"], rep["sl"], rep["vals"], x2,
+                         extras["dpagesT"][1],
+                         torch.zeros(ex.ncols, dtype=x.dtype,
+                                     device=x.device),
+                         transposed_rows(ex).to(x.device)))
+    if products:
+        check_kernel(res, label, timed, "delta_pages", tpk.delta_pages,
+                     tpk.delta_pages_plain, products, True, loops, outer)
+    if epilogue:
+        check_kernel(res, label, timed, "delta_pages_acc", tpk.delta_pages_acc,
+                     tpk.delta_pages_acc_plain, epilogue, False, loops, outer,
+                     fresh=_fresh_delta_acc)
+
+
+def transposed_rows(ex):
+    """The destination row of each slot of a symmetric shard's transposed
+    delta stream (int32): the planner's rows, which a routed stream's plan
+    drops (its scatter route holds them), made again from the shard's
+    tables by the planner call of ``symmetric.shard_plan``."""
+    import torch
+    from sparsex_tpu_torch.ops import pallas_kernels as tpk
+    from sparsex_tpu_torch.ops.route import fold_sort_key
+    d, r0, n = ex.tables.delta, ex.tables.row_start, ex.nrows_glob
+    rows = np.asarray(d.row_ids, dtype=np.int64) + r0
+    cols = np.asarray(d.cols, dtype=np.int64)
+    rep, _left = tpk.build_delta_pages(rows, cols, np.asarray(d.vals), n, n,
+                                       sort_key=fold_sort_key(cols, n, rows))
+    if not np.array_equal(rep["plo"],
+                          ex.arrays["delta_pages_t"]["plo"].cpu().numpy()):
+        fail("the transposed delta stream planned again differs from the "
+             "executor's")
+    return torch.from_numpy(rep["rows"])
+
+
 def scatter_lane_args(ex, x):
     """The lane gathers' argument tuples of every legacy scatter route of
-    an SpMV: the paged delta products' (``dscatter``) and each routed
-    table's partials', five a route instance, each stage's input made from
-    the previous stage's output as ``route.apply_scatter_plan`` makes it
-    (through the plain lane gather)."""
+    an SpMV: the paged delta products' (``dscatter``, and a symmetric
+    shard's transposed ``dscatterT`` into all its ncols rows) and each
+    routed table's partials', five a route instance, each stage's input
+    made from the previous stage's output as ``route.apply_scatter_plan``
+    makes it (through the plain lane gather)."""
     import torch.nn.functional as F
     from sparsex_tpu_torch.ops import kernels as tk
     from sparsex_tpu_torch.ops import pallas_kernels as tpk
@@ -907,12 +1087,16 @@ def scatter_lane_args(ex, x):
         args.append((xs, idx))
         return troute.lane_gather_plain(xs, idx)
 
-    if "dscatter" in extras:
-        prods = tpk.delta_pages_products(extras["dpages"],
-                                         arrs["delta_pages"], x, ncols, x2=x2)
-        troute.apply_scatter_plan(extras["dscatter"][0],
-                                  arrs["delta_scatter"]["chunks"], prods,
-                                  ex.nrows, gather=record)
+    for stream, key, route, plan, n_dest in (
+            ("dpages", "delta_pages", "dscatter", "delta_scatter", ex.nrows),
+            ("dpagesT", "delta_pages_t", "dscatterT", "delta_scatter_t",
+             ncols)):
+        if route in extras:
+            prods = tpk.delta_pages_products(extras[stream], arrs[key], x,
+                                             ncols, x2=x2)
+            troute.apply_scatter_plan(extras[route][0],
+                                      arrs[plan]["chunks"], prods, n_dest,
+                                      gather=record)
     for kind, i, e in routed_tables(meta):
         t = arrs[kind][i]
         part = tk.unit_table_partials(kind, e, t, x, ncols, ex.nrows,
@@ -999,11 +1183,7 @@ def kernel_phase(ex, x, label, timed=True, loops=LOOPS, outer=OUTER):
                 xp, pad_lo = tpk.dia_frame(offs, xs, ex.nrows, ncols)
                 args.append((dv, xp, offs, pad_lo))
             run("dia", tpk.dia, tpk.dia_plain, args)
-        if "dpages" in extras:
-            rep = arrs["delta_pages"]
-            run("delta_pages", tpk.delta_pages, tpk.delta_pages_plain,
-                [(rep["plo"], rep["sl"], rep["vals"], x2,
-                  extras["dpages"][1])])
+        delta_pages_kernels(res, ex, x, x2, label, timed, loops, outer)
         unit_kernels(res, ex, x, label, timed, loops, outer)
         scatter_args = scatter_lane_args(ex, x)
 
@@ -1102,7 +1282,8 @@ def say_kernels(res, label):
 
 # an entry point's mangled name, as the CUDA driver gives it
 _MANGLED = re.compile(r"\d(k1_lp|k1_rlp|k1_sl|k1_run|t1|k2|k3|lane_gather|"
-                      r"dia|delta_pages|paged_gather|paged_units)"
+                      r"dia|delta_pages_acc|delta_pages|paged_gather|"
+                      r"paged_units)"
                       r"(_kb)?_kernelI")
 
 
@@ -1264,8 +1445,8 @@ def e2e_phase(spx, tf, mat, rows, cols, vals, x, tol, dtype_name,
 
 
 _KERNEL_NAME = re.compile(r"\b(k1_lp|k1_rlp|k1_sl|k1_run|t1|k2|k3|"
-                          r"lane_gather|dia|delta_pages|paged_gather|"
-                          r"paged_units)"
+                          r"lane_gather|dia|delta_pages_acc|delta_pages|"
+                          r"paged_gather|paged_units)"
                           r"(_kb)?_kernel\b")
 
 
@@ -1311,9 +1492,11 @@ def profile_phase(spmv, reps=50, kb=False):
     return us, sorted(glue.items(), key=lambda kv: -kv[1])[:4]
 
 
-def report(label, mat, res, timing, profiled):
+def report(label, mat, res, timing, profiled, nnz):
     """Print the profile and end-to-end lines of one timed path; returns
-    its summary."""
+    its summary.  Gnnz/s counts ``nnz``, the nonzeros of the full matrix
+    (a symmetric matrix's mirrored ones too, as bench.py:495-497 counts
+    them)."""
     counts, ms, host_ms, graph_ms, eager_ms, errs, _spmv = timing
     prof, glue = profiled
     if prof is None:
@@ -1327,12 +1510,12 @@ def report(label, mat, res, timing, profiled):
             f"{ms * 1e3:.2f} us called from Python")
         say(f"[{label}] largest glue kernels (us per SpMV): "
             + "; ".join(f"{v:.2f} {k}" for k, v in glue))
-    gnnz = mat.nnz / (ms * 1e-3) / 1e9
+    gnnz = nnz / (ms * 1e-3) / 1e9
     dev_ms = sum(r["ms"] for r in res.values())
     say(f"[{label}] SpMV end to end: {ms * 1e3:.2f} us ({gnnz:.2f} Gnnz/s) "
         f"called from Python, host enqueue {host_ms * 1e3:.2f} us; "
         f"{graph_ms * 1e3:.2f} us "
-        f"({mat.nnz / (graph_ms * 1e-3) / 1e9:.2f} Gnnz/s) replayed from a "
+        f"({nnz / (graph_ms * 1e-3) / 1e9:.2f} Gnnz/s) replayed from a "
         f"CUDA graph; the checked kernels alone {dev_ms * 1e3:.2f} us; "
         f"the eager body called from Python {eager_ms * 1e3:.2f} us")
     graphs = mat.csx.executors[0].graph_bytes()
@@ -1462,7 +1645,7 @@ def spmm_phase(spx, tf, mat, rows, cols, vals, k, label, tol, timed, spmv):
             + f"; busy {100 * dev_us / (ms * 1e3):.1f}% of the "
             f"{ms * 1e3:.2f} us called from Python; largest glue "
             + "; ".join(f"{v:.2f} {key}" for key, v in glue))
-    nnzk = mat.nnz * k
+    nnzk = rows.size * k
     equiv = graph_ms / (k * spmv_graph_ms)
     say(f"[{lab}] SpMM end to end: {ms * 1e3:.2f} us "
         f"({nnzk / (ms * 1e-3) / 1e9:.2f} Gnnz*k/s) called from Python; "
@@ -1545,34 +1728,61 @@ def x_for(mat, n, dtype_name):
         device=mat.device)
 
 
+def sym_mode(spx, mat, mode, label):
+    """Select a symmetric matrix's mode (``SYM_MODES``: ``spx.tpu.sym_full``
+    on or off) and build its executor, dropping the other mode's (and its
+    graphs)."""
+    import torch
+    csx = mat.csx
+    spx.Config.instance().set("spx.tpu.sym_full", SYM_MODES[mode])
+    if mode == "full":
+        csx._shard_exec = None
+    else:
+        csx._full_exec = None
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    csx._executor()
+    torch.cuda.synchronize()
+    say(f"[{label}] the {mode} executor: planned and uploaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
 def run_path(spx, tf, label, n, rows, cols, vals, dtype_name, tol, check,
-             options=(), timed=True, spmm=()):
+             options=(), timed=True, spmm=(), modes=()):
     """One path in one value type: tune (under the extra ``options``),
     check the plan, each kernel against its plain version
     (``kernel_phase``), the SpMV against the oracle with its launch counts,
     and when ``timed`` the times and a profile; then on the same tuned
-    matrix one ``spmm_phase`` per (k, timed) in ``spmm``.  Returns ({label:
-    summary}, kernel entries) of the timed parts."""
+    matrix one ``spmm_phase`` per (k, timed) in ``spmm``.  A symmetric
+    matrix runs all that once per mode in ``modes`` (:func:`sym_mode`), on
+    the one tuned matrix, labelled ``label`` and the mode.  Returns
+    ({label: summary}, kernel entries) of the timed parts."""
     import torch
     t0 = time.perf_counter()
     mat = tune(spx, rows, cols, vals, n, dtype_name, label, options)
-    ex = check(mat, label)
-    x = x_for(mat, n, dtype_name)
-    res = kernel_phase(ex, x, label, timed)
-    timing = e2e_phase(spx, tf, mat, rows, cols, vals, x, tol, label, timed)
     summary, entries = {}, []
-    if timed:
-        profiled = profile_phase(timing[-1])
-        summary[label] = report(label, mat, res, timing, profiled)
-        entries += kernel_entries(res, timing[0], profiled[0], label)
-    for k, mm_timed in spmm:
-        s, e = spmm_phase(spx, tf, mat, rows, cols, vals, k, label, tol,
-                          mm_timed, (res, timing[3]))
-        if mm_timed:
-            summary[f"{label} spmm k={k}"] = s
-            entries += e
+    for mode in modes or (None,):
+        lab = label if mode is None else f"{label} {mode}"
+        if mode is not None:
+            sym_mode(spx, mat, mode, lab)
+        ex = check(mat, lab)
+        x = x_for(mat, n, dtype_name)
+        res = kernel_phase(ex, x, lab, timed)
+        timing = e2e_phase(spx, tf, mat, rows, cols, vals, x, tol, lab,
+                           timed)
+        if timed:
+            profiled = profile_phase(timing[-1])
+            summary[lab] = report(lab, mat, res, timing, profiled, rows.size)
+            entries += kernel_entries(res, timing[0], profiled[0], lab)
+        for k, mm_timed in spmm:
+            s, e = spmm_phase(spx, tf, mat, rows, cols, vals, k, lab, tol,
+                              mm_timed, (res, timing[3]))
+            if mm_timed:
+                summary[f"{lab} spmm k={k}"] = s
+                entries += e
+        del ex, x, timing
     out = (summary, entries)
-    del mat, ex, x, timing
+    del mat
     torch.cuda.empty_cache()
     say(f"[{label}] path done in {time.perf_counter() - t0:.1f} s")
     return out
@@ -1711,6 +1921,37 @@ def overlap_run_matrix(n, W=16, per_row=3, seed=0):
     return _dedup_sort(rows, cols, n, seed + 1)
 
 
+def build_symmetric_matrix(n):
+    """Symmetric: banded diagonals (0, +-1, +-8, +-13) + n/4 mirrored
+    singles, the CSX-Sym configuration (bench.py:179); the full COO, its
+    values symmetric."""
+    rng = np.random.default_rng(5)
+    rows, cols = [], []
+    for b in (0, 1, 8, 13):     # lower half; mirror below
+        r = np.arange(b, n, dtype=np.int64)
+        rows.append(r)
+        cols.append(r - b)
+    m = n // 4
+    sr = rng.integers(0, n, size=m)
+    sc = rng.integers(0, n, size=m)
+    lo, hi = np.minimum(sr, sc), np.maximum(sr, sc)
+    rows.append(hi)
+    cols.append(lo)
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    # mirror the strict lower triangle to build the full COO
+    strict = rows > cols
+    rows_f = np.concatenate([rows, cols[strict]])
+    cols_f = np.concatenate([cols, rows[strict]])
+    rows_f, cols_f, _ = _dedup_sort(rows_f, cols_f, n)
+    # VALUE symmetry: derive v from the unordered pair so v(r,c) == v(c,r)
+    lo = np.minimum(rows_f, cols_f).astype(np.uint64)
+    hi = np.maximum(rows_f, cols_f).astype(np.uint64)
+    key = lo * np.uint64(n) + hi
+    h = (key * np.uint64(0x9E3779B97F4A7C15)) >> np.uint64(40)
+    vals = (h.astype(np.float32) / np.float32(1 << 24) - 0.5) * 0.2
+    return rows_f, cols_f, vals
+
+
 def hpcg_matrix(nx):
     """HPCG's problem matrix: the 27-point stencil on an nx^3 grid, 26 on the
     diagonal and -1 for each neighbour in the 3x3x3 cube, rows in
@@ -1796,8 +2037,9 @@ def main():
     # k-batched chunk (bench.py's SpMM figure), k = 11 two chunks (8 + 3)
     both, f32 = ("float32", "float64"), ("float32",)
     mm8 = ((8, True, both),)
+    sym = SYMMETRIC + (("spx.tpu.sym_full", "on"),)
     # (label, rows of the matrix, its builder, plan check, extra tune
-    # options, value types to run, timed, SpMMs)
+    # options, value types to run, timed, SpMMs, symmetric modes)
     paths = (
         ("", N, lambda: build_matrix(N), check_plan, (), tols, True,
          mm8 + ((11, False, f32),)),
@@ -1836,15 +2078,24 @@ def main():
         ("blocky 2^22 ", N_BIG, lambda: build_blocky_matrix(N_BIG),
          lambda m, lb: check_pages_plan(m, "blocky", lb), (), tols, True,
          ()),
+        ("symmetric 2^20 ", N_SYM, lambda: build_symmetric_matrix(N_SYM),
+         check_sym_plan("symmetric"), sym, tols, True, ((2, False, f32),),
+         tuple(SYM_MODES)),
+        ("symmetric hpcg 128^3 ", HPCG_NX ** 3,
+         lambda: hpcg_matrix(HPCG_NX)[1:], check_sym_plan("hpcg"), sym,
+         tols, True, ((2, False, f32),), tuple(SYM_MODES)),
     )
-    for prefix, n, build, check, options, types, timed, mms in paths:
+    for prefix, n, build, check, options, types, timed, mms, *modes in paths:
         rows, cols, vals = build()
+        if modes:
+            say(f"[{prefix.strip()}] symmetric matrix: {n}x{n}, "
+                f"nnz_full={rows.size}")
         for dtype_name, tol in types:
             label = prefix + dtype_name
             s, k = run_path(spx, tf, label, n, rows, cols, vals, dtype_name,
                             tol, check, options, timed,
                             [(kk, t) for kk, t, dts in mms
-                             if dtype_name in dts])
+                             if dtype_name in dts], *modes)
             summary.update(s)
             kernels_out += k
         if prefix in BF16_PATHS:

@@ -38,6 +38,7 @@ from sparsex_tpu_torch.errors import ErrorCode, SparsexError, seterror
 from sparsex_tpu_torch.io.csr import CSR
 from sparsex_tpu_torch.io.mmf import MMF, load_mmf
 from sparsex_tpu_torch.logger import log_info
+from sparsex_tpu_torch.symmetric import build_symmetric_csx
 
 # Flags mirroring the reference's option macros.
 OP_REORDER = "reorder"  # SPX_MAT_REORDER
@@ -115,12 +116,12 @@ def mat_tune(input_: Input, *flags: str, device=None) -> Matrix:
     """``spx_mat_tune`` parity: CSX preprocessing and host planning, then
     the plan uploaded to ``device`` (default ``cuda:0``): the fused or
     legacy paged plan, or the plain tables when the planner made none.
-    Pass ``OP_REORDER`` to RCM-reorder first."""
+    Pass ``OP_REORDER`` to RCM-reorder first.  Under
+    ``spx.matrix.symmetric`` the matrix is tuned as its lower triangle and
+    diagonal (``symmetric.build_symmetric_csx``; an MMF stored as its lower
+    triangle is taken as it is), run in the mode ``spx.tpu.sym_full``
+    selects (api.py:148-153)."""
     cfg = Config.instance()
-    if cfg.symmetric:
-        raise NotImplementedError(
-            "symmetric matrices (spx.matrix.symmetric) are not ported yet; "
-            "see ROADMAP.md Queue 1 item 8")
     dev = resolve_device(device)
     rows, cols, vals = input_.tocoo()
     nrows, ncols = input_.nrows, input_.ncols
@@ -129,8 +130,14 @@ def mat_tune(input_: Input, *flags: str, device=None) -> Matrix:
         from sparsex_tpu_torch.reorder import reorder_rcm
         rows, cols, vals, permutation = reorder_rcm(
             nrows, ncols, rows, cols, vals)
-    csx = CsxMatrix.from_coo(nrows, ncols, rows, cols, vals, config=cfg,
-                             permutation=permutation, device=dev)
+    if cfg.symmetric:
+        lower_only = input_.kind == "mmf" and input_.mmf.stored_lower_only
+        csx = build_symmetric_csx(nrows, ncols, rows, cols, vals,
+                                  already_lower=lower_only, config=cfg,
+                                  device=dev)
+    else:
+        csx = CsxMatrix.from_coo(nrows, ncols, rows, cols, vals, config=cfg,
+                                 permutation=permutation, device=dev)
     log_info("tuned matrix on %s: %dx%d nnz=%d csx_size=%dB", dev,
              nrows, ncols, csx.nnz, csx.csx_size())
     return Matrix(csx=csx, permutation=permutation)

@@ -260,9 +260,9 @@ class Config:
 
     @property
     def sym_full(self) -> str:
-        """Symmetric full-expansion executor: "auto" enables it whenever
-        the Pallas page/route layouts are active (TPU f32), "on" forces it
-        (CPU tests), "off" keeps the per-shard lower-triangle kernels."""
+        """Symmetric full-expansion executor: "auto" enables it on a CUDA
+        device (the reference: whenever its Pallas layouts are active),
+        "on" forces it, "off" keeps the per-shard lower-triangle plan."""
         return self._typed("spx.tpu.sym_full")
 
     def _apply_log_level(self) -> None:

@@ -18,9 +18,31 @@
 // bound by the bytes of their streams (sl, vals, output), read and written
 // once, and the distinct x values the windows hold.
 //
-//   delta_pages_kernel:  out[e] = vals[e] * x  (one multiply, no sum; one
-//                        thread per element, x through L1/L2)
-//   paged_gather_kernel: out[e] = x           (a copy: bit-exact)
+//   delta_pages_kernel:     out[e] = x * vals[e]  (one multiply, no sum)
+//   delta_pages_acc_kernel: acc[rows[e]] += x * vals[e]  (its epilogue form)
+//   paged_gather_kernel:    out[e] = x           (a copy: bit-exact)
+//
+// Both delta kernels run one body (delta_products): a block per tile, each
+// thread on V = 16 / sizeof(T) consecutive elements (4 in f32, 2 in f64).
+// plo[t] is read once per block (thread 0, through shared memory); a thread
+// reads its V int16 offsets as one vector (8 or 4 bytes) and its V values
+// as one 16-byte load, both streaming past the caches (each is read once),
+// issues its V gathers from the tile's window at once, through L1, which
+// the block's threads share, and forms each product with __fmul_rn /
+// __dmul_rn, so it is bit-equal to delta_pages_plain.  The product form
+// then writes its V products with one 16-byte streaming store (the
+// delta_pages_products / dscatter routes read them).  The epilogue form,
+// for a paged delta without a scatter route, reads its V int32 rows as one
+// vector and adds each product into acc[rows[e]] with atomicAdd, dropping
+// rows outside [0, n_acc) (the padding slots carry the sentinel row
+// nrows_part, or nrows_glob on a symmetric shard's transposed stream): the
+// products never cross HBM, and the index_add_ that read them back is gone
+// (the epilogue of paged_units_kernel below).  Atomic adds sum in no fixed
+// order, as index_add_'s own kernel does.  The port's first design, a
+// thread per element with a 2-byte offset load, a plo load and a scalar
+// store each, reached 43-64 % of its bound in f32 (PERF.md).  Both
+// launchers refuse sl off its vector boundary, vals and out off 16 bytes,
+// rows off its vector boundary, and q outside 1..16: CUDA error 1.
 //
 // paged_gather_kernel (the fblk chain's gather, kernels.py:607-621) runs a
 // block per tile, each thread on V = 16 / sizeof(T) consecutive elements (4
@@ -73,27 +95,6 @@ __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
-template <typename T, typename S>
-__device__ __forceinline__ T window_x(const int32_t* __restrict__ plo,
-                                      const S* __restrict__ sl,
-                                      const T* __restrict__ x2, long long e,
-                                      int win) {
-  const int s = (int)sl[e];
-  return (s >= 0 && s < win) ? x2[(long long)plo[e / PAGE] * PAGE + s] : T(0);
-}
-
-template <typename T>
-__global__ void delta_pages_kernel(const int32_t* __restrict__ plo,
-                                   const int16_t* __restrict__ sl,
-                                   const T* __restrict__ vals,
-                                   const T* __restrict__ x2,
-                                   T* __restrict__ out, long long n_elems,
-                                   int win) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n_elems) return;
-  out[e] = mul_rn(window_x(plo, sl, x2, e, win), vals[e]);
-}
-
 // A thread's V consecutive window offsets (V = 16 / sizeof(T): 4 in f32, 2
 // in f64, the values of its one 16-byte store), loaded as one vector that
 // streams past the caches (each offset is read once).
@@ -125,6 +126,74 @@ __device__ __forceinline__ void store_values(float* p, const float (&v)[4]) {
 
 __device__ __forceinline__ void store_values(double* p, const double (&v)[2]) {
   __stcs(reinterpret_cast<double2*>(p), make_double2(v[0], v[1]));
+}
+
+// A thread's V values as one 16-byte load that streams past the caches.
+__device__ __forceinline__ void load_values(const float* p, float (&v)[4]) {
+  const float4 a = __ldcs(reinterpret_cast<const float4*>(p));
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+
+__device__ __forceinline__ void load_values(const double* p, double (&v)[2]) {
+  const double2 a = __ldcs(reinterpret_cast<const double2*>(p));
+  v[0] = a.x; v[1] = a.y;
+}
+
+// The products of a thread's V consecutive elements from e (the body of
+// both delta kernels; a block per tile, 1024 / V threads): offsets and
+// values as one vector each, plo[t] once per block, the V gathers from the
+// tile's window in flight together, the products rounded as the plain
+// version rounds them.
+template <typename T>
+__device__ __forceinline__ void delta_products(
+    const int32_t* __restrict__ plo, const int16_t* __restrict__ sl,
+    const T* __restrict__ vals, const T* __restrict__ x2, long long e,
+    int win, T (&p)[16 / sizeof(T)]) {
+  constexpr int V = 16 / sizeof(T);
+  __shared__ long long window;
+  int s[V];
+  load_offsets(sl + e, s);
+  T v[V];
+  load_values(vals + e, v);
+  if (threadIdx.x == 0) window = (long long)plo[blockIdx.x] * PAGE;
+  __syncthreads();
+  const T* src = x2 + window;
+  T xv[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    xv[j] = (s[j] >= 0 && s[j] < win) ? __ldg(src + s[j]) : T(0);
+#pragma unroll
+  for (int j = 0; j < V; ++j) p[j] = mul_rn(xv[j], v[j]);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(PAGE * sizeof(T) / 16)
+delta_pages_kernel(const int32_t* __restrict__ plo,
+                   const int16_t* __restrict__ sl, const T* __restrict__ vals,
+                   const T* __restrict__ x2, T* __restrict__ out, int win) {
+  constexpr int V = 16 / sizeof(T);
+  const long long e = (long long)blockIdx.x * PAGE + V * threadIdx.x;
+  T p[V];
+  delta_products(plo, sl, vals, x2, e, win, p);
+  store_values(out + e, p);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(PAGE * sizeof(T) / 16)
+delta_pages_acc_kernel(const int32_t* __restrict__ plo,
+                       const int16_t* __restrict__ sl,
+                       const T* __restrict__ vals, const T* __restrict__ x2,
+                       const int32_t* __restrict__ rows, T* __restrict__ acc,
+                       long long n_acc, int win) {
+  constexpr int V = 16 / sizeof(T);
+  const long long e = (long long)blockIdx.x * PAGE + V * threadIdx.x;
+  int r[V];
+  load_offsets(rows + e, r);
+  T p[V];
+  delta_products(plo, sl, vals, x2, e, win, p);
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    if (r[j] >= 0 && r[j] < n_acc) atomicAdd(acc + r[j], p[j]);
 }
 
 // One block per tile, V elements a thread (a block of 1024 / V threads):
@@ -199,19 +268,48 @@ __global__ void paged_units_kernel(const int32_t* __restrict__ plo,
 
 constexpr int THREADS = 256;
 
-inline unsigned n_blocks(long long n) {
-  return (unsigned)((n + THREADS - 1) / THREADS);
+// Whether a delta kernel refuses its operands: a thread's offsets (V int16)
+// and rows (V int32) load as one vector each, its values as 16 bytes, its
+// products store as 16 bytes (out, the product form), and the window is
+// 1..16 pages.
+template <typename T>
+bool delta_refused(const void* sl, const void* vals, const void* out,
+                   const void* rows, int q) {
+  constexpr uintptr_t V = 16 / sizeof(T);
+  return q < 1 || q > 16 || ((uintptr_t)sl & (2 * V - 1)) ||
+         ((uintptr_t)vals & 15) || ((uintptr_t)out & 15) ||
+         ((uintptr_t)rows & (4 * V - 1));
 }
 
 template <typename T>
 int launch_delta_pages(const void* plo, const void* sl, const void* vals,
                        const void* x2, void* out, long long T_tiles, int q,
                        void* stream) {
-  const long long n = T_tiles * PAGE;
-  if (n == 0) return (int)cudaGetLastError();
-  delta_pages_kernel<T><<<n_blocks(n), THREADS, 0, (cudaStream_t)stream>>>(
+  constexpr int V = 16 / sizeof(T);
+  if (out == nullptr || delta_refused<T>(sl, vals, out, nullptr, q))
+    return (int)cudaErrorInvalidValue;
+  if (T_tiles == 0) return (int)cudaGetLastError();
+  delta_pages_kernel<T><<<(unsigned)T_tiles, PAGE / V, 0,
+                          (cudaStream_t)stream>>>(
       (const int32_t*)plo, (const int16_t*)sl, (const T*)vals, (const T*)x2,
-      (T*)out, n, q * PAGE);
+      (T*)out, q * PAGE);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_delta_pages_acc(const void* plo, const void* sl, const void* vals,
+                           const void* x2, const void* rows, void* acc,
+                           long long n_acc, long long T_tiles, int q,
+                           void* stream) {
+  constexpr int V = 16 / sizeof(T);
+  if (acc == nullptr || rows == nullptr ||
+      delta_refused<T>(sl, vals, nullptr, rows, q))
+    return (int)cudaErrorInvalidValue;
+  if (T_tiles == 0) return (int)cudaGetLastError();
+  delta_pages_acc_kernel<T><<<(unsigned)T_tiles, PAGE / V, 0,
+                              (cudaStream_t)stream>>>(
+      (const int32_t*)plo, (const int16_t*)sl, (const T*)vals, (const T*)x2,
+      (const int32_t*)rows, (T*)acc, n_acc, q * PAGE);
   return (int)cudaGetLastError();
 }
 
@@ -315,6 +413,24 @@ extern "C" int spx_delta_pages_f64(const void* plo, const void* sl,
                                    void* out, long long T, int q,
                                    void* stream) {
   return launch_delta_pages<double>(plo, sl, vals, x2, out, T, q, stream);
+}
+
+extern "C" int spx_delta_pages_acc_f32(const void* plo, const void* sl,
+                                       const void* vals, const void* x2,
+                                       const void* rows, void* acc,
+                                       long long n_acc, long long T, int q,
+                                       void* stream) {
+  return launch_delta_pages_acc<float>(plo, sl, vals, x2, rows, acc, n_acc,
+                                       T, q, stream);
+}
+
+extern "C" int spx_delta_pages_acc_f64(const void* plo, const void* sl,
+                                       const void* vals, const void* x2,
+                                       const void* rows, void* acc,
+                                       long long n_acc, long long T, int q,
+                                       void* stream) {
+  return launch_delta_pages_acc<double>(plo, sl, vals, x2, rows, acc, n_acc,
+                                        T, q, stream);
 }
 
 extern "C" int spx_paged_gather_f32(const void* plo, const void* sl,

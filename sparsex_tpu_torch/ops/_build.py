@@ -114,70 +114,61 @@ def _compile(out: str) -> None:
     build_log = log
 
 
-def _bind(lib: ctypes.CDLL) -> None:
+def _signatures() -> dict:
+    """Each entry point's argument types, by name without its value-type
+    suffix (``spx_{name}_f32`` / ``_f64``); every one returns an int."""
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for sfx in ("f32", "f64"):
-        for name in ("k1", "k1_sl"):
-            f = getattr(lib, f"spx_{name}_{sfx}")
-            f.argtypes = [vp, vp, vp, vp, vp, ll, i, vp]
-            f.restype = i
-        for name in ("k1_rlp", "k1_run"):
-            f = getattr(lib, f"spx_{name}_{sfx}")
-            f.argtypes = [vp, vp, vp, vp, vp, ll, i, i, vp]
-            f.restype = i
-        f = getattr(lib, f"spx_lane_gather_{sfx}")
-        f.argtypes = [vp, vp, vp, ll, i, vp]
-        f.restype = i
-        f = getattr(lib, f"spx_t1_{sfx}")
-        f.argtypes = [vp, vp, i, vp]
-        f.restype = i
-        f = getattr(lib, f"spx_k2_{sfx}")
-        f.argtypes = [vp, vp, vp, vp, vp, i, i, i, vp]
-        f.restype = i
-        f = getattr(lib, f"spx_k3_{sfx}")
-        f.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(vp),
-                      ctypes.POINTER(i), i, vp, vp, i, vp, vp, i, vp, vp,
-                      ll, i, vp, vp]
-        f.restype = i
-        # the k-batched variants: the same arguments plus kb and the
-        # values per column of x (and of the reversed x for K3)
-        for name in ("k1_kb", "k1_sl_kb"):
-            f = getattr(lib, f"spx_{name}_{sfx}")
-            f.argtypes = [vp, vp, vp, vp, vp, ll, i, i, ll, vp]
-            f.restype = i
-        for name in ("k1_rlp_kb", "k1_run_kb"):
-            f = getattr(lib, f"spx_{name}_{sfx}")
-            f.argtypes = [vp, vp, vp, vp, vp, ll, i, i, i, ll, vp]
-            f.restype = i
-        f = getattr(lib, f"spx_lane_gather_kb_{sfx}")
-        f.argtypes = [vp, vp, vp, ll, i, i, vp]
-        f.restype = i
-        f = getattr(lib, f"spx_t1_kb_{sfx}")
-        f.argtypes = [vp, vp, i, i, vp]
-        f.restype = i
-        f = getattr(lib, f"spx_k2_kb_{sfx}")
-        f.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, vp]
-        f.restype = i
-        f = getattr(lib, f"spx_k3_kb_{sfx}")
-        f.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(vp),
-                      ctypes.POINTER(i), i, vp, vp, i, vp, vp, i, vp, vp,
-                      ll, i, vp, i, ll, ll, vp]
-        f.restype = i
-        f = getattr(lib, f"spx_dia_{sfx}")
-        f.argtypes = [vp, vp, vp, i, ll, vp, vp]
-        f.restype = i
-        f = getattr(lib, f"spx_delta_pages_{sfx}")
-        f.argtypes = [vp, vp, vp, vp, vp, ll, i, vp]
-        f.restype = i
-        f = getattr(lib, f"spx_paged_gather_{sfx}")
-        f.argtypes = [vp, vp, vp, vp, ll, i, i, vp]
-        f.restype = i
-        f = getattr(lib, f"spx_paged_units_{sfx}")
-        f.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, ll, i, i, i, i, i, i,
-                      i, vp]
-        f.restype = i
-    lib.spx_cuda_error_string.argtypes = [i]
+    pvp, pi = ctypes.POINTER(vp), ctypes.POINTER(i)
+    sig = {}
+    for name in ("k1", "k1_sl"):
+        sig[name] = [vp, vp, vp, vp, vp, ll, i, vp]
+    for name in ("k1_rlp", "k1_run"):
+        sig[name] = [vp, vp, vp, vp, vp, ll, i, i, vp]
+    sig["lane_gather"] = [vp, vp, vp, ll, i, vp]
+    sig["t1"] = [vp, vp, i, vp]
+    sig["k2"] = [vp, vp, vp, vp, vp, i, i, i, vp]
+    sig["k3"] = [pvp, pvp, pi, i, vp, vp, i, vp, vp, i, vp, vp, ll, i, vp,
+                 vp]
+    # the k-batched variants: the same arguments plus kb and the values per
+    # column of x (and of the reversed x for K3)
+    for name in ("k1_kb", "k1_sl_kb"):
+        sig[name] = [vp, vp, vp, vp, vp, ll, i, i, ll, vp]
+    for name in ("k1_rlp_kb", "k1_run_kb"):
+        sig[name] = [vp, vp, vp, vp, vp, ll, i, i, i, ll, vp]
+    sig["lane_gather_kb"] = [vp, vp, vp, ll, i, i, vp]
+    sig["t1_kb"] = [vp, vp, i, i, vp]
+    sig["k2_kb"] = [vp, vp, vp, vp, vp, i, i, i, i, vp]
+    sig["k3_kb"] = [pvp, pvp, pi, i, vp, vp, i, vp, vp, i, vp, vp, ll, i, vp,
+                    i, ll, ll, vp]
+    sig["dia"] = [vp, vp, vp, i, ll, vp, vp]
+    sig["delta_pages"] = [vp, vp, vp, vp, vp, ll, i, vp]
+    sig["delta_pages_acc"] = [vp, vp, vp, vp, vp, vp, ll, ll, i, vp]
+    sig["paged_gather"] = [vp, vp, vp, vp, ll, i, i, vp]
+    sig["paged_units"] = [vp, vp, vp, vp, vp, vp, vp, ll, ll, i, i, i, i, i,
+                          i, i, vp]
+    return sig
+
+
+def _bind(lib: ctypes.CDLL, missing_ok: bool = False) -> list:
+    """Give each entry point of ``lib`` its argument and result types.
+    Returns the kernel names whose entry points ``lib`` lacks (a library
+    built from another tree's sources, ``tools/kernel_ab_torch.py``); a
+    missing one raises ``AttributeError`` unless ``missing_ok``."""
+    missing = []
+    for name, args in _signatures().items():
+        for sfx in ("f32", "f64"):
+            try:
+                f = getattr(lib, f"spx_{name}_{sfx}")
+            except AttributeError:
+                if not missing_ok:
+                    raise
+                missing.append(name)
+                continue
+            f.argtypes = args
+            f.restype = ctypes.c_int
+    lib.spx_cuda_error_string.argtypes = [ctypes.c_int]
     lib.spx_cuda_error_string.restype = ctypes.c_char_p
+    return sorted(set(missing))
 
 
 def library() -> ctypes.CDLL:

@@ -132,16 +132,33 @@ def _check_windows(pages_meta, pages_arrays) -> None:
                              f"{npages_pad}-page grid")
 
 
+# the paged delta streams of a plan: its direct one and, on a symmetric
+# shard, the transposed one (meta key, arrays key, scatter route's meta
+# key, arrays key)
+_DELTA_STREAMS = (("dpages", "delta_pages", "dscatter", "delta_scatter"),
+                  ("dpagesT", "delta_pages_t", "dscatterT",
+                   "delta_scatter_t"))
+
+
+def _delta_rows(pages_meta, key: str) -> int:
+    """The rows a paged delta stream scatters into: the partition's for the
+    direct stream, every row of the (square) matrix for a symmetric
+    shard's transposed one; its padding slots carry that count as their
+    sentinel row."""
+    return pages_meta[1] if key == "dpagesT" else pages_meta[0]
+
+
 def _page_windows(pages_meta, pages_arrays):
     """(name, plo, q, npages) of every legacy paged part of the plan: the
-    ``dpages`` delta stream and each paged run or block table's unit
-    plan."""
+    ``dpages`` delta stream (and a symmetric shard's ``dpagesT``) and each
+    paged run or block table's unit plan."""
     extras = {e[0]: e[1:] for e in pages_meta[5:] if e}
     parts = []
-    if "dpages" in extras:
-        _T, q, npages = extras["dpages"]
-        parts.append(("delta_pages plo", pages_arrays["delta_pages"]["plo"],
-                      q, npages))
+    for key, arr_key, _s, _a in _DELTA_STREAMS:
+        if key in extras:
+            _T, q, npages = extras[key]
+            parts.append((f"{arr_key} plo", pages_arrays[arr_key]["plo"], q,
+                          npages))
     for kind, metas, key in (("run", pages_meta[2], "runs"),
                              ("block", pages_meta[3], "blocks")):
         for i, (entry, t) in enumerate(zip(metas, pages_arrays.get(key,
@@ -153,53 +170,58 @@ def _page_windows(pages_meta, pages_arrays):
     return parts
 
 
-def _check_pages(pages_meta, pages_arrays, nrows: int) -> None:
+def _check_pages(pages_meta, pages_arrays) -> None:
     """The CUDA paged gathers read ``x2`` unchecked: every tile's q-page
     window must lie inside the ``max(npages, q)``-page grid that
-    ``pad_x_pages`` gives its part, and every ``dpages`` row inside the
-    ``nrows + 1`` accumulator (the last slot takes the padding slots'
-    sentinel rows)."""
+    ``pad_x_pages`` gives its part, and every row of a paged delta stream
+    inside [0, n], n its rows (:func:`_delta_rows`; n itself is the
+    padding slots' sentinel, which the scatter epilogue drops)."""
     for name, plo, q, npages in _page_windows(pages_meta, pages_arrays):
         plo = np.asarray(plo)
         if plo.size and (plo.min() < 0 or int(plo.max()) + q
                          > max(npages, q)):
             raise ValueError(f"{name}: windows outside the "
                              f"{max(npages, q)}-page grid")
-    rep = pages_arrays.get("delta_pages")
-    if rep is not None and "rows" in rep:
-        rows = np.asarray(rep["rows"])
-        if rows.size and (rows.min() < 0 or rows.max() > nrows):
-            raise ValueError(f"delta_pages rows outside [0, {nrows}]")
+    for key, arr_key, _s, _a in _DELTA_STREAMS:
+        rep = pages_arrays.get(arr_key)
+        if rep is not None and "rows" in rep:
+            n = _delta_rows(pages_meta, key)
+            rows = np.asarray(rep["rows"])
+            if rows.size and (rows.min() < 0 or rows.max() > n):
+                raise ValueError(f"{arr_key} rows outside [0, {n}]")
 
 
 def _scatter_plans(pages_meta, pages_arrays):
-    """(name, metas, arrays, source length) of every legacy scatter plan
-    (``route.build_scatter_plan``) of the plan: the ``dscatter`` route of
-    the paged delta stream's products and each routed run or block table's
-    (its partials, padded to M_pad)."""
+    """(name, metas, arrays, source length, destination rows) of every
+    legacy scatter plan (``route.build_scatter_plan``) of the plan: the
+    ``dscatter`` route of the paged delta stream's products (and a
+    symmetric shard's ``dscatterT``, into every row of the matrix) and each
+    routed run or block table's (its partials, padded to M_pad)."""
     extras = {e[0]: e[1:] for e in pages_meta[5:] if e}
     plans = []
-    if "dscatter" in extras:
-        plans.append(("delta_scatter", extras["dscatter"][0],
-                      pages_arrays["delta_scatter"],
-                      extras["dpages"][0] * 1024))
+    for key, _arr_key, skey, sarr_key in _DELTA_STREAMS:
+        if skey in extras:
+            plans.append((sarr_key, extras[skey][0], pages_arrays[sarr_key],
+                          extras[key][0] * 1024,
+                          _delta_rows(pages_meta, key)))
     for kind, metas, key in (("run", pages_meta[2], "runs"),
                              ("block", pages_meta[3], "blocks")):
         for i, (entry, t) in enumerate(zip(metas, pages_arrays.get(key,
                                                                    ()))):
             if len(entry) > 4 and entry[4] and "scatter" in t:
                 plans.append((f"{kind} {i} scatter", entry[4][0],
-                               t["scatter"], entry[4][2]))
+                               t["scatter"], entry[4][2], pages_meta[0]))
     return plans
 
 
-def _check_scatter_plans(pages_meta, pages_arrays, nrows: int) -> None:
+def _check_scatter_plans(pages_meta, pages_arrays) -> None:
     """The lane gathers of a legacy scatter plan read whole rows of the
     shapes the route metas give, and the residual adds index the source
     stream: every instance's wires must have those shapes and take source
     rows inside the stream, every residual position must lie in the stream
-    and every residual row in [0, nrows)."""
-    for name, metas, plan, n_src in _scatter_plans(pages_meta, pages_arrays):
+    and every residual row among the plan's destination rows."""
+    for name, metas, plan, n_src, nrows in _scatter_plans(pages_meta,
+                                                           pages_arrays):
         for i, (m, arrs) in enumerate(zip(metas, plan["chunks"])):
             S1c, S1p, A2R, D2R, Dp, K, W2, a0, a1 = m[:9]
             want = {"g1": (S1p, L), "g2a": (L * A2R, L),
@@ -267,12 +289,17 @@ def plan_to_torch(pages_meta, pages_arrays, device,
     fused run table, the table itself for a plain one, with its unit-page
     ``plan`` when paged, ``{}`` for a ``cvt`` one), ``fall`` (the merged
     plan), ``delta`` (plain delta singles, or None), ``delta_pages`` (the
-    paged delta stream, ``sl`` kept int16), the standalone ``dias`` and the
-    K3 DIA grids.  ``g2b_{i}`` holds raw wires."""
+    paged delta stream: ``sl`` kept int16, ``rows`` int32 as the kernel's
+    scatter epilogue reads them), ``delta_scatter`` (its scatter route), the
+    standalone ``dias`` and the K3 DIA grids; a symmetric shard's plan
+    (``symmetric.shard_plan``) adds the transposed stream
+    (``delta_pages_t``, ``delta_scatter_t``), its leftovers ``delta_t``
+    (their ``cols`` global rows of the result) and the diagonal's values
+    ``dvals``.  ``g2b_{i}`` holds raw wires."""
     extras = {e[0]: e[1:] for e in pages_meta[5:] if e}
     _check_windows(pages_meta, pages_arrays)
-    _check_pages(pages_meta, pages_arrays, pages_meta[0])
-    _check_scatter_plans(pages_meta, pages_arrays, pages_meta[0])
+    _check_pages(pages_meta, pages_arrays)
+    _check_scatter_plans(pages_meta, pages_arrays)
     out: Dict[str, object] = {}
     if "dfused" in extras:
         out["fused"] = _upload_tree(pages_arrays["fused"], device, dtype,
@@ -283,20 +310,26 @@ def plan_to_torch(pages_meta, pages_arrays, device,
     if "fall" in extras:
         out["fall"] = _upload_tree(pages_arrays["fall"], device, dtype,
                                    extras["fall"][1])
-    if "dpages" in extras:
-        out["delta_pages"] = _upload_tree(pages_arrays["delta_pages"],
-                                          device, dtype)
-    if "dscatter" in extras:
-        out["delta_scatter"] = _upload_scatter(pages_arrays["delta_scatter"],
-                                               device)
+    for key, arr_key, skey, sarr_key in _DELTA_STREAMS:
+        if key in extras:
+            rep = pages_arrays[arr_key]
+            out[arr_key] = _upload_tree(
+                {k: v for k, v in rep.items() if k != "rows"}, device, dtype)
+            if "rows" in rep:      # read by the scatter epilogue alone
+                out[arr_key]["rows"] = _upload(np.asarray(rep["rows"]),
+                                               device, torch.int32)
+        if skey in extras:
+            out[sarr_key] = _upload_scatter(pages_arrays[sarr_key], device)
     delta = pages_arrays.get("delta")
     out["delta"] = (None if delta is None
                     else _upload_tree(delta, device, dtype))
+    if pages_arrays.get("delta_t") is not None:
+        out["delta_t"] = _upload_tree(pages_arrays["delta_t"], device, dtype)
     if pages_meta[4] and "k3dias" not in extras:   # standalone DIA tables
         out["dias"] = [{"vals": _upload(np.asarray(t["vals"]), device,
                                         dtype)}
                        for t in pages_arrays["dias"]]
-    for key in ("dias_fused_dv", "dias_fused_adv"):
+    for key in ("dias_fused_dv", "dias_fused_adv", "dvals"):
         if pages_arrays.get(key) is not None:
             out[key] = _upload(np.asarray(pages_arrays[key]), device, dtype)
     return out

@@ -1,9 +1,10 @@
 """One partition's SpMV contribution on PyTorch.
 
 Counterpart of ``local_contrib`` (``sparsex_tpu/ops/kernels.py:259-736``),
-ported for the 1-D, non-symmetric paths of the paged variant
-(``_pages_meta``) and of the plain-table variant (the executor's ``meta``,
-when the planner made no paged one), with the reference's own queue
+ported for the 1-D paths of the paged variant (``_pages_meta``), of the
+plain-table variant (the executor's ``meta``, when the planner made no
+paged one) and of a symmetric shard's per-shard plan
+(``symmetric.shard_plan``), with the reference's own queue
 (``k3_pending``, ``k3_post``, ``fall_pieces``) and one shared K3 at the
 end:
 
@@ -14,8 +15,9 @@ end:
 - the standalone DIA tables with static offsets (``dia_contrib``, :352-361,
   :78-127), through the DIA kernel;
 - the shared ``x2`` page grid of every legacy paged consumer (:392-402,
-  ``paged_grid``) and ``dpages``, the page-bucketed delta product and its
-  scatter-add, or its products through their scatter route ``dscatter``
+  ``paged_grid``) and ``dpages``, the page-bucketed delta product with
+  its scatter-add in the kernel (the scatter epilogue), or its products
+  through their scatter route ``dscatter``
   (:403-422, ``route.apply_scatter_plan``: five lane gathers per route
   instance) and the route's residual adds;
 - the plain delta singles (gather + segment sum, :454-459);
@@ -37,7 +39,13 @@ end:
   fblk block-row streams of its segments (``merged_source``) with its
   ``dres`` / ``rres`` / ``bres`` residuals (:684-716);
 - the shared K3 with the ``k3dias`` DIA tables, then the ``k3_post`` adds
-  (:718-734).
+  (:718-734);
+- on a symmetric shard, the diagonal's ``dvals * x_own`` first and the
+  upper mirror's contributions ``z`` last (``transposed_contrib``: the
+  transposed paged delta ``dpagesT`` through its scatter route
+  ``dscatterT`` or the kernel's scatter epilogue, the DIA tables'
+  transposed windows, the leftovers ``delta_t``, the run and block tables'
+  transposed scatters).
 
 A k-major x (k, ncols) runs the same composition with every kernel in its
 k-batched variant (``fused_mm_ok`` / ``fused_mm_contrib``,
@@ -114,8 +122,6 @@ def tables_to_arrays(tables: CsxTables) -> Dict[str, Any]:
 # table classes, extras and merged-plan parts of the reference executor ->
 # where their port is queued in ROADMAP.md
 _QUEUED = {
-    "dpagesT": "Queue 1 item 8 (symmetric per-shard delta)",
-    "dscatterT": "Queue 1 item 8 (symmetric per-shard scatter)",
     "dsfused": "Queue 1 item 13 (stacked sharded fused delta)",
 }
 
@@ -151,14 +157,16 @@ def check_slice(meta) -> None:
     dense-tile ``sl`` / ``run{W}``), fused block tables (``fblk``), their
     merged plan with its ``dres`` / ``rres`` / ``bres`` residuals, DIA
     tables riding K3 or standalone (static offsets), the legacy paged delta
-    (``dpages``) with or without its scatter route (``dscatter``), plain
+    (``dpages``) with or without its scatter route (``dscatter``), a
+    symmetric shard's transposed one (``dpagesT``, ``dscatterT``), plain
     delta singles, and plain or paged (unit-page) run and block tables,
     scatter-added, routed through a partial segment (``fs``) or through a
     legacy scatter plan."""
     _nr, _nc, run_meta, block_meta, dia_meta = meta[:5]
     extras = {e[0]: e[1:] for e in meta[5:] if e}
     for key in extras:
-        if key not in ("dfused", "k3dias", "fall", "dpages", "dscatter"):
+        if key not in ("dfused", "k3dias", "fall", "dpages", "dscatter",
+                       "dpagesT", "dscatterT"):
             _refuse(f"the {key!r} execution class",
                     _QUEUED.get(key, "Queue 1"))
     if "dfused" in extras:
@@ -239,11 +247,11 @@ def shared_page_grid(meta, x, ncols: int):
 
 def paged_grid(meta, x, ncols: int):
     """ONE padded page grid of x shared by every legacy paged consumer (the
-    ``dpages`` delta stream, each paged run or block table's unit plan),
-    sized by their largest q and npages (kernels.py:392-402); None when the
-    plan has none."""
+    ``dpages`` delta stream and a symmetric shard's transposed ``dpagesT``,
+    each paged run or block table's unit plan), sized by their largest q
+    and npages (kernels.py:392-402); None when the plan has none."""
     extras = {e[0]: e[1:] for e in meta[5:] if e}
-    sigs = [extras["dpages"]] if "dpages" in extras else []
+    sigs = [extras[k] for k in ("dpages", "dpagesT") if k in extras]
     sigs += [e[3] for e in (*meta[2], *meta[3]) if len(e) > 3 and e[3]]
     if not sigs:
         return None
@@ -458,7 +466,9 @@ def fused_mm_contrib(meta, arrs, xt, *, nrows_part: int, ncols: int):
     return local_contrib(meta, arrs, xt, nrows_part=nrows_part, ncols=ncols)
 
 
-def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int):
+def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int,
+                  symmetric: bool = False, row_start: int = 0,
+                  nrows_glob: int = None):
     """The dense (nrows_part,) contribution of one partition: every fused
     segment's K1 (the delta bulk and tail, each fused run table) and each
     fblk table's block-row streams, then either their per-segment route
@@ -467,7 +477,15 @@ def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int):
     or routed; the plain and paged tables' adds; one K3 with
     the DIA tables that ride it, then the residual and spill adds.  A
     k-major x (k, ncols) of a :func:`fused_mm_ok` plan gives (k,
-    nrows_part) through the same composition (:func:`fused_mm_contrib`)."""
+    nrows_part) through the same composition (:func:`fused_mm_contrib`).
+
+    ``symmetric``: the partition is a symmetric shard's strict lower
+    triangle (``symmetric.shard_plan``, rows from ``row_start``) and
+    ``arrs["dvals"]`` its diagonal (kernels.py:287-300); ``acc`` then
+    starts from ``dvals * x_own`` and the result is ``(acc, z)``, ``z`` the
+    upper mirror's contributions over all ``nrows_glob`` rows
+    (:func:`transposed_contrib`).  Its SpMV is 1-D: an SpMM runs it once
+    per column."""
     if x.dim() not in (1, 2):
         raise ValueError(f"x: shape {tuple(x.shape)} is neither (ncols,) nor "
                          "k-major (k, ncols)")
@@ -490,6 +508,8 @@ def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int):
                          "segment that runs once per column (fused_mm_ok)")
     x2f = shared_page_grid(meta, x, ncols)
     x2 = paged_grid(meta, x, ncols)      # shared by every paged consumer
+    if symmetric:
+        acc = own_rows(x, row_start, nrows_part) * arrs["dvals"]
     blk = fblk_streams(meta, arrs, x, ncols, x2)
     if fall is not None:  # every fused segment feeds the merged plan
         k3_pending += merged_e1s(fall[1], arrs["fall"],
@@ -508,11 +528,6 @@ def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int):
                             far["left_rows"]))
 
     dpages, dscatter = extras.get("dpages"), extras.get("dscatter")
-    if dpages is not None and dscatter is None:
-        # one spare slot past the rows takes the padding slots' sentinel
-        # row nrows_part, which the reference drops
-        base = torch.zeros(nrows_part + 1, dtype=x.dtype, device=x.device)
-        acc = base[:nrows_part]
     if meta[4] and k3dias is None:       # standalone DIA tables
         acc = dia_contrib(meta[4], arrs["dias"], x, nrows_part, ncols, acc)
     if dscatter is not None:   # the products through their scatter route
@@ -520,9 +535,9 @@ def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int):
                           delta_pages_products(dpages, arrs["delta_pages"],
                                                x, ncols, x2=x2),
                           dscatter[1], nrows_part)
-    elif dpages is not None:
-        delta_pages_spmv(dpages, arrs["delta_pages"], x, nrows_part, ncols,
-                         base, x2=x2)
+    elif dpages is not None:   # the kernel's scatter epilogue
+        acc = delta_pages_spmv(dpages, arrs["delta_pages"], x, nrows_part,
+                               ncols, zeros() if acc is None else acc, x2=x2)
 
     d = arrs.get("delta")
     if d is not None and d["cols"].shape[0]:
@@ -633,10 +648,89 @@ def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int):
             add_totals(acc, a[b], c)
         else:
             add_totals(acc, a, b)
+    if symmetric:
+        return acc, transposed_contrib(
+            meta, arrs, x, x2, nrows_part=nrows_part, ncols=ncols,
+            row_start=row_start,
+            nrows_glob=ncols if nrows_glob is None else nrows_glob)
     return acc
 
 
+def own_rows(x, row_start: int, nrows_part: int):
+    """``x_own``: the x values at a symmetric shard's own rows, zero past
+    x's end (kernels.py:289-300)."""
+    own = x[row_start:row_start + nrows_part]
+    if own.shape[0] < nrows_part:
+        own = F.pad(own, (0, nrows_part - own.shape[0]))
+    return own
+
+
+def transposed_contrib(meta, arrs, x, x2, *, nrows_part: int, ncols: int,
+                       row_start: int, nrows_glob: int):
+    """``z``, dense over the ``nrows_glob`` rows of a symmetric matrix: the
+    upper mirror of a shard's strict lower triangle, each stored value
+    applied a second time with row and column swapped (ref
+    ``local_contrib``'s symmetric parts): the transposed paged delta stream
+    ``dpagesT`` (its "columns" are the shard's global rows, so it reads x
+    through the shared page grid ``x2``), through its scatter route
+    ``dscatterT`` with the route's residual adds (kernels.py:423-441) or
+    the kernel's scatter epilogue into z, whose padding slots carry the
+    sentinel row ``nrows_glob``; the DIA tables' transposed windows, each
+    diagonal's products with ``x_own`` added into a static slice of z
+    (:144-153, :168-177); the transposed leftovers ``delta_t``, whose
+    ``cols`` are rows of z (:460-469), or the plain delta itself where the
+    shard has no paged stream; each run and block table's transposed
+    products, gathered at the unit's rows and added at its columns
+    (:589-598, :666-682).  Destinations outside [0, nrows_glob) are
+    dropped, as ``mode="drop"`` drops them."""
+    extras = {e[0]: e[1:] for e in meta[5:] if e}
+    dev = x.device
+    x_own = own_rows(x, row_start, nrows_part)
+    dpt, dst = extras.get("dpagesT"), extras.get("dscatterT")
+    if dst is not None:
+        z = _routed_add(None, dst[0], arrs["delta_scatter_t"],
+                        delta_pages_products(dpt, arrs["delta_pages_t"], x,
+                                             nrows_glob, x2=x2),
+                        dst[1], nrows_glob)
+    else:
+        z = torch.zeros(nrows_glob, dtype=x.dtype, device=dev)
+        if dpt is not None:
+            delta_pages_spmv(dpt, arrs["delta_pages_t"], x, nrows_glob,
+                             nrows_glob, z, x2=x2)
+    for (anti, offsets, _nd), t in zip(meta[4], arrs.get("dias", ())):
+        for k, o in enumerate(offsets):
+            lo = o - nrows_part + 1 if anti else o
+            z0, z1 = max(0, lo), min(nrows_glob, lo + nrows_part)
+            if z1 <= z0:
+                continue
+            if anti:     # z[o - r] += dv[r] * x_own[r]: a reversed window
+                prod = torch.flip(t["vals"][k] * x_own, (0,))
+                z[z0:z1] += prod[z0 - lo:z1 - lo]
+            else:        # z[r + o] += dv[r] * x_own[r], one pass a diagonal
+                z[z0:z1].addcmul_(t["vals"][k][z0 - lo:z1 - lo],
+                                  x_own[z0 - lo:z1 - lo])
+    dt = arrs.get("delta_t", arrs.get("delta"))
+    if dt is not None and dt["cols"].shape[0]:
+        add_products(z, dt["vals"], dt["row_ids"] + row_start, dt["cols"], x,
+                     ncols)
+    for kind, metas in (("runs", meta[2]), ("blocks", meta[3])):
+        for entry, t in zip(metas, arrs[kind]):
+            steps, _each, offs = _unit_layout(kind, entry, dev)
+            if offs is None:
+                offs = _steps(1, 0, str(dev))
+            xr = x[(t["rows"][:, None] + offs + row_start).clamp(0,
+                                                                 ncols - 1)]
+            if kind == "blocks":   # (U, br, bc) values, (U, br) x values
+                prods = (t["vals"] * xr[:, :, None]).sum(1)
+            else:                  # (U, W) values, one x value per element
+                prods = t["vals"] * xr
+            dest = (t["cols"][:, None] + steps).clamp(0, nrows_glob - 1)
+            z.index_add_(0, dest.reshape(-1), prods.reshape(-1))
+    return z
+
+
 __all__ = ["check_slice", "dia_contrib", "dia_tables", "fused_mm_contrib",
-           "fused_mm_ok", "local_contrib", "merged_source", "paged_grid",
-           "shared_page_grid", "static_meta", "tables_to_arrays",
-           "unit_dest", "unit_table_partials"]
+           "fused_mm_ok", "local_contrib", "merged_source", "own_rows",
+           "paged_grid", "shared_page_grid", "static_meta",
+           "tables_to_arrays", "transposed_contrib", "unit_dest",
+           "unit_table_partials"]

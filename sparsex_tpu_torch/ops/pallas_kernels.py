@@ -6,13 +6,16 @@ kernels are the CUDA kernels of ``csrc/dia.cu`` (``_build_dia_kernel``) and
 its host planners are the port's own copies (``build_delta_pages``,
 ``build_unit_pages``, unchanged NumPy):
 
-- four kernel wrappers, ``dia``, ``delta_pages``, ``gather`` and
-  ``paged_units``, each launching its CUDA kernel on a CUDA tensor and
-  running its plain PyTorch version (``dia_plain``, ``delta_pages_plain``,
-  ``gather_plain``, ``paged_units_plain``) only on a CPU tensor; each
-  launch adds one to ``ops.fused.launches`` under ``dia``,
-  ``delta_pages``, ``paged_gather`` and ``paged_units``.  ``paged_units``
-  has no Pallas counterpart of its own: it is the unit-page gather fused
+- five kernel wrappers, ``dia``, ``delta_pages``, ``delta_pages_acc``,
+  ``gather`` and ``paged_units``, each launching its CUDA kernel on a CUDA
+  tensor and running its plain PyTorch version (``dia_plain``,
+  ``delta_pages_plain``, ``delta_pages_acc_plain``, ``gather_plain``,
+  ``paged_units_plain``) only on a CPU tensor; each launch adds one to
+  ``ops.fused.launches`` under ``dia``, ``delta_pages``,
+  ``delta_pages_acc``, ``paged_gather`` and ``paged_units``.
+  ``delta_pages_acc`` is the delta-pages product with the scatter-add
+  that the reference runs in XLA after it (``delta_pages_spmv``)
+  folded into the kernel, and ``paged_units`` the unit-page gather fused
   with the multiply and the per-unit sums that the reference's executor
   runs in XLA around it (kernels.py:471-491, :570-588, :647-665);
 - the host-side functions with the reference's names: ``pad_x_pages``
@@ -344,23 +347,60 @@ def _check_pages(plo, sl, x2, q: int, sl_dtypes, dev) -> int:
     return T
 
 
-def delta_pages(plo, sl, vals, x2, q: int):
-    """The delta-pages product over a (T, 8, 128) tile stream: ``plo`` (T,)
-    int32 window starts, ``sl`` int16 window offsets, ``x2`` the padded
-    page grid (``pad_x_pages``).  The windows must lie inside ``x2``
-    (``ops/convert.py`` checks the plan's)."""
+def _check_delta(plo, sl, vals, x2, q: int) -> int:
+    """Check the delta kernels' common arguments; returns the tile count."""
     _value_dtype("vals", vals)
     dev = vals.device
     T = _check_pages(plo, sl, x2, q, (torch.int16,), dev)
     _check("vals", vals, None, (T, 8, L), dev)
     _check("x2", x2, vals.dtype)
-    if _route(dev) == "cpu":
+    return T
+
+
+def delta_pages(plo, sl, vals, x2, q: int):
+    """The delta-pages product over a (T, 8, 128) tile stream: ``plo`` (T,)
+    int32 window starts, ``sl`` int16 window offsets, ``x2`` the padded
+    page grid (``pad_x_pages``).  The windows must lie inside ``x2``
+    (``ops/convert.py`` checks the plan's).  The kernel reads a thread's
+    offsets (4 in f32, 2 in f64) as one vector and its values as 16 bytes
+    and writes its products with one 16-byte store: on the card an ``sl``
+    off that vector's boundary, ``vals`` off 16 bytes, or q outside 1..16
+    raises (CUDA error 1)."""
+    T = _check_delta(plo, sl, vals, x2, q)
+    if _route(vals.device) == "cpu":
         return delta_pages_plain(plo, sl, vals, x2, q)
     out = torch.empty_like(vals)
     _launch("delta_pages", vals.dtype, plo.data_ptr(), sl.data_ptr(),
             vals.data_ptr(), x2.data_ptr(), out.data_ptr(), T, q,
-            _stream(dev))
+            _stream(vals.device))
     return out
+
+
+def delta_pages_acc_plain(plo, sl, vals, x2, q: int, acc, rows):
+    """``acc[rows] += delta_pages_plain(...)`` in place, rows outside [0,
+    len(acc)) dropped (the padding slots' sentinel row); returns ``acc``."""
+    return add_totals(acc, delta_pages_plain(plo, sl, vals, x2, q).reshape(-1),
+                      rows)
+
+
+def delta_pages_acc(plo, sl, vals, x2, q: int, acc, rows):
+    """The delta-pages product with its scatter epilogue: each product added
+    into ``acc[rows[e]]`` (``rows`` int32, one per slot; rows outside [0,
+    len(acc)) dropped) by the kernel itself, with atomic adds in no fixed
+    order, as CUDA's ``index_add_`` makes them; returns ``acc``.  The
+    products never reach memory.  On the card ``rows`` off its vector
+    boundary (16 bytes in f32, 8 in f64) raises as :func:`delta_pages`'s
+    operands do."""
+    T = _check_delta(plo, sl, vals, x2, q)
+    dev = vals.device
+    _check("acc", acc, vals.dtype, (acc.shape[0],), dev)
+    _check("rows", rows, torch.int32, (T * PAGE,), dev)
+    if _route(dev) == "cpu":
+        return delta_pages_acc_plain(plo, sl, vals, x2, q, acc, rows)
+    _launch("delta_pages_acc", vals.dtype, plo.data_ptr(), sl.data_ptr(),
+            vals.data_ptr(), x2.data_ptr(), rows.data_ptr(), acc.data_ptr(),
+            acc.shape[0], T, q, _stream(dev))
+    return acc
 
 
 def gather(plo, sl, x2, q: int):
@@ -502,15 +542,19 @@ def delta_pages_products(rep_meta, rep, x, ncols: int, x2=None):
 def delta_pages_spmv(rep_meta, rep, x, nrows_part: int, ncols: int, acc,
                      x2=None):
     """``acc[rows] += products`` for the page-bucketed delta elements, in
-    place.  Padding slots carry ``vals = 0``, ``sl = 0`` and the sentinel
-    row ``nrows_part``, which the reference drops (``mode="drop"``): here
-    ``acc`` holds ``nrows_part + 1`` values and its last one takes them, so
-    no index is clamped and no product masked."""
-    if acc.shape[0] != nrows_part + 1:
+    place, through the kernel's scatter epilogue (:func:`delta_pages_acc`).
+    Padding slots carry ``vals = 0``, ``sl = 0`` and the sentinel row
+    ``nrows_part`` (``nrows_glob`` on a symmetric shard's transposed
+    stream), which the reference drops (``mode="drop"``), as the epilogue
+    does."""
+    if acc.shape[0] != nrows_part:
         raise ValueError(f"acc: {acc.shape[0]} values, expected nrows_part "
-                         f"+ 1 = {nrows_part + 1}")
-    prods = delta_pages_products(rep_meta, rep, x, ncols, x2=x2)
-    return acc.index_add_(0, rep["rows"], prods)
+                         f"= {nrows_part}")
+    _T, q, npages = rep_meta
+    if x2 is None:
+        x2 = pad_x_pages(x, ncols, q, npages)
+    return delta_pages_acc(rep["plo"], rep["sl"], rep["vals"], x2, q, acc,
+                           rep["rows"])
 
 
 def paged_gather_grid(plan_meta, plan, x, ncols: int, x2=None):
@@ -524,7 +568,8 @@ def paged_gather_grid(plan_meta, plan, x, ncols: int, x2=None):
 
 __all__ = [
     "build_delta_pages", "build_unit_pages", "dia", "dia_plain",
-    "dia_frame", "dia_spmv", "delta_pages", "delta_pages_plain", "gather",
+    "dia_frame", "dia_spmv", "delta_pages", "delta_pages_acc",
+    "delta_pages_acc_plain", "delta_pages_plain", "gather",
     "gather_plain", "page_grid", "pad_x_pages", "delta_pages_products",
     "delta_pages_spmv", "add_totals", "paged_gather_grid", "paged_units",
     "paged_units_plain", "window_index",

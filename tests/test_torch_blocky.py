@@ -468,7 +468,7 @@ _FR = (1, 1, 8, None, None, ("frun", (8, 4, 32, (), 0, "rlp8"), 0))
     ((), (), (("dfused", (8, 4, 32, (), 0, 0, "sl")),
               ("dsfused", 8, 4, 32, (), False, "lp")), "Queue 1 item 13"),
     ((_FR[:5] + (("frun", (8, 4, 32, (), 0, "run8"), 0),),), (),
-     (_DF, ("dscatterT", (), False)), "Queue 1 item 8"),
+     (_DF, ("dsfused", 8, 4, 32, (), False, "lp")), "Queue 1 item 13"),
 ])
 def test_check_slice_refusals(runs, blocks, extras, item):
     """What the port does not run yet is refused, naming its queue item;
@@ -492,13 +492,16 @@ def test_check_slice_refusals(runs, blocks, extras, item):
     ((_FR,), (), (_DF, ("fall", (("delta",), ("run", 0)), (), (),
                         (("bres", 0, 0),)))),
     (((1, 1, 16, None, ((), False, 1024)),), (), ()),
+    ((), (), (("dpages", 12, 4, 32), ("dpagesT", 12, 4, 32),
+              ("dscatter", (), False), ("dscatterT", (), False))),
 ])
 def test_check_slice_admits_the_routed_classes(runs, blocks, extras):
     """The legacy routed classes run since ROADMAP Queue 1 item 10 was
     ported (they were refused before): fused block tables (``fblk``), the
     merged plan's ``blk`` segments and ``bres`` residuals, the paged
     delta's scatter route (``dscatter``) and run or block tables routed
-    through a legacy scatter plan."""
+    through a legacy scatter plan; a symmetric shard's transposed delta
+    stream and its route (``dpagesT``, ``dscatterT``) since item 8."""
     check_slice((1 << 14, 1 << 14, runs, blocks, ()) + extras)
 
 

@@ -7,10 +7,12 @@ not installed; there, skip the JAX-based ``tests/conftest.py``:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 K1 (styles lp, rlp{W}, sl and run{W}), T1, K2, the lane gather, the DIA
-kernel, the delta-pages product, the unit-page gather (1 to 16 window
-pages, misaligned operands refused) and the paged-units kernel must equal
-their plain versions bit for bit; K3 must agree to 1e-6 of the largest value
-(both sum in the same order, without FMA).  The k-batched (SpMM) variants
+kernel, the delta-pages product (misaligned operands refused), the
+unit-page gather (1 to 16 window pages, misaligned operands refused) and
+the paged-units kernel must equal their plain versions bit for bit; K3
+must agree to 1e-6 of the largest value (both sum in the same order,
+without FMA), and so must the scatter epilogues of the delta-pages and
+paged-units kernels (atomic adds in no fixed order).  The k-batched (SpMM) variants
 of K1, T1, K2, K3 and the lane gather, at kb = 1, 3 and 8 (K2 at every
 kb from 1 to 8), must equal
 their plain versions the same way, and each column c the kb = 0 kernel on
@@ -391,12 +393,11 @@ def test_dia_cuda_matches_plain(dev, D, dtype):
     assert torch.equal(got, tpk.dia_plain(dvt, xp, offsets, pad_lo))
 
 
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_delta_pages_cuda_matches_plain(dev, dtype):
-    """The product bit-equal; the scatter-add takes the padding slots'
-    sentinel row n into the spare last slot of its n + 1 accumulator."""
-    rng = np.random.default_rng(5)
-    n, m = 1 << 16, 50000
+def _delta_stream(dev, dtype, n=1 << 16, m=50000, seed=5):
+    """A paged delta stream of m singles near the diagonal of an n-row
+    matrix (some padding slots with the sentinel row n) and an x, on the
+    card: (plo, sl, vals, rows int32, x, x2, q, npages)."""
+    rng = np.random.default_rng(seed)
     rows = rng.integers(0, n, m)
     cols = np.clip(rows + rng.integers(-5000, 5000, m), 0, n - 1)
     rep, _left = tpk.build_delta_pages(cols, rows,
@@ -406,22 +407,92 @@ def test_delta_pages_cuda_matches_plain(dev, dtype):
     assert (rep["rows"] == n).any() and rep["sl"].dtype == np.int16
     x = rng.standard_normal(n).astype(dtype)
     plo, sl, vals, rws, xt = _on(dev, rep["plo"], rep["sl"], rep["vals"],
-                                 rep["rows"].astype(np.int64), x)
-    x2 = tpk.pad_x_pages(xt, n, q, npages)
-    before = tf.launches["delta_pages"]
-    got = tpk.delta_pages(plo, sl, vals, x2, q)
-    torch.cuda.synchronize()
-    assert tf.launches["delta_pages"] == before + 1
+                                 rep["rows"].astype(np.int32), x)
+    return plo, sl, vals, rws, xt, tpk.pad_x_pages(xt, n, q, npages), q, \
+        npages
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_delta_pages_cuda_matches_plain(dev, dtype):
+    """The product bit-equal; the scatter epilogue (``delta_pages_spmv``)
+    drops the padding slots' sentinel row n and agrees with the plain
+    version's ``index_add_`` within 1e-6 of the largest value (atomic adds
+    sum in no fixed order)."""
+    n = 1 << 16
+    plo, sl, vals, rws, xt, x2, q, npages = _delta_stream(dev, dtype, n)
+    got = _launched("delta_pages", lambda: tpk.delta_pages(plo, sl, vals,
+                                                           x2, q))
     assert torch.equal(got, tpk.delta_pages_plain(plo, sl, vals, x2, q))
     meta = (plo.shape[0], q, npages)
     trep = {"plo": plo, "sl": sl, "vals": vals, "rows": rws}
-    acc = torch.zeros(n + 1, dtype=vals.dtype, device=dev)
-    tpk.delta_pages_spmv(meta, trep, xt, n, n, acc)
-    want = torch.zeros(n + 1, dtype=vals.dtype)
+    acc = _launched("delta_pages_acc", lambda: tpk.delta_pages_spmv(
+        meta, trep, xt, n, n, torch.zeros(n, dtype=vals.dtype, device=dev)))
+    want = torch.zeros(n, dtype=vals.dtype)
     tpk.delta_pages_spmv(meta, {k: v.cpu() for k, v in trep.items()},
                          xt.cpu(), n, n, want)
-    assert ((acc[:n].cpu() - want[:n]).abs().max()
-            <= 1e-6 * want[:n].abs().max())
+    assert (acc.cpu() - want).abs().max() <= 1e-6 * want.abs().max()
+
+
+@pytest.mark.parametrize("n_acc", [1 << 16, 40000])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_delta_pages_acc_cuda_matches_plain(dev, n_acc, dtype):
+    """The scatter epilogue into an accumulator that already holds values,
+    of every row (n_acc = n) or of the first 40000 (rows past it dropped),
+    within 1e-6 of ``delta_pages_acc_plain``."""
+    plo, sl, vals, rws, _xt, x2, q, _np = _delta_stream(dev, dtype, seed=7)
+    acc0 = torch.from_numpy(np.random.default_rng(1).standard_normal(n_acc)
+                            .astype(dtype)).to(dev)
+    got = _launched("delta_pages_acc", lambda: tpk.delta_pages_acc(
+        plo, sl, vals, x2, q, acc0.clone(), rws))
+    want = tpk.delta_pages_acc_plain(plo, sl, vals, x2, q, acc0.clone(), rws)
+    assert got.shape == (n_acc,)
+    assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+
+
+@pytest.mark.parametrize("operand", ["sl", "vals", "out", "rows", "q"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_delta_pages_cuda_refuses_misaligned(dev, operand, dtype):
+    """A thread's offsets and rows load as one vector each and its values
+    and products as 16 bytes: an operand one element past its boundary is
+    refused (CUDA error 1), and so is q = 17; nothing is launched."""
+    rng = np.random.default_rng(4)
+    T, q = 4, 2
+    plo, x2 = _on(dev, np.zeros(T, np.int32),
+                  rng.standard_normal((20, 8, L)).astype(dtype))
+    slf, valf, rowf = _on(dev, rng.integers(0, q * 1024, T * 8 * L + 8)
+                          .astype(np.int16),
+                          rng.standard_normal(T * 8 * L + 8).astype(dtype),
+                          rng.integers(0, 100, T * 8 * L + 8)
+                          .astype(np.int32))
+    shape = (T, 8, L)
+    sl, vals, rows = slf[:-8].view(shape), valf[:-8].view(shape), rowf[:-8]
+    out_off = {"out": 1}.get(operand, 0)
+    if operand == "sl":
+        sl = slf[1:-7].view(shape)
+    elif operand == "vals":
+        vals = valf[1:-7].view(shape)
+    elif operand == "rows":
+        rows = rowf[1:-7]
+    qq = 17 if operand == "q" else q
+    if operand == "q":
+        x2 = x2.repeat(2, 1, 1)
+    acc = torch.zeros(100, dtype=vals.dtype, device=dev)
+    before = (tf.launches["delta_pages"], tf.launches["delta_pages_acc"])
+    if operand != "rows":     # the product form
+        out = torch.empty(T * 8 * L + 4, dtype=vals.dtype, device=dev)
+        with pytest.raises(RuntimeError, match="CUDA error 1"):
+            if operand == "out":
+                from sparsex_tpu_torch.ops._launch import _launch, _stream
+                _launch("delta_pages", vals.dtype, plo.data_ptr(),
+                        sl.data_ptr(), vals.data_ptr(), x2.data_ptr(),
+                        out[out_off:].data_ptr(), T, qq, _stream(dev))
+            else:
+                tpk.delta_pages(plo, sl, vals, x2, qq)
+    if operand != "out":      # the scatter epilogue
+        with pytest.raises(RuntimeError, match="CUDA error 1"):
+            tpk.delta_pages_acc(plo, sl, vals, x2, qq, acc, rows)
+    assert (tf.launches["delta_pages"],
+            tf.launches["delta_pages_acc"]) == before
 
 
 @pytest.mark.parametrize("T", [64, 61])
@@ -604,14 +675,15 @@ def test_api_cuda_hpcg_matches_cpu(dev, dtype):
 
 
 @pytest.mark.parametrize("build,n,kernels", [
-    ("build_matrix", 1 << 17, ("dia", "delta_pages")),
-    ("build_blocky_matrix", 1 << 18, ("delta_pages", "paged_units")),
+    ("build_matrix", 1 << 17, ("dia", "delta_pages_acc")),
+    ("build_blocky_matrix", 1 << 18, ("delta_pages_acc", "paged_units")),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_api_cuda_paged_matches_cpu(dev, monkeypatch, build, n, kernels,
                                     dtype):
     """The legacy paged variant without a fused segment: nothing fuses
-    under a raised ``spx.tpu.min_fused_nnz`` and nothing is routed."""
+    under a raised ``spx.tpu.min_fused_nnz`` and nothing is routed, so the
+    paged delta runs the delta-pages kernel's scatter epilogue."""
     import chip_smoke
     monkeypatch.setattr(troute, "MIN_ELEMS", 1 << 30)
     _api_cuda_vs_cpu(getattr(chip_smoke, build), n, dtype, kernels,
@@ -661,6 +733,27 @@ def test_api_cuda_fs_matches_cpu(dev, monkeypatch, build, n, dtype):
     _api_cuda_vs_cpu(fn if build == "block3_matrix" else (lambda m: fn(m, 5)),
                      n, dtype, ("paged_units", "lane_gather", "t1", "k2",
                                 "k3"))
+
+
+@pytest.mark.parametrize("mode,routed,kernels", [
+    ("off", True, ("dia", "delta_pages", "lane_gather")),
+    ("off", False, ("dia", "delta_pages_acc")),
+    ("on", True, ("dia", "delta_pages", "lane_gather")),
+])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_api_cuda_symmetric_matches_cpu(dev, monkeypatch, mode, routed,
+                                        kernels, dtype):
+    """bench.py's symmetric matrix at 2^14 rows (page and route gates at
+    1024): per shard (``spx.tpu.sym_full=off``) both paged delta streams
+    through their scatter routes (``dscatter``, ``dscatterT``) or, with
+    the route gate out of reach, through the kernel's scatter epilogue;
+    the full mirror (``on``) on the paged delta with its route."""
+    import chip_smoke
+    monkeypatch.setattr(tpk, "MIN_PAGE_NNZ", 1024)
+    monkeypatch.setattr(troute, "MIN_ELEMS", 1024 if routed else 1 << 30)
+    _api_cuda_vs_cpu(chip_smoke.build_symmetric_matrix, 1 << 14, dtype,
+                     kernels, **{"spx.matrix.symmetric": "true",
+                                 "spx.tpu.sym_full": mode})
 
 
 @pytest.mark.parametrize("dtype,bar", [("float32", 2e-4),
@@ -886,6 +979,14 @@ GRAPH_PLANS = {
              True),
     "paged": ("build_blocky_matrix", 1 << 18,
               {"spx.tpu.min_fused_nnz": str(1 << 30)}, 1 << 30, False),
+    # a symmetric matrix per shard: both paged delta streams routed, or
+    # (route gate out of reach) through the scatter epilogue
+    "sym": ("build_symmetric_matrix", 1 << 17,
+            {"spx.matrix.symmetric": "true", "spx.tpu.sym_full": "off"},
+            None, False),
+    "sym-acc": ("build_symmetric_matrix", 1 << 17,
+                {"spx.matrix.symmetric": "true", "spx.tpu.sym_full": "off"},
+                1 << 30, False),
 }
 
 
@@ -1000,10 +1101,11 @@ def test_graph_epilogue_on_one_graph(dev, monkeypatch, plan):
 
 
 @pytest.mark.parametrize("k", [1, 8, 11])
-@pytest.mark.parametrize("plan", ["rlp", "hpcg"])
+@pytest.mark.parametrize("plan", ["rlp", "hpcg", "sym"])
 def test_graph_spmm_equals_eager(dev, monkeypatch, plan, k):
     """The SpMM replayed from its ("mm", k) graph: the k-batched chunks of
-    a fused plan (rlp), the SpMV once per column otherwise (hpcg)."""
+    a fused plan (rlp), the SpMV once per column otherwise (hpcg, and a
+    symmetric matrix's per-shard plan)."""
     A, n, *_rest, exact = _graph_plan(monkeypatch, plan)
     ex = A.csx.executors[0]
     X = torch.as_tensor(np.random.default_rng(4).standard_normal((n, k)),

@@ -252,10 +252,34 @@ def test_api_errors():
     yb = spt.matvec_mult(1.0, A, torch.ones(n, dtype=torch.bfloat16))
     assert yb.dtype == torch.bfloat16
     assert torch.equal(yb, spt.matvec_mult(1.0, A, torch.ones(n)).bfloat16())
+    # symmetric matrices (ROADMAP Queue 1 item 8): an unsymmetric pattern
+    # is refused; the matrix's symmetric part tunes and runs in both modes
     spt.Config.instance().set("spx.matrix.symmetric", "true")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(spt.SparsexError) as ei:
         spt.mat_tune(inp, device="cpu")
+    assert ei.value.code == spt.ErrorCode.SPX_ERR_INPUT_MAT
+    strict = rows > cols
+    keep = rows >= cols
+    rs = np.concatenate([rows[keep], cols[strict]])
+    cs = np.concatenate([cols[keep], rows[strict]])
+    vs = np.concatenate([vals[keep], vals[strict]])
+    order = np.lexsort((cs, rs))
+    rs, cs, vs = rs[order], cs[order], vs[order]
+    rowptr = np.zeros(n + 1, dtype=np.int64)
+    rowptr[1:] = np.cumsum(np.bincount(rs, minlength=n))
+    sym = spt.input_load_csr(rowptr, cs, vs, n, n)
+    x = np.random.default_rng(4).standard_normal(n).astype(np.float32)
+    want = np.bincount(rs, weights=vs.astype(np.float64)
+                       * x.astype(np.float64)[cs], minlength=n)
+    for mode in ("on", "off"):
+        spt.Config.instance().set("spx.tpu.sym_full", mode)
+        y = spt.matvec_mult(1.0, spt.mat_tune(sym, device="cpu"), x)
+        assert np.abs(y.double().numpy() - want).max() < (
+            1e-5 * np.abs(want).max())
     spt.Config.instance().set("spx.matrix.symmetric", "false")
     spt.Config.instance().set("spx.rt.nr_threads", "2")
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         spt.mat_tune(inp, device="cpu")
+    spt.Config.instance().set("spx.matrix.symmetric", "true")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        spt.mat_tune(sym, device="cpu")

@@ -16,9 +16,12 @@ value of the oracle on the bf16-rounded values and x.  Then it
 checks two refusals, no default device without CUDA and no kernel build
 without nvcc; that 2^15 random singles with the fused pipeline kept off
 (``spx.tpu.min_fused_nnz``) plan the paged delta with its scatter route
-(``dscatter``) and run within the same bar; and that a class outside the
-ported slice (a symmetric matrix) raises NotImplementedError; at the end
-no module of ``jax``, ``sparsex_tpu`` or ``bench`` is loaded.
+(``dscatter``) and run within the same bar; that bench.py's symmetric
+matrix at 2^14 rows (page and route gates at 1024) runs per shard, on
+both paged delta streams and their scatter routes, and as its full
+mirror, within the same bar; and that a class outside the ported slice
+(more than one shard) raises NotImplementedError; at the end no module of
+``jax``, ``sparsex_tpu`` or ``bench`` is loaded.
 ``chip_smoke.py`` imports none of them either, and without a CUDA device
 it exits non-zero and prints no result.
 """
@@ -54,6 +57,7 @@ torch.set_num_threads(1)
 import chip_smoke as cs
 import sparsex_tpu_torch as spx
 from sparsex_tpu_torch.ops import _build
+from sparsex_tpu_torch.ops import pallas_kernels as tpk
 from sparsex_tpu_torch.ops import route as troute
 from sparsex_tpu_torch.ops.kernels import static_meta
 
@@ -174,13 +178,26 @@ v = rng.standard_normal(r.size).astype(np.float32)
 A = tune(ns, r, c, v, **{"spx.tpu.min_fused_nnz": str(1 << 30)})
 out["dscatter"] = (extras(A), spmv_err(A, ns, r, c, v, 8))
 
-# a class still queued: symmetric matrices (ROADMAP Queue 1 item 8)
+# a symmetric matrix (ROADMAP Queue 1 item 8): per shard, both paged delta
+# streams through their scatter routes, and the full mirror
+tpk.MIN_PAGE_NNZ, troute.MIN_ELEMS = 1024, 1024
+n = 1 << 14
+rows, cols, vals = cs.build_symmetric_matrix(n)
+for mode in ("off", "on"):
+    A = tune(n, rows, cols, vals, **{"spx.matrix.symmetric": "true",
+                                     "spx.tpu.sym_full": mode})
+    out["symmetric " + mode] = (type(A.csx.executors[0]).__name__,
+                                extras(A), spmv_err(A, n, rows, cols, vals,
+                                                    9))
+tpk.MIN_PAGE_NNZ, troute.MIN_ELEMS = 1 << 14, 1 << 15
+
+# a class still queued: more than one shard (ROADMAP Queue 1 item 5)
 try:
-    tune(ns, r, c, v, **{"spx.matrix.symmetric": "true"})
+    tune(ns, r, c, v, **{"spx.rt.nr_threads": "2"})
     out["out_of_slice"] = "tuned"
 except NotImplementedError as e:
     out["out_of_slice"] = ("NotImplementedError" if "ROADMAP.md" in str(e)
-                           and "symmetric" in str(e) else str(e))
+                           and "nr_threads" in str(e) else str(e))
 
 out["blocked_modules"] = sorted(m for m in sys.modules
                                 if m.split(".")[0] in BLOCKED)
@@ -219,6 +236,11 @@ def test_port_runs_and_refuses_without_jax():
     assert out["no_nvcc"] == "KernelBuildError"
     assert out["dscatter"][0] == ["dpages", "dscatter"]
     assert out["dscatter"][1] < tol
+    assert out["symmetric off"][:2] == [
+        "SymShardExecutor", ["dpages", "dpagesT", "dscatter", "dscatterT"]]
+    assert out["symmetric on"][:2] == ["CsxExecutor",
+                                       ["dpages", "dscatter"]]
+    assert max(out["symmetric off"][2], out["symmetric on"][2]) < tol
     assert out["out_of_slice"] == "NotImplementedError"
 
 

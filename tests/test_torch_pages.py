@@ -163,17 +163,19 @@ def test_delta_pages_plain_matches_pallas():
             meta, {k: jnp.asarray(v) for k, v in rep.items()},
             jnp.asarray(x), n, n, jnp.zeros(n, np.float32)))
     trep = {"plo": _t(rep["plo"]), "sl": _t(rep["sl"]),
-            "vals": _t(rep["vals"]), "rows": _t(rep["rows"]).long()}
+            "vals": _t(rep["vals"]), "rows": _t(rep["rows"])}
     assert trep["sl"].dtype == torch.int16
+    assert trep["rows"].dtype == torch.int32
     got = tpk.delta_pages_products(meta, trep, _t(x), n)
     _close(got.numpy(), want, 1e-5)
-    # the padding slots' sentinel row n lands in the spare last slot
+    # the padding slots' sentinel row n is dropped, as the reference drops
+    # it (its scatter-add's mode="drop")
     assert (rep["rows"] == n).any()
-    acc = torch.zeros(n + 1)
+    acc = torch.zeros(n)
     tpk.delta_pages_spmv(meta, trep, _t(x), n, n, acc)
-    _close(acc[:n].numpy(), want_y, 1e-5)
+    _close(acc.numpy(), want_y, 1e-5)
     with pytest.raises(ValueError, match="nrows_part"):
-        tpk.delta_pages_spmv(meta, trep, _t(x), n, n, torch.zeros(n))
+        tpk.delta_pages_spmv(meta, trep, _t(x), n, n, torch.zeros(n + 1))
 
 
 @pytest.mark.parametrize("T", [16, 13])
@@ -386,7 +388,7 @@ def test_paged_variant_without_fused_segment(monkeypatch, dtype, bar):
     (blk,) = meta[3]
     assert blk[1:3] == (4, 2) and blk[3]
     dp = A.csx.executors[0].arrays["delta_pages"]
-    assert dp["sl"].dtype == torch.int16 and dp["rows"].dtype == torch.int64
+    assert dp["sl"].dtype == torch.int16 and dp["rows"].dtype == torch.int32
     _check_path(A, ref, n, rows, cols, vals, dtype, bar)
 
 
@@ -459,15 +461,16 @@ def _sig(v):
     return v
 
 
-def _units_sig(a):
+def _units_sig(a, at=6):
     """A paged-units call's arguments as something comparable: no trailing
-    None, and the scatter epilogue's accumulator, which holds what the
-    SpMV added before the table, by shape and dtype alone."""
+    None, and the scatter epilogue's accumulator (argument ``at``; 5 for
+    the delta-pages epilogue), which holds what the SpMV added before the
+    table, by shape and dtype alone."""
     a = list(a)
     while a and a[-1] is None:
         a.pop()
-    if len(a) > 6:
-        a[6] = (tuple(a[6].shape), str(a[6].dtype))
+    if len(a) > at:
+        a[at] = (tuple(a[at].shape), str(a[at].dtype))
     return _sig(a)
 
 
@@ -478,6 +481,7 @@ def record_calls(monkeypatch, wrappers, calls):
     for mod, fn, name in wrappers:
         def rec(*a, _f=getattr(mod, fn), _n=name):
             calls.append((_n, _units_sig(a) if _n == "paged_units"
+                          else _units_sig(a, 5) if _n == "delta_pages_acc"
                           else _sig(a)))
             return _f(*a)
         monkeypatch.setattr(mod, fn, rec)
@@ -500,6 +504,7 @@ def test_chip_smoke_pages_phase_feeds_the_path_inputs(monkeypatch, kinds):
     A, _ref = _tune(n, rows, cols, vals, "float64", **opts)
     calls = []
     names = {"dia": "dia", "delta_pages": "delta_pages",
+             "delta_pages_acc": "delta_pages_acc",
              "gather": "paged_gather", "paged_units": "paged_units"}
     record_calls(monkeypatch, [(tpk, fn, name) for fn, name in names.items()],
                  calls)
@@ -541,8 +546,8 @@ def test_check_slice_admits_both_variants():
 
 
 @pytest.mark.parametrize("runs,blocks,dias,extras,item", [
-    ((), (), (), (("dpages", 12, 4, 16), ("dpagesT", 12, 4, 16)),
-     "Queue 1 item 8"),
+    ((), (), (), (("dpages", 12, 4, 16),
+                  ("dsfused", 8, 4, 32, (), False, "lp")), "Queue 1 item 13"),
     ((), (), ((False, None, 3),), (), "Queue 1 item 13"),
 ])
 def test_check_slice_still_refuses(runs, blocks, dias, extras, item):
@@ -552,6 +557,11 @@ def test_check_slice_still_refuses(runs, blocks, dias, extras, item):
 
 @pytest.mark.parametrize("runs,blocks,dias,extras", [
     ((), (), _DIA, (("dpages", 12, 4, 16), ("dscatter", (), False))),
+    # a symmetric shard's transposed delta stream, without and with its
+    # scatter route (ROADMAP Queue 1 item 8)
+    ((), (), _DIA, (("dpages", 12, 4, 16), ("dpagesT", 12, 4, 16))),
+    ((), (), _DIA, (("dpages", 12, 4, 16), ("dpagesT", 12, 4, 16),
+                    ("dscatter", (), False), ("dscatterT", (), True))),
     ((_PRUN[:4] + (("fs", (), False, 128),),), (), (),
      (("fall", (("delta",),), (), (), (("bres", 0, 0),)),)),
     ((), (_PBLK[:5] + (("fblk", (), 0),),), (), ()),
@@ -561,7 +571,8 @@ def test_check_slice_admits_the_legacy_routes(runs, blocks, dias, extras):
     """The paged delta's scatter route (``dscatter``), the merged plan's
     ``bres`` residuals, fused block tables (``fblk``) and a paged run
     table's legacy scatter plan run since ROADMAP Queue 1 item 10 was
-    ported (they were refused before)."""
+    ported, a symmetric shard's ``dpagesT`` and ``dscatterT`` since item 8
+    (they were refused before)."""
     check_slice((1 << 14, 1 << 14, runs, blocks, dias) + extras)
 
 

@@ -16,7 +16,11 @@ checkout of the repository, for example the parent commit unpacked with
 ``sparsex_tpu_torch/csrc/*.cu`` is built into its own library (one nvcc per
 source, every tree's started together); the Python side, planners and
 wrappers included, is this tree's, so the trees must share the kernels' C
-interface.  A ``--diagnostic`` tree is timed like a variant but its
+interface.  A kernel that a tree's library lacks runs there as the
+composition it replaced (``EMULATED``: the delta-pages scatter epilogue
+``delta_pages_acc`` as the tree's delta-pages product and the torch
+scatter-add after it), both alone and inside the SpMV; such a tree's
+reading of that kernel's name is the composition's.  A ``--diagnostic`` tree is timed like a variant but its
 results are not held to the plain versions: a deliberately incomplete
 kernel (one that skips its x gather or its stores, say) bounds what that
 part costs.  Per path (chip_smoke's matrix, plan check and kernel phase)
@@ -78,7 +82,27 @@ PATHS = {
                       cs.check_nofuse_plan("blocky"), cs.NO_FUSE),
     "blocky-2^22": (cs.N_BIG, lambda: cs.build_blocky_matrix(cs.N_BIG),
                     lambda m, lb: cs.check_pages_plan(m, "blocky", lb), ()),
+    "headline-2^22": (cs.N_BIG, lambda: cs.build_matrix(cs.N_BIG),
+                      lambda m, lb: cs.check_pages_plan(m, "headline", lb),
+                      ()),
+    # a symmetric matrix's per-shard plan (both paged delta streams)
+    "symmetric": (cs.N_SYM, lambda: cs.build_symmetric_matrix(cs.N_SYM),
+                  cs.check_sym_plan("symmetric"),
+                  cs.SYMMETRIC + (("spx.tpu.sym_full", "off"),)),
 }
+
+
+def _emulated_delta_pages_acc(plo, sl, vals, x2, q, acc, rows):
+    """The delta-pages scatter epilogue as a library without it runs the
+    work: the product kernel, then the torch scatter-add."""
+    from sparsex_tpu_torch.ops import pallas_kernels as tpk
+    return tpk.add_totals(acc, tpk.delta_pages(plo, sl, vals, x2, q)
+                          .reshape(-1), rows)
+
+
+# kernel -> what a tree whose library lacks it runs in its place
+EMULATED = {"delta_pages_acc": _emulated_delta_pages_acc}
+MISSING = {}     # library -> the kernels it lacks
 
 
 def launch_key(name):
@@ -130,7 +154,12 @@ def build_libraries(trees, names):
                 print(f"  ptxas [{os.path.basename(tree)}]: {line}",
                       file=sys.stderr)
         lib = ctypes.CDLL(path)
-        _build._bind(lib)
+        MISSING[lib] = set(_build._bind(lib, missing_ok=True))
+        if MISSING[lib] - set(EMULATED):
+            cs.fail(f"{tree} lacks the kernels "
+                    f"{sorted(MISSING[lib] - set(EMULATED))}")
+        if MISSING[lib]:
+            cs.say(f"{tree} lacks {sorted(MISSING[lib])}: emulated")
         libs[tree] = lib
     cs.say(f"built {len(libs)} of {len(trees)} libraries in "
            f"{time.perf_counter() - t0:.1f} s")
@@ -138,15 +167,23 @@ def build_libraries(trees, names):
 
 
 def using(lib, fn):
-    """``fn`` with the kernel loader pointed at ``lib`` while it runs."""
+    """``fn`` with the kernel loader pointed at ``lib`` while it runs, and
+    each kernel that ``lib`` lacks replaced by its ``EMULATED`` composition
+    (the wrappers are looked up in their module at each call)."""
     from sparsex_tpu_torch.ops import _build
+    from sparsex_tpu_torch.ops import pallas_kernels as tpk
 
     def call():
         saved, _build._lib = _build._lib, lib
+        kept = {n: getattr(tpk, n) for n in MISSING.get(lib, ())}
+        for name in kept:
+            setattr(tpk, name, EMULATED[name])
         try:
             return fn()
         finally:
             _build._lib = saved
+            for name, wrapper in kept.items():
+                setattr(tpk, name, wrapper)
     return call
 
 
@@ -167,6 +204,12 @@ def captured_args(ex, x, label, names):
         cs.kernel_phase(ex, x, label, timed=False)
     finally:
         cs.check_kernel = original
+    if "delta_pages" in names and "delta_pages" not in seen and \
+            "delta_pages_acc" in seen:
+        # the product form on the epilogue's streams, off the path
+        from sparsex_tpu_torch.ops import pallas_kernels as tpk
+        seen["delta_pages"] = (tpk.delta_pages, tpk.delta_pages_plain,
+                               [a[:5] for a in seen["delta_pages_acc"][2]])
     return seen
 
 
@@ -187,11 +230,16 @@ def kernel_readings(libs, base, variant, seen, label, checked=True):
     for name, (fn, plain, args) in seen.items():
         loops, outer = ((cs.MM_LOOPS, cs.MM_OUTER) if name.endswith("_kb")
                         else (cs.LOOPS, cs.OUTER))
+        fresh = cs.FRESH.get(name, lambda a: a)
+
+        def call(*a, _m=sys.modules[fn.__module__], _n=fn.__name__):
+            return getattr(_m, _n)(*a)   # a missing kernel: its emulation
         errs = {}
         for tag, tree in (("A", base), ("V", variant)):
-            got = using(libs[tree], lambda: [fn(*a) for a in args])()
+            got = using(libs[tree], lambda: [call(*fresh(a))
+                                             for a in args])()
             torch.cuda.synchronize()
-            wants = [plain(*a) for a in args]
+            wants = [plain(*fresh(a)) for a in args]
             if checked or tag == "A":
                 errs[tag] = max(cs.cmp(name, label, g, w, False)
                                 for g, w in zip(got, wants))
@@ -206,7 +254,7 @@ def kernel_readings(libs, base, variant, seen, label, checked=True):
         bound = max(nbytes / cs.HBM_BYTES_PER_S,
                     flops / cs.PEAK_FLOPS[dt]) * 1e3
         a_ms, v_ms = turns(libs, base, variant,
-                           lambda: [fn(*a) for a in args], loops, outer)
+                           lambda: [call(*a) for a in args], loops, outer)
         out[name] = {"A_us": a_ms * 1e3, "V_us": v_ms * 1e3,
                      "bound_us": bound * 1e3, "A_err": errs["A"],
                      "V_err": errs["V"]}
