@@ -79,6 +79,21 @@ this script imports nothing of the JAX package or its benchmark):
   instance of ``dscatter`` / ``dscatterT``; the 13 lower diagonals and
   the transposed windows in torch), the scatter epilogue held on the
   transposed stream off the path;
+- matrices of several shards on one card (``spx.rt.nr_threads``, each
+  shard planned as a matrix of its rows, all run from one CUDA graph a
+  call; ``run_shard_paths``), after the one-shard paths they are compared
+  with: headline 2^20 in 2 and 4 shards (SpMM k = 8 timed on 2, f32) and
+  blocky 2^21 in 2 (SpMM k = 8 checked), in float32 and float64, each
+  shard's plan fused; symmetric 2^20 in 2 shards in both modes (per shard:
+  shard 1 at its own ``row_start``), timed in float32 and checked in
+  float64.  Each prints every shard's plan, holds every kernel on every
+  shard against its plain version (timed in float32), the matrix graph's
+  kernel nodes against the sum of its shards' counts, each shard's SpMV
+  alone and the load imbalance, and the cost against the same matrix in
+  one shard (graph µs, launches, glue).  On headline 2^20 x2 f32,
+  ``set_entry`` on a delta and a DIA entry of shard 1 shows in the next
+  SpMV, and ``mat_save`` / ``mat_restore`` on the card gives bit-equal
+  plans and SpMV (``entries_phase``);
 - the SpMM (``matmat_kernel``, X of shape (n, k) from a numpy seed) on the
   matrix each path has tuned: timed at k = 8 (one k-batched chunk) on
   headline 2^20, blocky 2^21, wide-run and lane-skew 2^21 in float32 and
@@ -391,6 +406,18 @@ def expected_counts(meta, k=0):
     return out
 
 
+def matrix_counts(csx, k=0):
+    """One call's launches of a tuned matrix: the sum over the executors of
+    its mode in use (one per shard; ``expected_counts`` of each plan), all
+    of which the matrix's one executor runs."""
+    csx._executor()
+    out = {}
+    for ex in csx.executors:
+        for key, v in expected_counts(ex.meta, k).items():
+            out[key] = out.get(key, 0) + v
+    return out
+
+
 def _spmv_counts(tf, meta, unit_tables=True):
     ex = extras_of(meta)
     dfused, fall = ex.get("dfused"), ex.get("fall")
@@ -442,8 +469,9 @@ def tune(spx, rows, cols, vals, n, dtype_name, label, options=()):
     t0 = time.perf_counter()
     mat = spx.mat_tune(csr_input(spx, rows, cols, vals, n))
     torch.cuda.synchronize()
-    say(f"[{label}] mat_tune: {time.perf_counter() - t0:.2f} s, {n}x{n}, "
-        f"nnz={mat.nnz}, on {mat.device}")
+    mat.tune_s = time.perf_counter() - t0
+    say(f"[{label}] mat_tune: {mat.tune_s:.2f} s, {n}x{n}, "
+        f"nnz={mat.nnz}, on {mat.device}, {len(mat.csx.shards)} shard(s)")
     return mat
 
 
@@ -689,6 +717,67 @@ def check_sym_plan(kind):
             fail(f"[{label}] unexpected {kind} plan: {desc}")
         say(f"[{label}] plan: {desc}")
         return ex
+    return check
+
+
+def check_shards(kind):
+    """A plan check for a matrix of several shards (``spx.rt.nr_threads``):
+    each shard's plan printed, and checked to be ``headline``'s (the fused
+    delta pipeline with the DIA tables in K3, or, where a shard's singles
+    are too sparse in its columns for the fused and paged delta planners,
+    as at 4 shards of 2^20 rows, the plain tables: the DIA kernel on the 5
+    diagonals and the singles in torch), ``blocky``'s (the delta
+    pipeline and the width-8 and width-2 fused run tables, lane-placed
+    ``rlp{W}`` or, where a shard's units are too sparse for lane
+    placement, dense-tile ``run{W}``, in one merged plan) or, for
+    ``symmetric``, the full mirror's one executor (the fused delta
+    pipeline) or each shard's per-shard plan (both paged delta streams) at
+    its own ``row_start``.  Returns the executors of the mode in use."""
+    def check(mat, label):
+        from sparsex_tpu_torch.symmetric import SymShardExecutor
+        csx = mat.csx
+        csx._executor()
+        exs = list(csx.executors)
+        full = kind == "symmetric" and csx._full_active()
+        part = csx.partition
+        if part.nparts < 2 or len(csx.shards) != part.nparts:
+            fail(f"[{label}] {part.nparts} shards, expected several")
+        for i, ex in enumerate(exs):
+            meta = ex.meta
+            extras = extras_of(meta)
+            styles = {m[5] for _, m in fused_runs(meta)}
+            if kind == "headline":
+                ok = ({"dfused", "k3dias"} <= set(extras) or (
+                    ex.variant == "plain" and not extras
+                    and [(a, len(o)) for a, o, _n in meta[4]] == [
+                        (False, 5)]))
+            elif kind == "blocky":
+                ok = ({"dfused", "fall"} <= set(extras)
+                      and sorted(meta[2][ri][2] for ri, _ in
+                                 fused_runs(meta)) == [2, 8] and styles <= {"rlp2", "rlp8", "run2",
+                                                     "run8"}
+                      and len(styles) == 2)
+            elif full:
+                ok = (len(exs) == 1 and "dfused" in extras
+                      and not isinstance(ex, SymShardExecutor))
+            else:
+                ok = ({"dpages", "dpagesT"} <= set(extras)
+                      and isinstance(ex, SymShardExecutor)
+                      and ex.row_start == part.row_start[i])
+            where = ("the full mirror of all shards" if full else
+                     f"shard {i}: rows [{part.row_start[i]}, "
+                     f"{part.row_end[i]}), {part.nnz_per_part[i]} nonzeros")
+            desc = (f"{where}; {ex.variant} variant; extras "
+                    f"{sorted(extras)}; DIA tables "
+                    f"{[(a, len(o)) for a, o, _n in meta[4]]}; "
+                    + _fused_desc(meta))
+            for stream in ("dpages", "dpagesT", "dscatter", "dscatterT"):
+                if stream in extras:
+                    desc += f"; {stream} {str(extras[stream])[:80]}"
+            if not ok:
+                fail(f"[{label}] unexpected {kind} shard plan: {desc}")
+            say(f"[{label}] plan, {desc}")
+        return exs
     return check
 
 
@@ -1260,6 +1349,32 @@ def kernel_phase(ex, x, label, timed=True, loops=LOOPS, outer=OUTER):
     return res
 
 
+def shards_kernel_phase(exs, x, label, timed=True, loops=LOOPS,
+                        outer=OUTER):
+    """:func:`kernel_phase` on each shard's executor ``exs`` (of a matrix of
+    several shards, each labelled with its shard), merged into one entry a
+    kernel: the largest error, and the times and bounds of all the shards'
+    calls summed (the calls of one matrix SpMV), ``bound_by`` that of the
+    shard with the largest bound."""
+    if len(exs) == 1:
+        return kernel_phase(exs[0], x, label, timed, loops, outer)
+    res, top = {}, {}
+    for i, ex in enumerate(exs):
+        for name, r in kernel_phase(ex, x, f"{label} shard {i}", timed,
+                                    loops, outer).items():
+            acc = res.setdefault(name, dict.fromkeys(r, None))
+            acc["max_abs_err"] = max(acc["max_abs_err"] or 0.0,
+                                     r["max_abs_err"])
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                if r[key] is not None:
+                    acc[key] = (acc[key] or 0.0) + r[key]
+            if r["bound_ms"] is not None and r["bound_ms"] > top.get(name,
+                                                                     -1):
+                top[name] = r["bound_ms"]
+                acc["bound_by"] = r["bound_by"]
+    return res
+
+
 def say_kernels(res, label):
     unit = "SpMM" if "spmm" in label else "SpMV"
     for name, r in res.items():
@@ -1287,6 +1402,37 @@ _MANGLED = re.compile(r"\d(k1_lp|k1_rlp|k1_sl|k1_run|t1|k2|k3|lane_gather|"
                       r"(_kb)?_kernelI")
 
 
+def _driver_call():
+    """``call(fn, *args)``: a CUDA driver function by name, failing on an
+    error code."""
+    import ctypes
+    drv = ctypes.CDLL("libcuda.so.1")
+
+    def call(fn, *args):
+        rc = getattr(drv, fn)(*args)
+        if rc:
+            fail(f"{fn} returned CUDA driver error {rc}")
+    return call
+
+
+def _graph_nodes(graph):
+    """``(node, CUgraphNodeType)`` of each node of ``graph`` (a kept
+    ``torch.cuda.CUDAGraph``): 0 kernel, 1 memcpy, 2 memset, ..."""
+    import ctypes
+    call = _driver_call()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    call("cuGraphGetNodes", raw, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    call("cuGraphGetNodes", raw, nodes, ctypes.byref(n))
+    out = []
+    for node in nodes:
+        kind = ctypes.c_int()
+        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+        out.append((node, kind.value))
+    return out
+
+
 def graph_kernels(graph, kb=False):
     """Launches of our kernels in one replay of ``graph`` (a
     ``torch.cuda.CUDAGraph`` kept with ``keep_graph=True``, as an
@@ -1295,23 +1441,10 @@ def graph_kernels(graph, kb=False):
     runs no Python, so the launch counters cannot see it.  PyTorch's glue
     kernels are left out.  ``kb`` as in :func:`profile_phase`."""
     import ctypes
-    drv = ctypes.CDLL("libcuda.so.1")
-
-    def call(fn, *args):
-        rc = getattr(drv, fn)(*args)
-        if rc:
-            fail(f"{fn} returned CUDA driver error {rc}")
-
-    raw = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    call("cuGraphGetNodes", raw, None, ctypes.byref(n))
-    nodes = (ctypes.c_void_p * n.value)()
-    call("cuGraphGetNodes", raw, nodes, ctypes.byref(n))
+    call = _driver_call()
     out = {}
-    for node in nodes:
-        kind = ctypes.c_int()
-        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
-        if kind.value != 0:                  # CU_GRAPH_NODE_TYPE_KERNEL
+    for node, kind in _graph_nodes(graph):
+        if kind != 0:                        # CU_GRAPH_NODE_TYPE_KERNEL
             continue
         params = (ctypes.c_byte * 128)()     # CUDA_KERNEL_NODE_PARAMS_v2
         call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node), params)
@@ -1382,7 +1515,7 @@ def e2e_phase(spx, tf, mat, rows, cols, vals, x, tol, dtype_name,
     import torch
 
     n = mat.nrows
-    ex = mat.csx.executors[0]
+    ex = mat.csx._executor()
     xh = x.double().cpu().numpy()
     # float64 COO oracle
     want = np.bincount(rows, weights=vals.astype(np.float64) * xh[cols],
@@ -1397,7 +1530,7 @@ def e2e_phase(spx, tf, mat, rows, cols, vals, x, tol, dtype_name,
     torch.cuda.synchronize()
     counts = tf.launch_counts()
     grown = torch.cuda.memory_allocated() - mem0
-    one = expected_counts(ex.meta)
+    one = matrix_counts(mat.csx)
     expect = {k: 2 * v for k, v in one.items()}
     if counts != expect:
         fail(f"[{dtype_name}] launch counts {counts} of the first SpMV (its "
@@ -1511,14 +1644,16 @@ def report(label, mat, res, timing, profiled, nnz):
         say(f"[{label}] largest glue kernels (us per SpMV): "
             + "; ".join(f"{v:.2f} {k}" for k, v in glue))
     gnnz = nnz / (ms * 1e-3) / 1e9
-    dev_ms = sum(r["ms"] for r in res.values())
+    timed = all(r["ms"] is not None for r in res.values())
+    dev_ms = sum(r["ms"] for r in res.values()) if timed else None
     say(f"[{label}] SpMV end to end: {ms * 1e3:.2f} us ({gnnz:.2f} Gnnz/s) "
         f"called from Python, host enqueue {host_ms * 1e3:.2f} us; "
         f"{graph_ms * 1e3:.2f} us "
         f"({nnz / (graph_ms * 1e-3) / 1e9:.2f} Gnnz/s) replayed from a "
-        f"CUDA graph; the checked kernels alone {dev_ms * 1e3:.2f} us; "
-        f"the eager body called from Python {eager_ms * 1e3:.2f} us")
-    graphs = mat.csx.executors[0].graph_bytes()
+        "CUDA graph; the checked kernels alone "
+        + (f"{dev_ms * 1e3:.2f} us" if timed else "not timed")
+        + f"; the eager body called from Python {eager_ms * 1e3:.2f} us")
+    graphs = mat.csx._executor().graph_bytes()
     say(f"[{label}] the executor's graphs hold "
         + ", ".join(f"{k}: {b / 2**20:.2f} MiB" for k, b in graphs.items()))
     return {"us_per_spmv": ms * 1e3, "gnnz_per_s": gnnz,
@@ -1527,7 +1662,7 @@ def report(label, mat, res, timing, profiled, nnz):
             "eager_us_per_spmv": eager_ms * 1e3,
             "graph_mib": {" ".join(map(str, k)): b / 2**20
                           for k, b in graphs.items()},
-            "kernel_us": dev_ms * 1e3, "oracle_rel_err": errs,
+            "kernel_us": dev_ms and dev_ms * 1e3, "oracle_rel_err": errs,
             "launches_first_spmv": counts, "profile_device_us": prof,
             "profile_glue_us": glue}
 
@@ -1572,7 +1707,9 @@ def spmm_phase(spx, tf, mat, rows, cols, vals, k, label, tol, timed, spmv):
     entries), both empty when not timed."""
     import torch
     from sparsex_tpu_torch.ops.kernels import fused_mm_ok
-    ex = mat.csx.executors[0]
+    ex = mat.csx._executor()
+    fused = [e for e in mat.csx.executors if fused_mm_ok(e.meta)]
+    kb = len(fused) == len(mat.csx.executors)
     n = mat.nrows
     lab = f"{label} spmm k={k}"
     X = torch.as_tensor(np.random.default_rng(3).standard_normal((n, k)),
@@ -1580,9 +1717,9 @@ def spmm_phase(spx, tf, mat, rows, cols, vals, k, label, tol, timed, spmv):
     Y0 = torch.as_tensor(np.random.default_rng(4).standard_normal((n, k)),
                          dtype=ex.dtype, device=mat.device)
     res = {}
-    if fused_mm_ok(ex.meta):
-        res = kernel_phase(ex, X.T[:tf.MAX_KB].contiguous(), lab,
-                                 timed, MM_LOOPS, MM_OUTER)
+    if fused:
+        res = shards_kernel_phase(fused, X.T[:tf.MAX_KB].contiguous(), lab,
+                                  timed, MM_LOOPS, MM_OUTER)
     xh = X.double().cpu().numpy()
     v64 = vals.astype(np.float64)
     want = np.stack([np.bincount(rows, weights=v64 * xh[cols, j],
@@ -1592,7 +1729,7 @@ def spmm_phase(spx, tf, mat, rows, cols, vals, k, label, tol, timed, spmv):
     Y = spx.matmat_kernel(1.0, mat, X, 0.0, None)
     torch.cuda.synchronize()
     counts = tf.launch_counts()
-    one = expected_counts(ex.meta, k)
+    one = matrix_counts(mat.csx, k)
     expect = {key: 2 * v for key, v in one.items()}
     if counts != expect:
         fail(f"[{lab}] launch counts {counts} of the first SpMM (its warm-up "
@@ -1605,8 +1742,7 @@ def spmm_phase(spx, tf, mat, rows, cols, vals, k, label, tol, timed, spmv):
     def eager():
         return ex.matmat(X)
 
-    check_graph(ex, ("mm", k), spmm, eager, one, lab,
-                kb=fused_mm_ok(ex.meta))
+    check_graph(ex, ("mm", k), spmm, eager, one, lab, kb=kb)
     errs = []
     for got, ref in ((Y, want), (Y2, want2)):
         g = got.double().cpu().numpy()
@@ -1625,7 +1761,7 @@ def spmm_phase(spx, tf, mat, rows, cols, vals, k, label, tol, timed, spmv):
         return {}, []
     ms = cuda_time_ms(spmm, 2 * MM_LOOPS)
     graph_ms = graph_time_ms(spmm, 2 * MM_LOOPS)
-    prof, glue = profile_phase(spmm, reps=20, kb=fused_mm_ok(ex.meta))
+    prof, glue = profile_phase(spmm, reps=20, kb=kb)
     spmv_res, spmv_graph_ms = spmv
     col_loop = {name: {"k_x_spmv_kernel_ms":
                        k * spmv_res[name[:-3]]["ms"]}
@@ -1736,7 +1872,7 @@ def sym_mode(spx, mat, mode, label):
     csx = mat.csx
     spx.Config.instance().set("spx.tpu.sym_full", SYM_MODES[mode])
     if mode == "full":
-        csx._shard_exec = None
+        csx._shard_execs = csx._multi = None
     else:
         csx._full_exec = None
     torch.cuda.empty_cache()
@@ -1747,18 +1883,214 @@ def sym_mode(spx, mat, mode, label):
         f"{time.perf_counter() - t0:.2f} s")
 
 
+def graph_node_types(graph):
+    """The number of nodes of each type in ``graph`` (``_graph_nodes``)."""
+    out = {}
+    for _node, kind in _graph_nodes(graph):
+        out[kind] = out.get(kind, 0) + 1
+    return out
+
+
+def shards_phase(mat, x, label):
+    """A matrix of several shards: its one graph's node types (the x copy
+    runs before the replay, outside the graph, once a call), each shard's
+    SpMV alone (``measure_load_imbalance``: CUDA events around replays of
+    that shard's own graph, median of 5 x 32) and the load imbalance."""
+    csx = mat.csx
+    types = graph_node_types(csx._executor()._graphs[("mv",)].graph)
+    secs, imb = csx.measure_load_imbalance(x)
+    say(f"[{label}] {len(secs)} shards: the matrix graph holds "
+        f"{types.get(0, 0)} kernel, {types.get(1, 0)} memcpy and "
+        f"{types.get(2, 0)} memset nodes; each shard's SpMV alone "
+        + ", ".join(f"{s * 1e6:.2f}" for s in secs)
+        + f" us (sum {sum(secs) * 1e6:.2f}); load imbalance (max-min)/min "
+        f"{imb:.3f}")
+    return {"shard_us_per_spmv": [s * 1e6 for s in secs],
+            "load_imbalance": imb, "graph_node_types": types,
+            "shard_rows": [e - s for s, e in zip(csx.partition.row_start,
+                                                 csx.partition.row_end)],
+            "shard_nnz": list(csx.partition.nnz_per_part)}
+
+
+def entries_phase(spx, tf, rows, cols, vals, tol):
+    """``after`` for ``run_path``: on a matrix of several shards,
+    ``set_entry`` on a delta entry and a DIA entry of shard 1, then an SpMV
+    through the graph (its first call plans and uploads shard 1 again and
+    captures a new graph; shard 0 is not planned again) against the oracle
+    with the new values, which the old oracle must miss; then
+    ``mat_save`` / ``mat_restore`` on the card: every restored device
+    array bit-equal to the original's, the restored SpMV bit-equal to the
+    original's (both eager bodies under torch's deterministic algorithms,
+    since the residual adds' ``index_add_`` reorders sums) and within the
+    replay bound through the graphs, and the restore seconds beside the
+    tune seconds; last the old values set back (the SpMM phases after it
+    check against the original oracle)."""
+    def after(mat, x, lab):
+        import tempfile
+        import torch
+        csx = mat.csx
+        r0, r1 = csx.partition.bounds(1)
+        idx = np.nonzero((rows >= r0) & (rows < r1))[0]
+        picks = {}
+        for i in idx[::max(1, idx.size // 20000)]:
+            loc = csx._locate(int(rows[i]), int(cols[i]))
+            if loc is not None and loc[0] in ("delta", "dia"):
+                picks.setdefault(loc[0], int(i))
+            if len(picks) == 2:
+                break
+        if set(picks) != {"delta", "dia"}:
+            fail(f"[{lab}] no delta and DIA entries found in shard 1: "
+                 f"{picks}")
+        new = vals.astype(np.float64)
+        for kind, i in sorted(picks.items()):
+            v = -3.0 * float(vals[i]) + 0.25
+            spx.mat_set_entry(mat, int(rows[i]), int(cols[i]), v)
+            new[i] = float(np.asarray(v, dtype=vals.dtype))
+            got = spx.mat_get_entry(mat, int(rows[i]), int(cols[i]))
+            if got != new[i]:
+                fail(f"[{lab}] get_entry of the {kind} entry gave {got}, "
+                     f"set {new[i]}")
+        tf.launches.clear()
+        y = spx.matvec_kernel(1.0, mat, x, 0.0, None)
+        torch.cuda.synchronize()
+        expect = {k: 2 * v for k, v in matrix_counts(csx).items()}
+        if tf.launch_counts() != expect or csx.replans != 1:
+            fail(f"[{lab}] after set_entry: launches {tf.launch_counts()}, "
+                 f"expected {expect}; {csx.replans} shards planned again, "
+                 "expected 1")
+        y = spx.matvec_kernel(1.0, mat, x, 0.0, None).double().cpu().numpy()
+        xh = x.double().cpu().numpy()
+        err = _mixed_rel_err(y, np.bincount(rows, weights=new * xh[cols],
+                                            minlength=mat.nrows))
+        old = _mixed_rel_err(y, np.bincount(
+            rows, weights=vals.astype(np.float64) * xh[cols],
+            minlength=mat.nrows))
+        say(f"[{lab}] set_entry on shard 1's delta entry {picks['delta']} "
+            f"and DIA entry {picks['dia']}: the next SpMV (a new graph, "
+            f"shard 1 planned again) within {err:.3e} of the oracle with "
+            f"the new values (bar {tol:g}), {old:.3e} of the old one")
+        if not (err < tol and old > tol):
+            fail(f"[{lab}] the SpMV after set_entry: {err:.3e} from the new "
+                 f"oracle, {old:.3e} from the old one")
+        fd, path = tempfile.mkstemp(suffix=".npz")
+        os.close(fd)
+        try:
+            t0 = time.perf_counter()
+            spx.mat_save(mat, path)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = spx.mat_restore(path)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            nbytes = os.path.getsize(path)
+        finally:
+            os.remove(path)
+        for i, (a, b) in enumerate(zip(csx.executors,
+                                       back.csx.executors)):
+            if a.meta != b.meta or not _same_tree(a.arrays, b.arrays):
+                fail(f"[{lab}] restored shard {i}'s plan differs from the "
+                     "original's")
+        ya = spx.matvec_kernel(1.0, mat, x, 0.0, None)
+        yb = spx.matvec_kernel(1.0, back, x, 0.0, None)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            ea, eb = (m.csx._executor()._matvec(x) for m in (mat, back))
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        graph_rel = float((ya - yb).abs().max() / ya.abs().max())
+        if not torch.equal(ea, eb) or not graph_rel <= 1e-6:
+            fail(f"[{lab}] the restored SpMV differs: eager bodies "
+                 f"{'equal' if torch.equal(ea, eb) else 'differ'}, graphs "
+                 f"{graph_rel:.3e}")
+        say(f"[{lab}] mat_save {save_s:.2f} s ({nbytes / 2**20:.1f} MiB), "
+            f"mat_restore {restore_s:.2f} s on the card beside mat_tune "
+            f"{mat.tune_s:.2f} s; every device array of the restored plans "
+            "bit-equal; the restored SpMV bit-equal to the original's "
+            "(eager bodies, deterministic algorithms), through the graphs "
+            + ("bit-equal" if torch.equal(ya, yb)
+               else f"within {graph_rel:.3e} (atomic adds reorder sums)"))
+        spx.mat_destroy(back)
+        # the old values back, for the phases after this one
+        for i in picks.values():
+            spx.mat_set_entry(mat, int(rows[i]), int(cols[i]), vals[i])
+        y = spx.matvec_kernel(1.0, mat, x, 0.0, None).double().cpu().numpy()
+        back_err = _mixed_rel_err(y, np.bincount(
+            rows, weights=vals.astype(np.float64) * xh[cols],
+            minlength=mat.nrows))
+        if not back_err < tol or csx.replans != 2:
+            fail(f"[{lab}] with the old values set back: {back_err:.3e} "
+                 f"from the oracle, {csx.replans} re-plans (expected 2)")
+        return {f"{lab} entries": {
+            "set_entry_oracle_rel_err": err, "old_oracle_rel_err": old,
+            "save_s": save_s, "restore_s": restore_s, "tune_s": mat.tune_s,
+            "archive_mib": nbytes / 2**20, "graph_rel_diff": graph_rel}}
+    return after
+
+
+def _same_tree(a, b):
+    """Whether two plans' device array trees are equal, tensor for tensor
+    (dtype and bits)."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and torch.equal(a, b))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_same_tree(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_same_tree(u, v) for u, v in zip(a, b)))
+    return a == b
+
+
+def shard_cost(many, one, nshards, label):
+    """The cost of sharding on one card: a matrix of ``nshards`` shards
+    (summary ``many``) against the same matrix in one shard (``one``, the
+    earlier path of the same run): the graph's device µs, the kernel
+    launches of one SpMV and the torch glue's device µs."""
+    def launches(s):
+        return sum(s["launches_first_spmv"].values()) // 2
+
+    def glue(s):
+        p = s["profile_device_us"]
+        return None if p is None else p["glue"]
+
+    out = {"graph_us": [many["graph_us_per_spmv"], one["graph_us_per_spmv"]],
+           "us_from_python": [many["us_per_spmv"], one["us_per_spmv"]],
+           "launches": [launches(many), launches(one)],
+           "glue_us": [glue(many), glue(one)]}
+    g = out["glue_us"]
+    say(f"[{label}] {nshards} shards against one: graph "
+        f"{many['graph_us_per_spmv']:.2f} against "
+        f"{one['graph_us_per_spmv']:.2f} us "
+        f"({100 * (many['graph_us_per_spmv'] / one['graph_us_per_spmv'] - 1):+.1f} %), "
+        f"from Python {many['us_per_spmv']:.2f} against "
+        f"{one['us_per_spmv']:.2f} us, launches {out['launches'][0]} "
+        f"against {out['launches'][1]}, glue "
+        + ("not measured" if None in g else f"{g[0]:.2f} against {g[1]:.2f}")
+        + " us")
+    return out
+
+
 def run_path(spx, tf, label, n, rows, cols, vals, dtype_name, tol, check,
-             options=(), timed=True, spmm=(), modes=()):
+             options=(), timed=True, spmm=(), modes=(), kernels_timed=None,
+             after=None):
     """One path in one value type: tune (under the extra ``options``),
     check the plan, each kernel against its plain version
-    (``kernel_phase``), the SpMV against the oracle with its launch counts,
-    and when ``timed`` the times and a profile; then on the same tuned
-    matrix one ``spmm_phase`` per (k, timed) in ``spmm``.  A symmetric
-    matrix runs all that once per mode in ``modes`` (:func:`sym_mode`), on
-    the one tuned matrix, labelled ``label`` and the mode.  Returns
-    ({label: summary}, kernel entries) of the timed parts."""
+    (``kernel_phase``, on each shard of a matrix of several), the SpMV
+    against the oracle with its launch counts, and when ``timed`` the
+    times and a profile (the kernels alone only if ``kernels_timed``, by
+    default ``timed``); on a matrix of several shards the load imbalance
+    (``shards_phase``); then ``after(mat, x, lab)`` where given, and on the
+    same tuned matrix one ``spmm_phase`` per (k, timed) in ``spmm``.  A
+    symmetric matrix runs all that once per mode in ``modes``
+    (:func:`sym_mode`), on the one tuned matrix, labelled ``label`` and the
+    mode.  Returns ({label: summary}, kernel entries) of the timed
+    parts."""
     import torch
     t0 = time.perf_counter()
+    ktimed = timed if kernels_timed is None else kernels_timed
     mat = tune(spx, rows, cols, vals, n, dtype_name, label, options)
     summary, entries = {}, []
     for mode in modes or (None,):
@@ -1767,13 +2099,19 @@ def run_path(spx, tf, label, n, rows, cols, vals, dtype_name, tol, check,
             sym_mode(spx, mat, mode, lab)
         ex = check(mat, lab)
         x = x_for(mat, n, dtype_name)
-        res = kernel_phase(ex, x, lab, timed)
+        res = shards_kernel_phase(ex if isinstance(ex, list) else [ex], x,
+                                  lab, timed and ktimed)
         timing = e2e_phase(spx, tf, mat, rows, cols, vals, x, tol, lab,
                            timed)
         if timed:
             profiled = profile_phase(timing[-1])
             summary[lab] = report(lab, mat, res, timing, profiled, rows.size)
-            entries += kernel_entries(res, timing[0], profiled[0], lab)
+            if ktimed:
+                entries += kernel_entries(res, timing[0], profiled[0], lab)
+            if len(mat.csx.executors) > 1:
+                summary[lab].update(shards_phase(mat, x, lab))
+        if after is not None:
+            summary.update(after(mat, x, lab) or {})
         for k, mm_timed in spmm:
             s, e = spmm_phase(spx, tf, mat, rows, cols, vals, k, lab, tol,
                               mm_timed, (res, timing[3]))
@@ -2000,6 +2338,61 @@ def ptxas_report(log):
     return out
 
 
+def run_shard_paths(spx, tf, summary):
+    """The paths of matrices of several shards on the card, after the
+    one-shard paths (whose summaries, in ``summary``, they are compared
+    with): each tuned with ``spx.rt.nr_threads`` and run as ``run_path``
+    runs a path, its kernels checked on each shard and timed in float32;
+    returns their kernel entries."""
+    entries_out = []
+    # (label, the one-shard path's label, rows, builder, plan check,
+    # shards, value types (type, bar, timed), SpMMs, whether the entries
+    # and archive phase runs, symmetric modes)
+    tols = (("float32", CHECK_TOL), ("float64", 1e-6))
+    f32 = ("float32",)
+    sym = SYMMETRIC + (("spx.tpu.sym_full", "on"),)
+    ntimed = ((tols[0] + (True,)), (tols[1] + (True,)))
+    shard_paths = (
+        ("headline 2^20 x2 ", "", N, lambda: build_matrix(N),
+         check_shards("headline"), 2, ntimed, ((8, True, f32),), True, ()),
+        ("headline 2^20 x4 ", "", N, lambda: build_matrix(N),
+         check_shards("headline"), 4, ntimed, (), False, ()),
+        ("blocky 2^21 x2 ", "blocky ", N_BLOCKY,
+         lambda: build_blocky_matrix(N_BLOCKY), check_shards("blocky"), 2,
+         ntimed, ((8, False, f32),), False, ()),
+        ("symmetric 2^20 x2 ", "symmetric 2^20 ", N_SYM,
+         lambda: build_symmetric_matrix(N_SYM), check_shards("symmetric"),
+         2, ((tols[0] + (True,)), (tols[1] + (False,))), (), False,
+         tuple(SYM_MODES)),
+    )
+    for (prefix, one, n, build, check, nshards, types, mms, entries,
+         modes) in shard_paths:
+        rows, cols, vals = build()
+        options = (("spx.rt.nr_threads", str(nshards)),) + (
+            sym if modes else ())
+        for dtype_name, tol, timed in types:
+            label = prefix + dtype_name
+            after = (entries_phase(spx, tf, rows, cols, vals, tol)
+                     if entries and dtype_name == "float32" else None)
+            s, k = run_path(spx, tf, label, n, rows, cols, vals, dtype_name,
+                            tol, check, options, timed,
+                            [(kk, t) for kk, t, dts in mms
+                             if dtype_name in dts], modes,
+                            kernels_timed=dtype_name == "float32",
+                            after=after)
+            summary.update(s)
+            entries_out += k
+            for mode in modes or ("",):
+                lab = (label + " " + mode).strip()
+                base = (one + dtype_name + " " + mode).strip()
+                if lab in summary and base in summary:
+                    summary[lab]["one_shard"] = shard_cost(
+                        summary[lab], summary[base], nshards, lab)
+        del rows, cols, vals
+
+    return entries_out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2037,9 +2430,11 @@ def main():
     # k-batched chunk (bench.py's SpMM figure), k = 11 two chunks (8 + 3)
     both, f32 = ("float32", "float64"), ("float32",)
     mm8 = ((8, True, both),)
+    mm8_f32 = ((8, True, f32), (8, False, ("float64",)))
     sym = SYMMETRIC + (("spx.tpu.sym_full", "on"),)
     # (label, rows of the matrix, its builder, plan check, extra tune
-    # options, value types to run, timed, SpMMs, symmetric modes)
+    # options, value types to run, timed (all of them, or the types
+    # named), SpMMs, symmetric modes)
     paths = (
         ("", N, lambda: build_matrix(N), check_plan, (), tols, True,
          mm8 + ((11, False, f32),)),
@@ -2049,14 +2444,16 @@ def main():
          lambda: build_blocky_matrix(N_BLOCKY_CHECK),
          check_masked_blocky_plan, (), tols[:1], True,
          ((8, True, f32), (3, False, f32))),
+        # (the paths timed in f32 only check f64 untimed, which keeps the
+        # script with the shard paths well inside its time limit)
         ("wide-run 2^21 W=16 ", N_DENSE, lambda: wide_run_matrix(N_DENSE, 16),
-         check_dense_plan("run16"), (), tols, True, mm8),
+         check_dense_plan("run16"), (), tols, f32, mm8_f32),
         ("lane-skew 2^21 ", N_DENSE, lambda: lane_skew_matrix(N_DENSE),
-         check_dense_plan("sl"), (), tols, True, mm8),
+         check_dense_plan("sl"), (), tols, f32, mm8_f32),
         ("fs-run 2^21 W=5 ", N_DENSE, lambda: wide_run_matrix(N_DENSE, 5),
-         check_fs_plan("runs"), (), tols, True, ((8, True, f32),)),
+         check_fs_plan("runs"), (), tols, f32, ((8, True, f32),)),
         ("fs-block 3x2^19 ", N_FS_BLOCK, lambda: block3_matrix(N_FS_BLOCK),
-         check_fs_plan("blocks"), (), tols, True, ((8, False, f32),)),
+         check_fs_plan("blocks"), (), tols, f32, ((8, False, f32),)),
         ("overlap-run 2^16 W=16 ", N_OVERLAP,
          lambda: overlap_run_matrix(N_OVERLAP), check_overlap_plan, (),
          tols, False, ()),
@@ -2079,11 +2476,11 @@ def main():
          lambda m, lb: check_pages_plan(m, "blocky", lb), (), tols, True,
          ()),
         ("symmetric 2^20 ", N_SYM, lambda: build_symmetric_matrix(N_SYM),
-         check_sym_plan("symmetric"), sym, tols, True, ((2, False, f32),),
+         check_sym_plan("symmetric"), sym, tols, f32, ((2, False, f32),),
          tuple(SYM_MODES)),
         ("symmetric hpcg 128^3 ", HPCG_NX ** 3,
          lambda: hpcg_matrix(HPCG_NX)[1:], check_sym_plan("hpcg"), sym,
-         tols, True, ((2, False, f32),), tuple(SYM_MODES)),
+         tols, f32, ((2, False, f32),), tuple(SYM_MODES)),
     )
     for prefix, n, build, check, options, types, timed, mms, *modes in paths:
         rows, cols, vals = build()
@@ -2093,7 +2490,9 @@ def main():
         for dtype_name, tol in types:
             label = prefix + dtype_name
             s, k = run_path(spx, tf, label, n, rows, cols, vals, dtype_name,
-                            tol, check, options, timed,
+                            tol, check, options,
+                            (timed if isinstance(timed, bool)
+                             else dtype_name in timed),
                             [(kk, t) for kk, t, dts in mms
                              if dtype_name in dts], *modes)
             summary.update(s)
@@ -2102,6 +2501,8 @@ def main():
             summary.update(bf16_phase(spx, tf, prefix + "bfloat16", n, rows,
                                       cols, vals))
         del rows, cols, vals
+
+    kernels_out += run_shard_paths(spx, tf, summary)
 
     say("summary: " + json.dumps(summary))
     say(card)

@@ -7,19 +7,18 @@ port's own copy of the reference's NumPy/C++ code, so both packages plan
 the same arrays; ``Config`` and ``SparsexError`` are the port's own.  This
 package imports ``torch``, never ``jax`` and nothing of ``sparsex_tpu``.
 
-Ported so far, for one shard in float32 and float64: the fused SpMV main
-path (K1 lane-placed product + G1, T1, K2, K3 with the DIA tables,
-residual adds), the blocky path (fused horizontal runs and 2-D blocks
-through K1's lane-placed run styles, the merged route plan with its
-per-instance G1 lane gather, plain run and delta tables) and the non-fused
-variants that matrices past 2^21 rows and stencil or banded matrices take
-(the plain tables with the standalone DIA kernel; the legacy paged
-variant: the page-bucketed delta product, the unit-page gathers of paged
-run and block tables), and the SpMM of every one of them
-(``matmat_mult`` / ``matmat_kernel``: the k-batched K1, T1, K2, K3 and lane
-gather on a fused plan, the SpMV once per column otherwise).  Other
-execution classes raise ``NotImplementedError`` naming their ROADMAP.md
-queue item.
+Ported: the SpMV and SpMM of every plan the reference's planners make on
+one device, in float32, float64 and bf16 (computed in f32): the fused
+main path (K1 in every style, T1, K2, K3 with the DIA tables, the merged
+route plan with its lane gathers), the legacy paged and plain-table
+variants, the routed scatters, symmetric matrices (the full mirror and the
+per-shard plan), several shards on one device (``spx.rt.nr_threads``, one
+CUDA graph a call for all of them), entries (``mat_get_entry`` /
+``mat_set_entry``), archives in the reference's format (``mat_save`` /
+``mat_restore``), partitions, the CSR kernel cache and the ``spx_vec_*``
+ops (``vec``).  Not yet: ``spgemm`` and the solvers (ROADMAP.md Queue 1
+item 12) and several devices (item 13); ``check_slice`` refuses their
+execution classes with ``NotImplementedError`` naming the queue item.
 
     import sparsex_tpu_torch as spx
     A = spx.mat_tune(spx.input_load_mmf("matrix.mtx"))       # on cuda:0
@@ -27,21 +26,41 @@ queue item.
     Y = spx.matmat_kernel(1.0, A, X, 0.0, None)               # X (ncols, k)
 """
 
-from sparsex_tpu_torch.config import Config, option_get, option_set
-from sparsex_tpu_torch.errors import ErrorCode, SparsexError
+from sparsex_tpu_torch.config import (Config, option_get, option_set,
+                                      options_set_from_env)
+from sparsex_tpu_torch.errors import ErrorCode, SparsexError, set_error_handler
+from sparsex_tpu_torch import timing
 from sparsex_tpu_torch.api import (INDEX_ONE_BASED, INDEX_ZERO_BASED,
-                                   OP_REORDER, Input, Matrix,
+                                   OP_REORDER, Input, Matrix, Partition,
+                                   finalize, init, input_destroy,
                                    input_load_csr, input_load_mmf,
-                                   mat_tune, matmat_kernel, matmat_mult,
-                                   matvec_kernel, matvec_mult)
+                                   mat_destroy, mat_get_entry,
+                                   mat_get_partition, mat_restore, mat_save,
+                                   mat_set_entry, mat_tune, matmat_kernel,
+                                   matmat_mult, matvec_kernel,
+                                   matvec_kernel_csr,
+                                   matvec_kernel_csr_invalidate, matvec_mult,
+                                   partition_csr)
+from sparsex_tpu_torch.ops import vector as vec
+from sparsex_tpu_torch import api, config
 from sparsex_tpu_torch.device import resolve_device
 
 __version__ = "0.1.0"
 
+# the reference's __all__ (sparsex_tpu/__init__.py:52-66) less spgemm
+# (ROADMAP.md Queue 1 item 12), and the port's device helper
 __all__ = [
-    "Config", "option_set", "option_get", "SparsexError", "ErrorCode",
+    "Config", "option_set", "option_get", "options_set_from_env",
+    "SparsexError", "ErrorCode", "set_error_handler",
+    "timing", "vec",
     "OP_REORDER", "INDEX_ZERO_BASED", "INDEX_ONE_BASED",
-    "Input", "Matrix", "input_load_csr", "input_load_mmf",
-    "mat_tune", "matvec_mult", "matvec_kernel", "matmat_mult",
-    "matmat_kernel", "resolve_device",
+    "init", "finalize",
+    "input_load_csr", "input_load_mmf", "input_destroy",
+    "mat_tune", "mat_get_entry", "mat_set_entry", "mat_save", "mat_restore",
+    "mat_get_partition", "mat_destroy",
+    "matvec_mult", "matvec_kernel", "matvec_kernel_csr",
+    "matvec_kernel_csr_invalidate", "matmat_mult", "matmat_kernel",
+    "partition_csr",
+    "Matrix", "Input", "Partition",
+    "resolve_device",
 ]

@@ -8,23 +8,35 @@ the SpMV kernels run on a PyTorch device:
 =====================================  =====================================
 reference                               sparsex_tpu_torch
 =====================================  =====================================
+``spx_init / spx_finalize``             ``init() / finalize()``
 ``spx_input_load_csr / _mmf``           ``input_load_csr / input_load_mmf``
+``spx_input_destroy``                   ``input_destroy``
 ``spx_mat_tune``                        ``mat_tune(input, *flags, device=)``
+``spx_mat_get_entry / set_entry``       ``mat_get_entry / mat_set_entry``
+``spx_mat_save / restore``              ``mat_save / mat_restore(filename,
+                                        device=)``
+``spx_mat_get_partition``               ``mat_get_partition``
+``spx_mat_destroy``                     ``mat_destroy``
 ``spx_matvec_mult``                     ``matvec_mult(alpha, A, x, device=)``
 ``spx_matvec_kernel``                   ``matvec_kernel(alpha, A, x, beta,
                                         y, device=)``
+``spx_matvec_kernel_csr``               ``matvec_kernel_csr(..., device=)``
+``spx_partition_csr``                   ``partition_csr``
 ``matmat_mult`` (SpMM, api.py:209)      ``matmat_mult(alpha, A, X, device=)``
 ``matmat_kernel`` (api.py:218)          ``matmat_kernel(alpha, A, X, beta,
                                         Y, device=)``
 ``spx_option_set / get``                ``option_set / option_get``
+``spx_vec_*``                           ``sparsex_tpu_torch.ops.vector``
 =====================================  =====================================
 
-``device`` defaults to ``cuda:0`` for tuning; the SpMV calls run where the
-matrix lives, and a ``device`` given to them must name that device.
+``device`` defaults to ``cuda:0`` for tuning and restoring; the SpMV calls
+run where the matrix lives, and a ``device`` given to them must name that
+device.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Optional
 
@@ -38,12 +50,26 @@ from sparsex_tpu_torch.errors import ErrorCode, SparsexError, seterror
 from sparsex_tpu_torch.io.csr import CSR
 from sparsex_tpu_torch.io.mmf import MMF, load_mmf
 from sparsex_tpu_torch.logger import log_info
+from sparsex_tpu_torch.parallel.partition import (RowPartition,
+                                                  split_rows_by_nnz)
+from sparsex_tpu_torch.persist import restore_csx, save_csx
 from sparsex_tpu_torch.symmetric import build_symmetric_csx
 
 # Flags mirroring the reference's option macros.
 OP_REORDER = "reorder"  # SPX_MAT_REORDER
 INDEX_ZERO_BASED = 0    # SPX_INDEX_ZERO_BASED
 INDEX_ONE_BASED = 1     # SPX_INDEX_ONE_BASED
+
+
+def init() -> None:
+    """``spx_init`` parity (ref ``src/api/common.c:85-93``): enable the
+    default console error/warning reporting.  Idempotent."""
+    Config.instance()
+
+
+def finalize() -> None:
+    """``spx_finalize`` parity: nothing process-wide to release (a
+    matrix's device memory goes with it, or with ``mat_destroy``)."""
 
 
 @dataclass
@@ -112,6 +138,21 @@ class Matrix:
         return self.csx.device
 
 
+@dataclass
+class Partition:
+    """``spx_partition_t`` parity: row ranges per shard."""
+
+    parts: RowPartition
+    nrows: int
+
+
+def input_destroy(input_: Input) -> None:
+    """``spx_input_destroy`` parity (the arrays go with the last
+    reference to them)."""
+    input_.mmf = None
+    input_.csr = None
+
+
 def mat_tune(input_: Input, *flags: str, device=None) -> Matrix:
     """``spx_mat_tune`` parity: CSX preprocessing and host planning, then
     the plan uploaded to ``device`` (default ``cuda:0``): the fused or
@@ -141,6 +182,50 @@ def mat_tune(input_: Input, *flags: str, device=None) -> Matrix:
     log_info("tuned matrix on %s: %dx%d nnz=%d csx_size=%dB", dev,
              nrows, ncols, csx.nnz, csx.csx_size())
     return Matrix(csx=csx, permutation=permutation)
+
+
+def mat_get_entry(mat: Matrix, row: int, col: int) -> float:
+    """``spx_mat_get_entry`` parity (ref ``src/api/matvec.c:324``)."""
+    return mat.csx.get_entry(row, col)
+
+
+def mat_set_entry(mat: Matrix, row: int, col: int, value: float) -> None:
+    """``spx_mat_set_entry`` parity (ref ``src/api/matvec.c:366``): the
+    next SpMV plans and uploads the entry's shard again."""
+    mat.csx.set_entry(row, col, value)
+
+
+def mat_save(mat: Matrix, filename: str) -> None:
+    """``spx_mat_save`` parity: the reference's archive format
+    (``persist.save_csx``)."""
+    save_csx(mat.csx, filename, permutation=mat.permutation)
+
+
+def mat_restore(filename: str, device=None) -> Matrix:
+    """``spx_mat_restore`` parity: the matrix on ``device`` (default
+    ``cuda:0``), planned from the archive's layouts
+    (``persist.restore_csx``)."""
+    csx, permutation = restore_csx(filename, device)
+    return Matrix(csx=csx, permutation=permutation)
+
+
+def mat_get_partition(mat: Matrix) -> Partition:
+    """``spx_mat_get_partition`` parity (ref ``src/api/matvec.c:485``)."""
+    return Partition(parts=mat.csx.partition, nrows=mat.nrows)
+
+
+def mat_destroy(mat: Matrix) -> None:
+    """``spx_mat_destroy`` parity: drops the executors and their CUDA
+    graphs."""
+    if mat.csx is not None:
+        mat.csx.release()
+    mat.csx = None
+
+
+def partition_csr(rowptr, nrows: int, nparts: int) -> Partition:
+    """``spx_partition_csr`` parity (ref ``src/api/matvec.c:689``)."""
+    counts = np.diff(np.asarray(rowptr, dtype=np.int64))
+    return Partition(parts=split_rows_by_nnz(counts, nparts), nrows=nrows)
 
 
 def _on(mat: Matrix, device) -> None:
@@ -178,6 +263,51 @@ def matmat_kernel(alpha: float, mat: Matrix, X, beta: float, Y,
     return mat.csx.matmat(X, alpha=alpha, beta=beta, Y=Y)
 
 
-__all__ = ["OP_REORDER", "INDEX_ZERO_BASED", "INDEX_ONE_BASED", "Input",
-           "Matrix", "input_load_csr", "input_load_mmf", "mat_tune",
-           "matvec_mult", "matvec_kernel", "matmat_mult", "matmat_kernel"]
+_csr_cache = OrderedDict()
+_CSR_CACHE_MAX = 16
+
+
+def matvec_kernel_csr(rowptr, colind, values, nrows, ncols,
+                      alpha: float, x, beta: float, y, device=None):
+    """``spx_matvec_kernel_csr`` parity (ref ``src/api/matvec.c:622``,
+    api.py:235-259): tunes onto ``device`` (default ``cuda:0``) at the
+    first call for the given CSR buffers, then runs ``matvec_kernel``.
+
+    The cache keys on the buffers' identity, as the reference's does (its
+    C callers keep the buffers alive); the entry holds strong references to
+    the keyed buffers, so a cached id can never alias a freed matrix.  An
+    LRU of ``_CSR_CACHE_MAX`` tuned matrices; call
+    :func:`matvec_kernel_csr_invalidate` to drop entries eagerly (after a
+    change to a buffer's values, for one)."""
+    dev = resolve_device(device)
+    key = (id(rowptr), id(colind), id(values), nrows, ncols, str(dev))
+    entry = _csr_cache.get(key)
+    if entry is None:
+        inp = input_load_csr(rowptr, colind, values, nrows, ncols)
+        entry = (mat_tune(inp, device=dev), rowptr, colind, values)
+        _csr_cache[key] = entry
+        while len(_csr_cache) > _CSR_CACHE_MAX:
+            _csr_cache.popitem(last=False)
+    else:
+        _csr_cache.move_to_end(key)
+    return matvec_kernel(alpha, entry[0], x, beta, y)
+
+
+def matvec_kernel_csr_invalidate(rowptr=None, colind=None, values=None):
+    """Drop the cached tuned matrices of the given CSR buffers (all three
+    None: the whole cache; ref api.py:262-271)."""
+    if rowptr is None and colind is None and values is None:
+        _csr_cache.clear()
+        return
+    ids = (id(rowptr), id(colind), id(values))
+    for key in [k for k in _csr_cache if k[:3] == ids]:
+        del _csr_cache[key]
+
+
+__all__ = ["OP_REORDER", "INDEX_ZERO_BASED", "INDEX_ONE_BASED", "init",
+           "finalize", "Input", "Matrix", "Partition", "input_load_csr",
+           "input_load_mmf", "input_destroy", "mat_tune", "mat_get_entry",
+           "mat_set_entry", "mat_save", "mat_restore", "mat_get_partition",
+           "mat_destroy", "partition_csr", "matvec_mult", "matvec_kernel",
+           "matvec_kernel_csr", "matvec_kernel_csr_invalidate",
+           "matmat_mult", "matmat_kernel"]

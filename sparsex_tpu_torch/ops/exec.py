@@ -699,7 +699,14 @@ class CsxExecutor:
         paged plan, or the plain tables when the planner made none, to
         ``device``; raises ``NotImplementedError`` for a plan outside the
         ported slice."""
-        plan = HostPlan(tables)
+        return cls.from_plan(HostPlan(tables), device)
+
+    @classmethod
+    def from_plan(cls, plan: HostPlan, device) -> "CsxExecutor":
+        """Upload ``plan`` (its paged plan, planned here unless it was
+        planned or restored before, else its plain tables) to ``device``;
+        raises ``NotImplementedError`` for a plan outside the ported
+        slice."""
         plan._maybe_build_pages()
         if plan._pages_meta is not None:
             variant, meta, host = "paged", plan._pages_meta, plan._pages_arrays
@@ -708,8 +715,8 @@ class CsxExecutor:
         check_slice(meta)
         dtype = _DTYPES[plan._dtype]
         arrays = plan_to_torch(meta, host, device, dtype)
-        return cls(meta, arrays, tables.nrows, tables.ncols, dtype,
-                   torch.device(device), variant)
+        return cls(meta, arrays, plan.tables.nrows, plan.tables.ncols,
+                   dtype, torch.device(device), variant)
 
     def __call__(self, x, alpha=1.0, beta=0.0, y=None):
         """``alpha * A @ x + beta * y`` for x (ncols,), or the SpMM for X
@@ -865,3 +872,43 @@ class CsxExecutor:
             raise TypeError(f"{name}: dtype {a.dtype} is not numeric")
         return torch.as_tensor(np.ascontiguousarray(a), dtype=self.dtype,
                                device=self.device)
+
+
+class ShardsExecutor(CsxExecutor):
+    """Several shards of one matrix on one device as one executor, the
+    counterpart of the reference's one program for all shards
+    (``_compiled_multi``, exec.py:135-157; symmetric: ``_compiled_sym_multi``,
+    symmetric.py:40-64), itself the reference C library's single
+    barrier-synchronised dispatch (``CsxKernels.cpp:35-80``).
+
+    Its body runs each shard's eager body in turn on the one x: each
+    shard's rows are concatenated into one result, or, for ``summed``
+    (the per-shard symmetric shards, whose bodies give each a result over
+    every row), the shards' results are added.  The SpMM holds each
+    shard's own k-major body, k-batched on a shard whose plan is fused and
+    once per column otherwise.  On the card a call replays one CUDA graph
+    of this executor's for all shards (x copied in once; the alpha/beta
+    epilogue and a bf16 x's casts once a call); the shards' own graphs are
+    not captured for it."""
+
+    def __init__(self, shards, nrows: int, ncols: int, summed: bool = False):
+        ex0 = shards[0]
+        super().__init__(None, None, nrows, ncols, ex0.dtype, ex0.device,
+                         variant="shards")
+        self.shards = list(shards)
+        self.summed = summed
+
+    def _matvec(self, x: torch.Tensor) -> torch.Tensor:
+        return self._combine([ex._matvec(x) for ex in self.shards])
+
+    def _matmat(self, xt: torch.Tensor) -> torch.Tensor:
+        return self._combine([ex._matmat(xt) for ex in self.shards])
+
+    def _combine(self, parts):
+        """The shards' results (rows on the last axis) as one."""
+        if not self.summed:
+            return torch.cat(parts, dim=-1)
+        out = parts[0]
+        for p in parts[1:]:
+            out.add_(p)
+        return out

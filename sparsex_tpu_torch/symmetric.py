@@ -27,9 +27,16 @@ SpMV applies each stored value twice, in two modes (``spx.tpu.sym_full``):
 run (the TPU there, the card here), per shard elsewhere.  The reference
 builds the per-shard page layouts only in float32 (``pallas_dtype_ok``);
 the port plans and runs them in float32 and float64 alike, as it does the
-paged plan (ROADMAP Queue 3, intended divergences).  One shard is
-supported (``spx.rt.nr_threads`` = 1); ``get_entry`` / ``set_entry`` /
-``tocoo`` come with the port's ``mat_get_entry`` (ROADMAP Queue 1 item 5).
+paged plan (ROADMAP Queue 3, intended divergences).
+
+Several shards (``spx.rt.nr_threads`` > 1): the full mirror mirrors them
+all into one executor, as the reference does (symmetric.py:300-307); per
+shard each shard has its own executor at its own ``row_start``, and one
+:class:`~sparsex_tpu_torch.ops.exec.ShardsExecutor` sums the shards'
+results, the reference's ``_compiled_sym_multi``.  ``get_entry`` /
+``set_entry`` read and write the stored triangle and the diagonal
+(``dvalues``); a write drops the mirrored executor at once and the shard's
+per-shard plan at the next call.
 """
 
 from __future__ import annotations
@@ -41,12 +48,12 @@ import numpy as np
 import torch
 
 from sparsex_tpu_torch.config import Config
-from sparsex_tpu_torch.csx import CsxMatrix, round_values
+from sparsex_tpu_torch.csx import CsxMatrix, map_shards, round_values
 from sparsex_tpu_torch.device import resolve_device
 from sparsex_tpu_torch.errors import ErrorCode, seterror
 from sparsex_tpu_torch.logger import log_info
 from sparsex_tpu_torch.ops.convert import plan_to_torch
-from sparsex_tpu_torch.ops.exec import _DTYPES, CsxExecutor
+from sparsex_tpu_torch.ops.exec import _DTYPES, CsxExecutor, ShardsExecutor
 from sparsex_tpu_torch.ops.kernels import (check_slice, local_contrib,
                                            static_meta, tables_to_arrays)
 from sparsex_tpu_torch.ops.pallas_kernels import build_delta_pages
@@ -334,14 +341,17 @@ class SymShardExecutor(CsxExecutor):
 @dataclass
 class SymCsxMatrix(CsxMatrix):
     """Symmetric tuned matrix: lower triangle + diagonal per shard.
-    ``executors`` holds the executor of the mode in use
-    (:meth:`_executor`)."""
+    ``executors`` holds the executors of the mode in use
+    (:meth:`_executor`): the full mirror's one, or one per shard."""
 
     dvalues: List[np.ndarray] = field(default_factory=list)
     _full_exec: Optional[CsxExecutor] = field(default=None, init=False,
                                               repr=False)
-    _shard_exec: Optional[SymShardExecutor] = field(default=None,
-                                                    init=False, repr=False)
+    _shard_execs: Optional[List[SymShardExecutor]] = field(
+        default=None, init=False, repr=False)
+
+    def __post_init__(self):
+        self.symmetric = True
 
     def _full_active(self) -> bool:
         """Whether SpMV runs on the mirrored full-expansion executor:
@@ -368,28 +378,98 @@ class SymCsxMatrix(CsxMatrix):
         self._sym_paged = [shard_plan(t, self.nrows, self.ncols)
                            for t in self.shards]
 
-    def _shard_executor(self) -> SymShardExecutor:
-        if self._shard_exec is None:
-            if not hasattr(self, "_sym_paged"):
-                self._build_sym_arrays()
-            (meta, host), = self._sym_paged
-            self._shard_exec = SymShardExecutor.from_plan(
-                self.shards[0], meta, host, self.dvalues[0], self.nrows,
-                self.device)
-        return self._shard_exec
+    def _shard_plan(self, si: int):
+        """Shard ``si``'s per-shard plan, made once (an entry of
+        ``_sym_paged``; a value write drops it)."""
+        if not hasattr(self, "_sym_paged"):
+            self._sym_paged = [None] * len(self.shards)
+        if self._sym_paged[si] is None:
+            self._sym_paged[si] = shard_plan(self.shards[si], self.nrows,
+                                             self.ncols)
+        return self._sym_paged[si]
+
+    def _shard_executors(self) -> List[SymShardExecutor]:
+        if self._shard_execs is None:
+            self._shard_execs = [None] * len(self.shards)
+        for si, ex in enumerate(self._shard_execs):
+            if ex is None:
+                meta, host = self._shard_plan(si)
+                self._shard_execs[si] = SymShardExecutor.from_plan(
+                    self.shards[si], meta, host, self.dvalues[si],
+                    self.nrows, self.device)
+        return self._shard_execs
 
     def _executor(self) -> CsxExecutor:
         """The executor of the mode ``spx.tpu.sym_full`` selects now (built
-        at its first use), which ``executors`` then holds."""
-        ex = (self._full_executor() if self._full_active()
-              else self._shard_executor())
-        self.executors[:] = [ex]
-        return ex
+        at its first use): the full mirror's, the one shard's, or the
+        shards' :class:`ShardsExecutor` whose results are summed (the
+        reference's ``_compiled_sym_multi``); ``executors`` then holds the
+        mode's per-shard executors."""
+        self._refresh()
+        if self._full_active():
+            self.executors[:] = [self._full_executor()]
+            return self.executors[0]
+        self.executors[:] = self._shard_executors()
+        if len(self.executors) == 1:
+            return self.executors[0]
+        if self._multi is None or self._multi.shards != self.executors:
+            self._multi = ShardsExecutor(self.executors, self.nrows,
+                                         self.ncols, summed=True)
+        return self._multi
 
-    def matvec(self, x, alpha=1.0, beta=0.0, y=None):
-        """:meth:`CsxMatrix.matvec` in the mode in use."""
-        self._executor()
-        return super().matvec(x, alpha=alpha, beta=beta, y=y)
+    def _replan(self, si: int) -> None:
+        """A value of shard ``si`` changed: its per-shard plan and executor
+        are made again at their next use (the full mirror was dropped at
+        the write)."""
+        if hasattr(self, "_sym_paged"):
+            self._sym_paged[si] = None
+        if self._shard_execs is not None:
+            self._shard_execs[si] = None
+        self.executors[:] = []
+
+    def release(self) -> None:
+        super().release()
+        self._full_exec = self._shard_execs = None
+
+    def _locate(self, row: int, col: int):
+        """Lower-triangle lookup; the diagonal lives in ``dvalues``
+        (ref symmetric.py:452-457)."""
+        si = self._find_shard(row)
+        if row == col:
+            return ("diag", si, row - self.shards[si].row_start)
+        return super()._locate(row, col)
+
+    def get_entry(self, row: int, col: int) -> float:
+        """An entry of the full matrix: ``col > row`` reads its mirror
+        (ref symmetric.py:459-465)."""
+        row, col = self._check_entry(row, col)
+        return super().get_entry(max(row, col), min(row, col))
+
+    def set_entry(self, row: int, col: int, value: float) -> None:
+        """Sets an entry and its mirror (the one stored value; ref
+        symmetric.py:467-486).  The mirrored executor is dropped at once,
+        the shard's per-shard plan at the next call."""
+        row, col = self._check_entry(row, col)
+        self._full_exec = None   # mirrored copies go stale on any write
+        if self.executors and not isinstance(self.executors[0],
+                                             SymShardExecutor):
+            self.executors[:] = []
+        super().set_entry(max(row, col), min(row, col), value)
+
+    def tocoo(self):
+        """Expand to the full (mirrored) COO (ref symmetric.py:488-500)."""
+        r, c, v = super().tocoo()
+        dr, dv = [], []
+        for tables, dvals in zip(self.shards, self.dvalues):
+            idx = np.arange(tables.nrows, dtype=np.int64) + tables.row_start
+            nzmask = dvals != 0
+            dr.append(idx[nzmask])
+            dv.append(dvals[nzmask])
+        rows = np.concatenate([r, c] + dr)
+        cols = np.concatenate([c, r] + dr)
+        vals = np.concatenate([v, v] + dv)
+        order = np.lexsort((cols, rows))
+        return rows[order], cols[order], vals[order]
 
 
 def build_symmetric_csx(nrows: int, ncols: int, rows, cols, vals, *,
@@ -397,16 +477,12 @@ def build_symmetric_csx(nrows: int, ncols: int, rows, cols, vals, *,
                         config: Optional[Config] = None,
                         device=None) -> SymCsxMatrix:
     """Build a symmetric CSX from COO input (ref symmetric.py:502-577), on
-    ``device`` (default ``cuda:0``), with the executor of the mode in use
-    built.  ``already_lower=True`` when the input carries only the lower
-    triangle (MMF symmetric file loaded with ``keep_lower``); otherwise the
-    strict upper triangle is dropped after verifying the pattern is
-    symmetric."""
+    ``device`` (default ``cuda:0``), in ``spx.rt.nr_threads`` shards
+    encoded on a thread pool, with the executor of the mode in use built.
+    ``already_lower=True`` when the input carries only the lower triangle
+    (MMF symmetric file loaded with ``keep_lower``); otherwise the strict
+    upper triangle is dropped after verifying the pattern is symmetric."""
     cfg = config or Config.instance()
-    if cfg.nr_threads > 1:
-        raise NotImplementedError(
-            "more than one shard (spx.rt.nr_threads > 1) is not ported "
-            "yet; see ROADMAP.md Queue 1 item 5")
     if nrows != ncols:
         seterror(ErrorCode.SPX_ERR_INPUT_MAT,
                  "symmetric matrices must be square")
@@ -427,25 +503,37 @@ def build_symmetric_csx(nrows: int, ncols: int, rows, cols, vals, *,
     mat = SymCsxMatrix(nrows=int(nrows), ncols=int(ncols),
                        nnz=int(rows.size), device=dev)
     mat.timers.start_timer("preproc")
-    part = split_rows_by_nnz(row_counts_from_coo(rows, nrows), 1)
+    nparts = max(1, cfg.nr_threads)
+    # the reference balances the lower triangle's nonzeros (its
+    # (nnz + n) / 2 symmetric load, SparseInternal.hpp:72-95)
+    part = split_rows_by_nnz(row_counts_from_coo(rows, nrows), nparts)
     mat.partition = part
     order = lexsort_rc(rows, cols)
     rows, cols = take1(rows, order), take1(cols, order)
     vals = take1(vals, order)
-    r0 = part.row_start[0]
-    nr = part.row_end[0] - r0
-    pr, pc = rows - r0, cols
-    diag_mask = (pr + r0) == pc
-    dvalues = np.zeros(nr, dtype=vals.dtype)
-    dvalues[pr[diag_mask]] = vals[diag_mask]
-    enc = Encoder(nr, ncols, pr[~diag_mask], pc[~diag_mask],
-                  vals[~diag_mask], config=cfg)
-    enc.encode()
-    mat.shards.append(enc.finalize(row_start=r0))
-    mat.dvalues.append(dvalues)
-    log_info("sym shard 0: rows [%d,%d) lower-nnz=%d encodings=%s", r0,
-             part.row_end[0], int((~diag_mask).sum()),
-             ",".join(enc.encoding_log) or "none")
+    bounds = np.searchsorted(rows, part.row_start + [nrows])
+
+    def encode(i):   # PreprocessThreadSym parity (CsxBuild.hpp:290-341)
+        lo, hi = bounds[i], bounds[i + 1]
+        r0 = part.row_start[i]
+        nr = part.row_end[i] - r0
+        pr, pc, pv = rows[lo:hi] - r0, cols[lo:hi], vals[lo:hi]
+        diag_mask = (pr + r0) == pc
+        dvalues = np.zeros(nr, dtype=vals.dtype)
+        dvalues[pr[diag_mask]] = pv[diag_mask]
+        enc = Encoder(nr, ncols, pr[~diag_mask], pc[~diag_mask],
+                      pv[~diag_mask], config=cfg)
+        enc.encode()
+        return (enc.finalize(row_start=r0), dvalues,
+                int((~diag_mask).sum()), enc.encoding_log)
+
+    for i, (tables, dvalues, lower, log) in enumerate(
+            map_shards(encode, nparts)):
+        mat.shards.append(tables)
+        mat.dvalues.append(dvalues)
+        log_info("sym shard %d: rows [%d,%d) lower-nnz=%d encodings=%s", i,
+                 part.row_start[i], part.row_end[i], lower,
+                 ",".join(log) or "none")
     mat._executor()
     mat.timers.pause_timer("preproc")
     return mat

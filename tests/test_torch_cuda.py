@@ -1212,3 +1212,145 @@ def test_graph_capture_failure_raises(dev, monkeypatch):
         ex(x)
     assert not ex._graphs
     torch.cuda.synchronize()
+
+
+def _tune_shards(n, dtype, nshards, build=None, **options):
+    """``build(n)`` (the headline matrix by default) tuned on the card in
+    ``nshards`` shards, with its COO."""
+    import chip_smoke
+    import sparsex_tpu_torch as spt
+
+    rows, cols, vals = (build or chip_smoke.build_matrix)(n)
+    cfg = spt.Config.reset()
+    cfg.set("spx.tpu.value_dtype", dtype)
+    cfg.set("spx.preproc.xform", "all")
+    cfg.set("spx.preproc.sampling", "portion")
+    cfg.set("spx.rt.nr_threads", str(nshards))
+    for key, value in options.items():
+        cfg.set(key, value)
+    A = spt.mat_tune(chip_smoke.csr_input(spt, rows, cols, vals, n))
+    return spt, A, rows, cols, vals
+
+
+@pytest.mark.parametrize("nshards", [2, 3])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_shards_one_graph_holds_every_shard(dev, nshards, dtype):
+    """A matrix of several shards replays one graph a call whose kernel
+    nodes are the sum of its shards' per-SpMV counts; a replay launches
+    nothing from Python; the result meets the COO oracle."""
+    import chip_smoke
+    spt, A, rows, cols, vals = _tune_shards(1 << 17, dtype, nshards)
+    n = A.nrows
+    ex = A.csx._executor()
+    assert len(A.csx.executors) == nshards
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(n),
+                        dtype=ex.dtype, device=dev)
+    one = chip_smoke.matrix_counts(A.csx)
+    tf.launches.clear()
+    spt.matvec_kernel(1.0, A, x, 0.0, None)
+    torch.cuda.synchronize()
+    assert tf.launch_counts() == {k: 2 * v for k, v in one.items()}
+    assert list(ex._graphs) == [("mv",)]
+    assert all(not e._graphs for e in A.csx.executors)
+    tf.launches.clear()
+    y = spt.matvec_kernel(1.0, A, x, 0.0, None)
+    torch.cuda.synchronize()
+    assert sum(tf.launch_counts().values()) == 0
+    assert chip_smoke.graph_kernels(ex._graphs[("mv",)].graph) == {
+        k: v for k, v in one.items() if v}
+    want = np.bincount(rows, weights=vals.astype(np.float64)
+                       * x.double().cpu().numpy()[cols], minlength=n)
+    bar = chip_smoke.CHECK_TOL if dtype == "float32" else 1e-6
+    assert chip_smoke._mixed_rel_err(y.double().cpu().numpy(), want) < bar
+    # the SpMM (k = 8, each shard's own body in one graph)
+    X = torch.as_tensor(np.random.default_rng(2).standard_normal((n, 8)),
+                        dtype=ex.dtype, device=dev)
+    spt.matmat_mult(1.0, A, X)
+    Y = spt.matmat_mult(1.0, A, X).double().cpu().numpy()
+    Xh = X.double().cpu().numpy()
+    want = np.stack([np.bincount(rows, weights=vals.astype(np.float64)
+                                 * Xh[cols, j], minlength=n)
+                     for j in range(8)], axis=1)
+    assert chip_smoke._mixed_rel_err(Y, want) < bar
+
+
+def test_set_entry_through_a_replayed_graph(dev):
+    """``set_entry`` on shard 1 shows in the next SpMV replayed from the
+    matrix's graph: shard 1 alone is planned and uploaded again and a new
+    graph captured."""
+    import chip_smoke
+    spt, A, rows, cols, vals = _tune_shards(1 << 16, "float64", 2)
+    n = A.nrows
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(n),
+                        device=dev)
+    spt.matvec_kernel(1.0, A, x, 0.0, None)
+    old = A.csx._executor()._graphs[("mv",)]
+    r0 = A.csx.partition.row_start[1]
+    i = int(np.nonzero(rows >= r0)[0][5])
+    spt.mat_set_entry(A, int(rows[i]), int(cols[i]), 7.5)
+    new = vals.astype(np.float64)
+    new[i] = 7.5
+    spt.matvec_kernel(1.0, A, x, 0.0, None)
+    y = spt.matvec_kernel(1.0, A, x, 0.0, None)
+    assert A.csx.replans == 1
+    assert A.csx._executor()._graphs[("mv",)] is not old
+    want = np.bincount(rows, weights=new * x.cpu().numpy()[cols],
+                       minlength=n)
+    assert chip_smoke._mixed_rel_err(y.cpu().numpy(), want) < 1e-10
+
+
+@pytest.mark.parametrize("nshards", [1, 2])
+def test_restore_on_the_card_is_bit_equal(dev, tmp_path, nshards):
+    """``mat_save`` then ``mat_restore`` onto the card: the restored
+    plans' device arrays equal the original's, and so does the SpMV (the
+    eager bodies under torch's deterministic algorithms, which make the
+    residual adds' ``index_add_`` sum in a fixed order)."""
+    import chip_smoke
+    # the fused plan in every shard: no kernel of ours adds atomically
+    spt, A, rows, cols, vals = _tune_shards(1 << 18, "float32", nshards)
+    assert all("dfused" in chip_smoke.extras_of(e.meta)
+               for e in A.csx.executors)
+    path = str(tmp_path / "a.npz")
+    spt.mat_save(A, path)
+    B = spt.mat_restore(path)
+    assert B.device == A.device
+    for a, b in zip(A.csx.executors, B.csx.executors):
+        assert a.meta == b.meta and chip_smoke._same_tree(a.arrays, b.arrays)
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(A.nrows),
+                        dtype=torch.float32, device=dev)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ya, yb = (m.csx._executor()._matvec(x) for m in (A, B))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(ya, yb)
+    ga = spt.matvec_kernel(1.0, A, x, 0.0, None)
+    gb = spt.matvec_kernel(1.0, B, x, 0.0, None)
+    assert (ga - gb).abs().max() <= 1e-6 * ga.abs().max()
+
+
+@pytest.mark.parametrize("mode", ["off", "on"])
+def test_symmetric_shards_on_the_card(dev, monkeypatch, mode):
+    """Symmetric 2^14 in 2 shards, both modes, on the card against the
+    oracle: per shard, shard 1 runs at ``row_start`` > 0 with both paged
+    delta streams."""
+    import chip_smoke
+    monkeypatch.setattr(tpk, "MIN_PAGE_NNZ", 256)
+    monkeypatch.setattr(troute, "MIN_ELEMS", 1024)
+    spt, A, rows, cols, vals = _tune_shards(
+        1 << 14, "float64", 2, chip_smoke.build_symmetric_matrix,
+        **{"spx.matrix.symmetric": "true", "spx.tpu.sym_full": mode})
+    n = A.nrows
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(n),
+                        device=dev)
+    y = spt.matvec_kernel(1.0, A, x, 0.0, None)
+    y = spt.matvec_kernel(1.0, A, x, 0.0, None)
+    want = np.bincount(rows, weights=vals.astype(np.float64)
+                       * x.cpu().numpy()[cols], minlength=n)
+    assert chip_smoke._mixed_rel_err(y.cpu().numpy(), want) < 1e-10
+    if mode == "off":
+        assert [e.row_start for e in A.csx.executors] == \
+            A.csx.partition.row_start[:2]
+        assert chip_smoke.graph_kernels(
+            A.csx._executor()._graphs[("mv",)].graph) == {
+            k: v for k, v in chip_smoke.matrix_counts(A.csx).items() if v}

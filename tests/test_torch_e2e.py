@@ -276,10 +276,24 @@ def test_api_errors():
         y = spt.matvec_mult(1.0, spt.mat_tune(sym, device="cpu"), x)
         assert np.abs(y.double().numpy() - want).max() < (
             1e-5 * np.abs(want).max())
-    spt.Config.instance().set("spx.matrix.symmetric", "false")
+    # two shards (spx.rt.nr_threads, ROADMAP Queue 1 item 5) run, plain
+    # and symmetric in both modes; what stays out of the slice is refused
+    # by name (the stacked sharded delta, Queue 1 item 13)
     spt.Config.instance().set("spx.rt.nr_threads", "2")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        spt.mat_tune(inp, device="cpu")
-    spt.Config.instance().set("spx.matrix.symmetric", "true")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        spt.mat_tune(sym, device="cpu")
+    for mode in ("on", "off"):
+        spt.Config.instance().set("spx.tpu.sym_full", mode)
+        A2 = spt.mat_tune(sym, device="cpu")
+        assert len(A2.csx.shards) == 2
+        y = spt.matvec_mult(1.0, A2, x)
+        assert np.abs(y.double().numpy() - want).max() < (
+            1e-5 * np.abs(want).max())
+    spt.Config.instance().set("spx.matrix.symmetric", "false")
+    A2 = spt.mat_tune(inp, device="cpu")
+    assert A2.csx.partition.nparts == 2
+    want = np.bincount(rows, weights=vals.astype(np.float64)
+                       * x.astype(np.float64)[cols], minlength=n)
+    y = spt.matvec_mult(1.0, A2, x)
+    assert np.abs(y.double().numpy() - want).max() < (
+        1e-5 * np.abs(want).max())
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+        kernels.check_slice((n, n, (), (), (), ("dsfused", None)))

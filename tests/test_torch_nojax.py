@@ -19,8 +19,11 @@ without nvcc; that 2^15 random singles with the fused pipeline kept off
 (``dscatter``) and run within the same bar; that bench.py's symmetric
 matrix at 2^14 rows (page and route gates at 1024) runs per shard, on
 both paged delta streams and their scatter routes, and as its full
-mirror, within the same bar; and that a class outside the ported slice
-(more than one shard) raises NotImplementedError; at the end no module of
+mirror, within the same bar; that the headline matrix at 2^16 tunes in two
+shards, takes a ``set_entry`` on shard 1 (planned again once) and
+survives a ``mat_save`` / ``mat_restore`` round trip, each SpMV within the
+same bar; and that a class outside the ported slice (the stacked sharded
+delta of several devices) raises NotImplementedError; at the end no module of
 ``jax``, ``sparsex_tpu`` or ``bench`` is loaded.
 ``chip_smoke.py`` imports none of them either, and without a CUDA device
 it exits non-zero and prints no result.
@@ -191,13 +194,32 @@ for mode in ("off", "on"):
                                                     9))
 tpk.MIN_PAGE_NNZ, troute.MIN_ELEMS = 1 << 14, 1 << 15
 
-# a class still queued: more than one shard (ROADMAP Queue 1 item 5)
+# two shards (ROADMAP Queue 1 item 5): the headline matrix at 2^16 tuned
+# in two shards, a set_entry on shard 1 seen by the next SpMV, and a
+# save / restore round trip
+n = 1 << 16
+rows, cols, vals = cs.build_matrix(n)
+A = tune(n, rows, cols, vals, **{"spx.rt.nr_threads": "2"})
+i = int(np.nonzero(rows >= A.csx.partition.row_start[1])[0][3])
+spx.mat_set_entry(A, int(rows[i]), int(cols[i]), 4.0)
+vals = vals.copy()
+vals[i] = 4.0
+path = tempfile.mkdtemp() + "/a.npz"
+spx.mat_save(A, path)
+B = spx.mat_restore(path, device="cpu")
+errs = [spmv_err(M, n, rows, cols, vals, 10) for M in (A, B)]
+out["shards"] = [len(A.csx.executors), A.csx.replans] + errs + [
+    spx.mat_get_entry(B, int(rows[i]), int(cols[i]))]
+
+# a class still queued: the stacked sharded delta of several devices
+# (ROADMAP Queue 1 item 13)
+from sparsex_tpu_torch.ops.kernels import check_slice
 try:
-    tune(ns, r, c, v, **{"spx.rt.nr_threads": "2"})
-    out["out_of_slice"] = "tuned"
+    check_slice((ns, ns, (), (), (), ("dsfused", None)))
+    out["out_of_slice"] = "passed"
 except NotImplementedError as e:
     out["out_of_slice"] = ("NotImplementedError" if "ROADMAP.md" in str(e)
-                           and "nr_threads" in str(e) else str(e))
+                           and "item 13" in str(e) else str(e))
 
 out["blocked_modules"] = sorted(m for m in sys.modules
                                 if m.split(".")[0] in BLOCKED)
@@ -241,6 +263,8 @@ def test_port_runs_and_refuses_without_jax():
     assert out["symmetric on"][:2] == ["CsxExecutor",
                                        ["dpages", "dscatter"]]
     assert max(out["symmetric off"][2], out["symmetric on"][2]) < tol
+    assert out["shards"][:2] == [2, 1]
+    assert max(out["shards"][2:4]) < tol and out["shards"][4] == 4.0
     assert out["out_of_slice"] == "NotImplementedError"
 
 

@@ -259,6 +259,9 @@ def test_port_imports_nothing_of_the_reference():
     files.append(os.path.join(ROOT, "chip_smoke.py"))
     files += sorted(glob.glob(os.path.join(ROOT, "tools", "*_torch.py")))
     assert len(files) > 20
+    names = {os.path.relpath(f, ROOT) for f in files}
+    assert {"sparsex_tpu_torch/persist.py",
+            "sparsex_tpu_torch/ops/vector.py"} <= names
     bad = {}
     for path in files:
         top = {m.split(".")[0] for m in _imports(path)}

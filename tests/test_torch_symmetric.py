@@ -388,8 +388,10 @@ def test_sym_plan_checks(monkeypatch):
 
 
 def test_refusals():
-    """An unsymmetric pattern is refused (SPX_ERR_INPUT_MAT), and more
-    than one shard is not ported yet (ROADMAP Queue 1 item 5)."""
+    """An unsymmetric pattern is refused (SPX_ERR_INPUT_MAT); two shards
+    (ROADMAP Queue 1 item 5) tune and run against the oracle,
+    and what stays out of the slice, the stacked sharded delta of several
+    devices, is refused by name (Queue 1 item 13)."""
     n, rows, cols, vals = _structure()
     keep = rows != 40
     cfg = spt.Config.instance()
@@ -399,9 +401,14 @@ def test_refusals():
                                           vals[keep], n), device="cpu")
     assert ei.value.code == spt.ErrorCode.SPX_ERR_INPUT_MAT
     cfg.set("spx.rt.nr_threads", "2")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        spt.mat_tune(chip_smoke.csr_input(spt, rows, cols, vals, n),
+    A = spt.mat_tune(chip_smoke.csr_input(spt, rows, cols, vals, n),
                      device="cpu")
+    assert [type(e) for e in A.csx.executors] == [tsym.SymShardExecutor] * 2
+    x = np.random.default_rng(2).standard_normal(n)
+    assert _rel(spt.matvec_mult(1.0, A, x).numpy(),
+                _oracle(n, rows, cols, vals, x)) < 1e-12
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+        tk.check_slice((n, n, (), (), (), ("dsfused", None)))
 
 
 @pytest.mark.parametrize("case", ["bench_2^14_epilogue", "bench_2^12"])
