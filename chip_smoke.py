@@ -94,6 +94,17 @@ this script imports nothing of the JAX package or its benchmark):
   ``set_entry`` on a delta and a DIA entry of shard 1 shows in the next
   SpMV, and ``mat_save`` / ``mat_restore`` on the card gives bit-equal
   plans and SpMV (``entries_phase``);
+- the solvers (``sparsex_tpu_torch.solvers``; a block of
+  ``solvers.BLOCK`` iterations captured as one CUDA graph a solve, the
+  host reading the stop flag once a block): CG on symmetric HPCG 128^3's
+  full mirror (b = A 1) on the matrix that path tuned, and CG and block CG
+  (k = 8, the kb kernels) on ``spd_symmetric_matrix(1 << 20)`` (the
+  CSX-Sym matrix with 2.0 on its diagonal, s.p.d. by Gershgorin; the same
+  plan, fused lp with 7 DIAs in K3) as its full mirror, a path of its
+  own; then SpGEMM (``spgemm_matrix``, bench.py's bench_spgemm operand,
+  C = A A tuned onto the card; ``spgemm_panel`` of the headline 2^20 f32
+  matrix and a 2^20 x 256 operand in panels of 64) and each
+  ``examples/*_torch.py`` at its default size;
 - the SpMM (``matmat_kernel``, X of shape (n, k) from a numpy seed) on the
   matrix each path has tuned: timed at k = 8 (one k-batched chunk) on
   headline 2^20, blocky 2^21, wide-run and lane-skew 2^21 in float32 and
@@ -164,7 +175,23 @@ Every phase is fatal on failure:
    a profile of 20 SpMMs;
 8. on headline 2^20 and blocky 2^21, a bf16 matrix computed in float32
    (``bf16_phase``): a bf16 SpMV and k = 8 SpMM within ``BF16_TOL`` of the
-   oracle on the bf16-rounded values and x, and the SpMV's times.
+   oracle on the bf16-rounded values and x, and the SpMV's times;
+9. the solvers (``hpcg_cg_phase``, ``spd_solver_phase``): each solve from
+   its captured block against the same solve run eagerly (one iteration a
+   Python step, the same kernels): the same iteration count, x within
+   ``SOLVE_BAR``; the block's graph holding ``BLOCK`` SpMVs' (SpMMs')
+   kernels by name and number (read through the CUDA driver), which give
+   the kernel entries of the ``cg`` / ``block-cg`` paths (the path's own
+   entries, launches per iteration); float64 CG to tol 1e-8 with its true
+   residual through the float64 COO oracle within ``CG_BAR``; block CG's
+   columns against cg per column within ``COLUMN_BAR``; µs per iteration
+   (replays of the block / ``BLOCK``) beside the SpMV / SpMM graph time,
+   the solve's wall time with and without the block's capture;
+10. SpGEMM (``spgemm_phase``): C's SpMV against A (A x) and each panel's
+   columns against the oracle within ``CHECK_TOL``, the host MFLOPS of
+   ``spgemm_coo`` (labelled a host number), µs per panel and the k = 64
+   graph's MiB; then each example's ``main`` must return 0 after its own
+   check (``examples_phase``), with its seconds.
 
 The card's name and power limit (nvidia-smi) come two lines before the
 last; the line before the last is a JSON object ``{"kernels": [...]}``
@@ -245,6 +272,9 @@ REPLACES = {
 # the SpMM phases: X (ncols, k) from a numpy seed; timed kernel replays of
 # one SpMM take fewer loops (a plain version at kb = 8 runs for ms)
 MM_LOOPS, MM_OUTER = 16, 3
+# the SpGEMM panel stream: the headline matrix times a 2^20 x PANEL_COLS
+# operand, PANEL columns a panel
+PANEL, PANEL_COLS = 64, 256
 
 
 def fail(msg):
@@ -2075,15 +2105,17 @@ def shard_cost(many, one, nshards, label):
 
 def run_path(spx, tf, label, n, rows, cols, vals, dtype_name, tol, check,
              options=(), timed=True, spmm=(), modes=(), kernels_timed=None,
-             after=None):
+             after=None, solve=None):
     """One path in one value type: tune (under the extra ``options``),
     check the plan, each kernel against its plain version
     (``kernel_phase``, on each shard of a matrix of several), the SpMV
     against the oracle with its launch counts, and when ``timed`` the
     times and a profile (the kernels alone only if ``kernels_timed``, by
     default ``timed``); on a matrix of several shards the load imbalance
-    (``shards_phase``); then ``after(mat, x, lab)`` where given, and on the
-    same tuned matrix one ``spmm_phase`` per (k, timed) in ``spmm``.  A
+    (``shards_phase``); then ``after(mat, x, lab)`` where given, on the
+    same tuned matrix one ``spmm_phase`` per (k, timed) in ``spmm``, and
+    last ``solve(mat, x, lab)`` where given (the solvers, whose solves
+    replay the executor's graphs that the phases before captured).  A
     symmetric matrix runs all that once per mode in ``modes``
     (:func:`sym_mode`), on the one tuned matrix, labelled ``label`` and the
     mode.  Returns ({label: summary}, kernel entries) of the timed
@@ -2118,12 +2150,408 @@ def run_path(spx, tf, label, n, rows, cols, vals, dtype_name, tol, check,
             if mm_timed:
                 summary[f"{lab} spmm k={k}"] = s
                 entries += e
+        if solve is not None:
+            summary.update(solve(mat, x, lab) or {})
         del ex, x, timing
     out = (summary, entries)
     del mat
     torch.cuda.empty_cache()
     say(f"[{label}] path done in {time.perf_counter() - t0:.1f} s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the solvers, SpGEMM and the examples
+# ---------------------------------------------------------------------------
+
+# the CG phases: a symmetric HPCG solve runs HPCG's own 50 iterations when
+# timed; bars of the true residual ||b - A x|| / ||b|| (float64 COO oracle)
+CG_ITERS = 50
+CG_BAR = {"float64": 1e-7, "float32": 1e-4}
+# graph against eager solve, and block CG against cg per column: max |a -
+# b| / max |b|
+SOLVE_BAR = {"float64": 1e-10, "float32": 1e-6}
+COLUMN_BAR = {"float64": 1e-8, "float32": 1e-4}
+SOLVER_K = 8
+
+
+def _oracle_spmv(n, rows, cols, vals, x):
+    """A @ x in float64 (x a tensor or an array, of one or more columns)."""
+    xh = x.double().cpu().numpy() if hasattr(x, "cpu") else np.asarray(
+        x, np.float64)
+    v64 = vals.astype(np.float64)
+    if xh.ndim == 1:
+        return np.bincount(rows, weights=v64 * xh[cols], minlength=n)
+    return np.stack([np.bincount(rows, weights=v64 * xh[cols, j],
+                                 minlength=n) for j in range(xh.shape[1])],
+                    axis=1)
+
+
+def _rel(a, b):
+    """max |a - b| / max |b| of two tensors."""
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+def block_launches(st, counted, one, label, kb=False):
+    """Launches per iteration of a solve's captured block (``st``, the
+    solver's stats): its graph's kernel nodes (``graph_kernels``) over
+    ``solvers.BLOCK``, which must be ``one`` (one SpMV's or SpMM's counts
+    from the plan) by name and number, as must the launch counters over
+    the solve (``counted``: the executors' graphs exist already, so the
+    counters see only the block's capture)."""
+    from sparsex_tpu_torch import solvers
+    if st["graph"] is None:
+        fail(f"[{label}] the solve captured no graph")
+    got = graph_kernels(st["graph"], kb)
+    want = {k: solvers.BLOCK * v for k, v in one.items() if v}
+    counted = {k: v for k, v in counted.items() if v}
+    if got != want or counted != want:
+        fail(f"[{label}] the block's graph launches {got}, the counters "
+             f"saw {counted}, expected {solvers.BLOCK} x {one}")
+    return {k: v // solvers.BLOCK for k, v in got.items()}
+
+
+def counted_solve(solve, **kw):
+    """``(solve(**kw), the launch counters over it)``."""
+    from sparsex_tpu_torch.ops import fused as tf
+    tf.launches.clear()
+    out = solve(**kw)
+    return out, tf.launch_counts()
+
+
+def us_per_iteration(st):
+    """Device µs per iteration: replays of a solve's kept block (its state,
+    ``st["state"]``, past its stop point: every iteration still runs its
+    SpMV and vector updates, masked) timed with CUDA events, over
+    ``solvers.BLOCK``."""
+    from sparsex_tpu_torch import solvers
+    return cuda_time_ms(st["graph"].replay, loops=8) * 1e3 / solvers.BLOCK
+
+
+def graph_vs_eager(solve, label, dtype_name):
+    """A solve from its captured block against the same solve run eagerly
+    (``graph=False``: one iteration a Python step, the same kernels):
+    the same count, x within ``SOLVE_BAR``.  Returns the graph solve's
+    (x, it, res, stats, launch counters)."""
+    import torch
+    st, ste = {}, {}
+    (x, it, res), counted = counted_solve(solve, graph=True, stats=st)
+    xe, ite, _ = solve(graph=False, stats=ste)
+    rel = _rel(x, xe)
+    say(f"[{label}] graph solve: {it} iterations in {st['blocks']} blocks, "
+        f"{st['seconds'] * 1e3:.2f} ms ({st['capture_s'] * 1e3:.2f} ms of "
+        f"it the block's capture); eager solve {ite} iterations, "
+        f"{ste['seconds'] * 1e3:.2f} ms; x "
+        + ("bit-equal" if torch.equal(x, xe) else f"within {rel:.3e}"))
+    if it != ite or not rel <= SOLVE_BAR[dtype_name]:
+        fail(f"[{label}] graph and eager solves differ: {it} against {ite} "
+             f"iterations, x within {rel:.3e}")
+    return x, it, res, st, counted
+
+
+def cg_timing(spx, mat, b, label, x):
+    """HPCG's 50 iterations at tol = 0 from a captured block: µs per
+    iteration (block replays / BLOCK) beside the SpMV graph time (the SpMV
+    captured in a graph of this script's), and the solve's wall time with
+    and without its capture; launches per iteration from the block's
+    graph."""
+    from sparsex_tpu_torch import solvers
+    st = {}
+    _out, counted = counted_solve(solvers.cg, matvec=mat.csx.matvec, b=b,
+                                  tol=0.0, maxiter=CG_ITERS, stats=st)
+    if st["iterations"] != CG_ITERS:
+        fail(f"[{label}] tol = 0 stopped at {st['iterations']} iterations")
+    launches = block_launches(st, counted, matrix_counts(mat.csx), label)
+    it_us = us_per_iteration(st)
+    spmv_us = graph_time_ms(
+        lambda: spx.matvec_kernel(1.0, mat, x, 0.0, None)) * 1e3
+    say(f"[{label}] CG {CG_ITERS} iterations at tol=0: {it_us:.2f} us per "
+        f"iteration from its block's graph = {it_us / spmv_us:.3f} x the "
+        f"SpMV graph {spmv_us:.2f} us; the solve {st['seconds'] * 1e3:.2f} "
+        f"ms wall, {(st['seconds'] - st['capture_s']) * 1e3:.2f} ms "
+        f"without the block's capture; the block's graph "
+        f"{st['graph_bytes'] / 2**20:.2f} MiB; launches per iteration "
+        f"{launches}")
+    return {"us_per_iteration": it_us, "spmv_graph_us": spmv_us,
+            "iterations_per_spmv": it_us / spmv_us,
+            "solve_ms": st["seconds"] * 1e3,
+            "solve_ms_without_capture":
+                (st["seconds"] - st["capture_s"]) * 1e3,
+            "graph_mib": st["graph_bytes"] / 2**20,
+            "launches_per_iteration": launches}
+
+
+def hpcg_cg_phase(spx, rows, cols, vals, dtype_name):
+    """``solve`` for ``run_path`` on symmetric HPCG 128^3 (the full mirror
+    only): b = A 1 (HPCG's right-hand side); in float64 CG to tol 1e-8,
+    its true residual against ``CG_BAR``, graph against eager solve; in
+    float32 graph against eager at HPCG's 50 iterations; in both the
+    timing of ``cg_timing``.  The CG's kernel entries are the path's,
+    with launches per iteration."""
+    def solve(mat, x, lab):
+        import torch
+        if not lab.endswith(" full"):
+            return {}
+        from sparsex_tpu_torch import solvers
+        n = mat.nrows
+        label = f"cg {lab}"
+        b = torch.as_tensor(_oracle_spmv(n, rows, cols, vals, np.ones(n)),
+                            dtype=x.dtype, device=x.device)
+        f64 = dtype_name == "float64"
+        tol, maxiter = (1e-8, 2000) if f64 else (0.0, CG_ITERS)
+        out, it, res, st, _counted = graph_vs_eager(
+            lambda **kw: solvers.cg(mat.csx.matvec, b, tol=tol,
+                                    maxiter=maxiter, **kw), label,
+            dtype_name)
+        rel = float(np.linalg.norm(
+            b.double().cpu().numpy() - _oracle_spmv(n, rows, cols, vals, out))
+            / np.linalg.norm(b.double().cpu().numpy()))
+        err1 = float((out.double() - 1).abs().max())
+        say(f"[{label}] tol {tol:g}: {it} iterations, residual "
+            f"{float(res):.3e}; true residual ||b - Ax|| / ||b|| {rel:.3e} "
+            f"(float64 COO oracle); max |x - 1| {err1:.3e}")
+        if f64 and not (rel <= CG_BAR[dtype_name] and it < maxiter):
+            fail(f"[{label}] true residual {rel:.3e} after {it} iterations, "
+                 f"bar {CG_BAR[dtype_name]:g}")
+        del out, st
+        summary = cg_timing(spx, mat, b, label, x)
+        summary.update(iterations=it, true_residual=rel, tol=tol,
+                       kernels_of=lab)
+        torch.cuda.empty_cache()
+        return {label: summary}
+    return solve
+
+
+def spd_solver_phase(spx, rows, cols, vals, dtype_name, timed):
+    """``solve`` for ``run_path`` on the CSX-Sym matrix made s.p.d.
+    (``spd_symmetric_matrix``): CG (tol 1e-8 in float64, 1e-5 in float32)
+    graph against eager solve and its true residual; block CG of
+    ``SOLVER_K`` seeded columns through the kb kernels, each column
+    against that column's cg; when ``timed``, µs per CG and per block-CG
+    iteration beside the SpMV and SpMM graph times."""
+    def solve(mat, x, lab):
+        import torch
+        from sparsex_tpu_torch import solvers
+        n = mat.nrows
+        f64 = dtype_name == "float64"
+        tol = 1e-8 if f64 else 1e-5
+        b = torch.as_tensor(np.random.default_rng(21).standard_normal(n),
+                            dtype=x.dtype, device=x.device)
+        label = f"cg {lab}"
+        out, it, res, st, counted = graph_vs_eager(
+            lambda **kw: solvers.cg(mat.csx.matvec, b, tol=tol, **kw),
+            label, dtype_name)
+        rel = float(np.linalg.norm(
+            b.double().cpu().numpy() - _oracle_spmv(n, rows, cols, vals, out))
+            / np.linalg.norm(b.double().cpu().numpy()))
+        say(f"[{label}] tol {tol:g}: {it} iterations, residual "
+            f"{float(res):.3e}; true residual {rel:.3e}")
+        if not (rel <= CG_BAR[dtype_name] and it < 1000):
+            fail(f"[{label}] true residual {rel:.3e} after {it} "
+                 f"iterations, bar {CG_BAR[dtype_name]:g}")
+        cg_launches = block_launches(st, counted, matrix_counts(mat.csx),
+                                     label)
+        out_summary = {label: {"iterations": it, "true_residual": rel,
+                               "tol": tol, "kernels_of": lab,
+                               "launches_per_iteration": cg_launches}}
+        del out, st
+
+        blabel = f"block-cg k={SOLVER_K} {lab}"
+        B = torch.as_tensor(
+            np.random.default_rng(22).standard_normal((n, SOLVER_K)),
+            dtype=x.dtype, device=x.device)
+        bst = {}
+        (X, bit, bres), counted = counted_solve(
+            solvers.block_cg, matmat=mat.csx.matmat, B=B, tol=tol,
+            stats=bst)
+        launches = block_launches(bst, counted,
+                                  matrix_counts(mat.csx, SOLVER_K), blabel,
+                                  kb=True)
+        worst, counts = 0.0, []
+        for j in range(SOLVER_K):
+            xj, itj, _ = solvers.cg(mat.csx.matvec, B[:, j].contiguous(),
+                                    tol=tol)
+            worst = max(worst, _rel(X[:, j], xj))
+            counts.append(itj)
+        R = B.double().cpu().numpy() - _oracle_spmv(n, rows, cols, vals, X)
+        brel = float(np.abs(R).max() / B.abs().max())
+        say(f"[{blabel}] {bit} iterations ({bst['blocks']} blocks, "
+            f"{bst['seconds'] * 1e3:.2f} ms; per column cg {counts}); "
+            f"max residual {float(bres.max()):.3e}; max |B - AX| / max |B| "
+            f"{brel:.3e}; columns against cg within {worst:.3e}; the "
+            f"block's graph {bst['graph_bytes'] / 2**20:.2f} MiB; launches "
+            f"per iteration {launches}")
+        if not (worst <= COLUMN_BAR[dtype_name]
+                and brel <= CG_BAR[dtype_name]):
+            fail(f"[{blabel}] block CG against cg per column: {worst:.3e} "
+                 f"(bar {COLUMN_BAR[dtype_name]:g}), {bit} iterations "
+                 f"against {counts}, residual {brel:.3e}")
+        out_summary[blabel] = {"iterations": bit, "column_counts": counts,
+                               "columns_within": worst, "residual": brel,
+                               "kernels_of": f"{lab} spmm k={SOLVER_K}",
+                               "launches_per_iteration": launches}
+        if timed:
+            cg_us = us_per_iteration(solvers_stats(
+                mat.csx.matvec, b, solvers.cg))
+            bcg_us = us_per_iteration(solvers_stats(
+                mat.csx.matmat, B, solvers.block_cg))
+            spmv_us = graph_time_ms(
+                lambda: spx.matvec_kernel(1.0, mat, x, 0.0, None)) * 1e3
+            spmm_us = graph_time_ms(
+                lambda: spx.matmat_kernel(1.0, mat, B, 0.0, None),
+                2 * MM_LOOPS) * 1e3
+            say(f"[{lab}] CG {cg_us:.2f} us per iteration = "
+                f"{cg_us / spmv_us:.3f} x the SpMV graph {spmv_us:.2f} us; "
+                f"block CG k={SOLVER_K} {bcg_us:.2f} us per iteration = "
+                f"{bcg_us / spmm_us:.3f} x the SpMM graph {spmm_us:.2f} us "
+                f"({bcg_us / (SOLVER_K * cg_us):.3f} x {SOLVER_K} CG "
+                "iterations)")
+            out_summary[label].update(us_per_iteration=cg_us,
+                                      spmv_graph_us=spmv_us)
+            out_summary[blabel].update(us_per_iteration=bcg_us,
+                                       spmm_graph_us=spmm_us)
+        del X, B, bst
+        torch.cuda.empty_cache()
+        return out_summary
+    return solve
+
+
+def solvers_stats(fn, b, solver):
+    """The stats of a solve of ``CG_ITERS`` iterations at tol = 0 (its
+    block kept, for :func:`us_per_iteration`)."""
+    st = {}
+    solver(fn, b, tol=0.0, maxiter=CG_ITERS, stats=st)
+    return st
+
+
+def solver_entries(kernels, summary):
+    """The ``kernels`` JSON entries of the solver paths: the kernel entries
+    of the path each solve ran on (``kernels_of``), named by the solve and
+    with its launches per iteration, read from its block's graph."""
+    out = []
+    for label, s in summary.items():
+        if "launches_per_iteration" not in s or "kernels_of" not in s:
+            continue
+        tag = f"[{s['kernels_of']}]"
+        for e in kernels:
+            if not e["name"].endswith(tag):
+                continue
+            key = e["name"][:-len(tag)]
+            out.append(dict(e, name=f"{key}[{label}]",
+                            launches=s["launches_per_iteration"].get(key, 0),
+                            launches_per="iteration"))
+    return out
+
+
+def spgemm_phase(spx, summary):
+    """SpGEMM on the card.  ``spgemm_matrix`` (bench.py's bench_spgemm:
+    2^13 rows, 16 a row, seed 11, f32): C = A A on the host
+    (``spgemm_coo``, its MFLOPS a host number) and through ``spx.spgemm``
+    (C tuned onto the card), C's SpMV against A (A x) through the float64
+    COO oracle.  Then ``spgemm_panel`` of the headline 2^20 f32 matrix and
+    ``panel_operand`` (2^20 x 256) in panels of 64 columns, each panel's
+    columns j0, j0 + 1, j0 + 31, j0 + 63 against the oracle; µs per panel
+    (its SpMM from Python), the stream's wall time and the k = 64 graph's
+    MiB."""
+    import torch
+    from sparsex_tpu_torch.ops import spgemm as tsp
+    t0 = time.perf_counter()
+    n, rows, cols, vals, flops = spgemm_matrix()
+    t1 = time.perf_counter()
+    tsp.spgemm_coo(rows, cols, vals, rows, cols, vals, n, n, n)
+    host_s = time.perf_counter() - t1
+    A = tune(spx, rows, cols, vals, n, "float32", "spgemm A")
+    C = spx.spgemm(A, A)
+    x = np.random.default_rng(23).standard_normal(n).astype(np.float32)
+    y = spx.matvec_kernel(1.0, C, x, 0.0, None)
+    want = _oracle_spmv(n, rows, cols, vals,
+                        _oracle_spmv(n, rows, cols, vals, x))
+    err = _mixed_rel_err(y.double().cpu().numpy(), want)
+    say(f"[spgemm] {n}x{n} nnz={rows.size}: spgemm_coo {flops / 1e6:.1f} "
+        f"MFLOP in {host_s:.3f} s = {flops / host_s / 1e6:.1f} MFLOPS "
+        f"(host NumPy, not the card); C = A A: {C.nnz} nnz on {C.device}; "
+        f"C x against A (A x): {err:.3e} (bar {CHECK_TOL:g})")
+    if not err < CHECK_TOL:
+        fail(f"[spgemm] C x differs from A (A x) by {err:.3e}")
+    del A, C
+    out = {"spgemm": {"host_mflops": flops / host_s / 1e6, "c_nnz_err": err}}
+
+    hrows, hcols, hvals = build_matrix(N)
+    A = tune(spx, hrows, hcols, hvals, N, "float32", "spgemm panel A")
+    brows, bcols, bvals = panel_operand(N)
+    cfg = spx.Config.instance()
+    B = spx.mat_tune(spx.input_load_csr(
+        np.concatenate([[0], np.cumsum(np.bincount(brows, minlength=N))]),
+        bcols, bvals, N, PANEL_COLS))
+    say(f"[spgemm panel] B: {N}x{PANEL_COLS}, nnz={B.nnz}, value type "
+        f"{cfg.value_type}")
+    order = np.lexsort((brows, bcols))
+    br, bc, bv = brows[order], bcols[order], bvals[order].astype(np.float64)
+    worst, widths, t1 = 0.0, [], time.perf_counter()
+    for j0, panel in tsp.spgemm_panel(A.csx, B.csx, panel=PANEL):
+        widths.append(panel.shape[1])
+        for j in (j0, j0 + 1, j0 + 31, j0 + PANEL - 1):
+            m = bc == j
+            col = np.bincount(br[m], weights=bv[m], minlength=N)
+            want = _oracle_spmv(N, hrows, hcols, hvals, col)
+            worst = max(worst, _mixed_rel_err(
+                panel[:, j - j0].double().cpu().numpy(), want))
+    stream_s = time.perf_counter() - t1
+    Bp = torch.zeros((N, PANEL), dtype=torch.float32, device=A.device)
+    Bp[torch.as_tensor(br[bc < PANEL], device=A.device),
+       torch.as_tensor(bc[bc < PANEL], device=A.device)] = torch.as_tensor(
+        bv[bc < PANEL], dtype=torch.float32, device=A.device)
+    panel_us = cuda_time_ms(lambda: A.csx.matmat(Bp), loops=8,
+                            outer=3) * 1e3
+    mib = A.csx._executor().graph_bytes()[("mm", PANEL)] / 2**20
+    say(f"[spgemm panel] headline 2^20 f32 x B in {len(widths)} panels of "
+        f"{PANEL}: columns against the oracle within {worst:.3e} (bar "
+        f"{CHECK_TOL:g}); {panel_us:.2f} us per panel's SpMM called from "
+        f"Python; the stream {stream_s:.3f} s (densify, SpMM and the "
+        f"oracle checks); the ("
+        f"'mm', {PANEL}) graph {mib:.2f} MiB")
+    if not (worst < CHECK_TOL and widths == [PANEL] * (PANEL_COLS // PANEL)):
+        fail(f"[spgemm panel] panels {widths} within {worst:.3e}")
+    out["spgemm panel"] = {"us_per_panel": panel_us, "graph_mib": mib,
+                           "oracle_rel_err": worst, "panels": len(widths)}
+    del A, B, Bp
+    torch.cuda.empty_cache()
+    say(f"[spgemm] phase done in {time.perf_counter() - t0:.1f} s")
+    summary.update(out)
+
+
+def examples_phase(spx, summary):
+    """Each ``examples/*_torch.py``'s ``main`` in this process on the card
+    at its default size (the caching pair through a temporary directory);
+    each must return 0 after its own check."""
+    import importlib.util
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp()
+    names = sorted(f[:-3] for f in os.listdir(os.path.join(ROOT, "examples"))
+                   if f.endswith("_torch.py"))
+    if len(names) != 9:
+        fail(f"examples: found {names}")
+    secs = {}
+    try:
+        for name in names:
+            spec = importlib.util.spec_from_file_location(
+                name, os.path.join(ROOT, "examples", name + ".py"))
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            argv = (["--cache", os.path.join(tmp, "cache.npz")]
+                    if "caching" in name else [])
+            spx.Config.reset()
+            t0 = time.perf_counter()
+            rc = mod.main(argv)
+            secs[name] = time.perf_counter() - t0
+            say(f"[examples] {name}: rc {rc}, {secs[name]:.2f} s")
+            if rc != 0:
+                fail(f"[examples] {name} failed its check")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        spx.Config.reset()
+    summary["examples_s"] = secs
 
 
 # ---------------------------------------------------------------------------
@@ -2314,6 +2742,53 @@ def hpcg_matrix(nx):
     return n, rows, cols, np.where(rows == cols, 26.0, -1.0)
 
 
+def spd_symmetric_matrix(n):
+    """``build_symmetric_matrix(n)`` with 2.0 on its diagonal: the same
+    structure (so the same plans) made s.p.d., since its off-diagonal
+    values lie in [-0.1, 0.1) and no row holds 20 of them (Gershgorin:
+    ``offdiag_row_sum_max`` < 2)."""
+    rows, cols, vals = build_symmetric_matrix(n)
+    vals = vals.copy()
+    vals[rows == cols] = 2.0
+    return rows, cols, vals
+
+
+def offdiag_row_sum_max(n, rows, cols, vals):
+    """The largest sum of |a_ij| over j != i in a row."""
+    off = rows != cols
+    return float(np.bincount(rows[off], weights=np.abs(vals[off]),
+                             minlength=n).max())
+
+
+def spgemm_matrix(n=1 << 13, nnz_per_row=16):
+    """bench.py's bench_spgemm operand (bench.py:611-637): ``nnz_per_row``
+    random columns a row (duplicates merged), f32 values, seed 11.  Returns
+    (n, rows, cols, vals, flops of A A)."""
+    rng = np.random.default_rng(11)
+    rows = np.repeat(np.arange(n), nnz_per_row)
+    cols = rng.integers(0, n, rows.size)
+    key = rows * n + cols
+    _, u = np.unique(key, return_index=True)
+    rows, cols = rows[u], cols[u]
+    order = np.lexsort((cols, rows))
+    rows, cols = rows[order], cols[order]
+    vals = rng.standard_normal(rows.size).astype(np.float32)
+    row_nnz = np.bincount(rows, minlength=n)
+    return n, rows, cols, vals, 2 * int(row_nnz[cols].sum())
+
+
+def panel_operand(n, ncols=256, per_col=4096, seed=17):
+    """A seeded sparse n x ``ncols`` matrix, ``per_col`` random rows a
+    column (f32 N(0, 1) values): the tall thin operand of the SpGEMM
+    panel stream.  Sorted row-major."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, n, ncols * per_col)
+    cols = np.repeat(np.arange(ncols), per_col)
+    key, u = np.unique(rows * ncols + cols, return_index=True)
+    return (key // ncols, key % ncols,
+            rng.standard_normal(u.size).astype(np.float32))
+
+
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
@@ -2391,6 +2866,36 @@ def run_shard_paths(spx, tf, summary):
         del rows, cols, vals
 
     return entries_out
+
+
+def run_solver_paths(spx, tf, summary):
+    """CG and block CG on the CSX-Sym matrix made s.p.d.
+    (``spd_symmetric_matrix(1 << 20)``, Gershgorin checked on the host),
+    tuned as a symmetric matrix and run as its full mirror: the path of
+    ``run_path`` (timed in float32 with its SpMM at k = ``SOLVER_K``,
+    checked in float64), then ``spd_solver_phase``.  Returns the path's
+    kernel entries."""
+    rows, cols, vals = spd_symmetric_matrix(N_SYM)
+    margin = offdiag_row_sum_max(N_SYM, rows, cols, vals)
+    say(f"[spd symmetric 2^20] {N_SYM}x{N_SYM}, nnz_full={rows.size}; "
+        f"largest off-diagonal row sum {margin:.4f} against the diagonal "
+        "2.0 (Gershgorin)")
+    if not margin < 2.0:
+        fail(f"[spd symmetric 2^20] an off-diagonal row sum {margin:.4f} "
+             "reaches the diagonal: not shown s.p.d.")
+    sym = SYMMETRIC + (("spx.tpu.sym_full", "on"),)
+    entries = []
+    for dtype_name, tol, timed in (("float32", CHECK_TOL, True),
+                                   ("float64", 1e-6, False)):
+        s, k = run_path(spx, tf, "spd symmetric 2^20 " + dtype_name, N_SYM,
+                        rows, cols, vals, dtype_name, tol,
+                        check_sym_plan("symmetric"), sym, timed,
+                        [(SOLVER_K, timed)], ("full",),
+                        solve=spd_solver_phase(spx, rows, cols, vals,
+                                               dtype_name, timed))
+        summary.update(s)
+        entries += k
+    return entries
 
 
 def main():
@@ -2482,6 +2987,8 @@ def main():
          lambda: hpcg_matrix(HPCG_NX)[1:], check_sym_plan("hpcg"), sym,
          tols, f32, ((2, False, f32),), tuple(SYM_MODES)),
     )
+    # the paths whose tuned matrix a solver phase runs on (``solve``)
+    solves = {"symmetric hpcg 128^3 ": hpcg_cg_phase}
     for prefix, n, build, check, options, types, timed, mms, *modes in paths:
         rows, cols, vals = build()
         if modes:
@@ -2494,7 +3001,10 @@ def main():
                             (timed if isinstance(timed, bool)
                              else dtype_name in timed),
                             [(kk, t) for kk, t, dts in mms
-                             if dtype_name in dts], *modes)
+                             if dtype_name in dts], *modes,
+                            solve=(solves[prefix](spx, rows, cols, vals,
+                                                  dtype_name)
+                                   if prefix in solves else None))
             summary.update(s)
             kernels_out += k
         if prefix in BF16_PATHS:
@@ -2502,7 +3012,16 @@ def main():
                                       cols, vals))
         del rows, cols, vals
 
+    t0 = time.perf_counter()
+    kernels_out += run_solver_paths(spx, tf, summary)
+    say(f"[spd symmetric 2^20] solver paths done in "
+        f"{time.perf_counter() - t0:.1f} s")
     kernels_out += run_shard_paths(spx, tf, summary)
+    spgemm_phase(spx, summary)
+    t0 = time.perf_counter()
+    examples_phase(spx, summary)
+    say(f"[examples] done in {time.perf_counter() - t0:.1f} s")
+    kernels_out += solver_entries(kernels_out, summary)
 
     say("summary: " + json.dumps(summary))
     say(card)

@@ -16,14 +16,17 @@ per-shard plan), several shards on one device (``spx.rt.nr_threads``, one
 CUDA graph a call for all of them), entries (``mat_get_entry`` /
 ``mat_set_entry``), archives in the reference's format (``mat_save`` /
 ``mat_restore``), partitions, the CSR kernel cache and the ``spx_vec_*``
-ops (``vec``).  Not yet: ``spgemm`` and the solvers (ROADMAP.md Queue 1
-item 12) and several devices (item 13); ``check_slice`` refuses their
-execution classes with ``NotImplementedError`` naming the queue item.
+ops (``vec``), SpGEMM (``spgemm``, ``ops/spgemm.py``), the solvers
+(``solvers.cg`` / ``block_cg``, a block of iterations a CUDA graph on the
+card) and the host oracle (``ops/oracle.py``).  Not yet: several devices
+(ROADMAP.md Queue 1 item 13); ``check_slice`` refuses the stacked
+sharded delta with ``NotImplementedError`` naming that item.
 
     import sparsex_tpu_torch as spx
     A = spx.mat_tune(spx.input_load_mmf("matrix.mtx"))       # on cuda:0
     y = spx.matvec_kernel(alpha=1.0, mat=A, x=x, beta=0.0, y=None)
     Y = spx.matmat_kernel(1.0, A, X, 0.0, None)               # X (ncols, k)
+    x, iters, res = spx.solvers.cg(A.csx.matvec, b)           # s.p.d. A
 """
 
 from sparsex_tpu_torch.config import (Config, option_get, option_set,
@@ -40,15 +43,15 @@ from sparsex_tpu_torch.api import (INDEX_ONE_BASED, INDEX_ZERO_BASED,
                                    matmat_mult, matvec_kernel,
                                    matvec_kernel_csr,
                                    matvec_kernel_csr_invalidate, matvec_mult,
-                                   partition_csr)
+                                   partition_csr, spgemm)
 from sparsex_tpu_torch.ops import vector as vec
-from sparsex_tpu_torch import api, config
+from sparsex_tpu_torch import api, config, solvers
 from sparsex_tpu_torch.device import resolve_device
 
 __version__ = "0.1.0"
 
-# the reference's __all__ (sparsex_tpu/__init__.py:52-66) less spgemm
-# (ROADMAP.md Queue 1 item 12), and the port's device helper
+# the reference's __all__ (sparsex_tpu/__init__.py:52-66) and the port's
+# device helper
 __all__ = [
     "Config", "option_set", "option_get", "options_set_from_env",
     "SparsexError", "ErrorCode", "set_error_handler",
@@ -60,6 +63,7 @@ __all__ = [
     "mat_get_partition", "mat_destroy",
     "matvec_mult", "matvec_kernel", "matvec_kernel_csr",
     "matvec_kernel_csr_invalidate", "matmat_mult", "matmat_kernel",
+    "spgemm",
     "partition_csr",
     "Matrix", "Input", "Partition",
     "resolve_device",

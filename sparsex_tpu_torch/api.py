@@ -25,6 +25,7 @@ reference                               sparsex_tpu_torch
 ``matmat_mult`` (SpMM, api.py:209)      ``matmat_mult(alpha, A, X, device=)``
 ``matmat_kernel`` (api.py:218)          ``matmat_kernel(alpha, A, X, beta,
                                         Y, device=)``
+``spgemm`` (api.py:223)                 ``spgemm(A, B)`` (C on A's device)
 ``spx_option_set / get``                ``option_set / option_get``
 ``spx_vec_*``                           ``sparsex_tpu_torch.ops.vector``
 =====================================  =====================================
@@ -263,6 +264,13 @@ def matmat_kernel(alpha: float, mat: Matrix, X, beta: float, Y,
     return mat.csx.matmat(X, alpha=alpha, beta=beta, Y=Y)
 
 
+def spgemm(a: Matrix, b: Matrix) -> Matrix:
+    """C = A @ B as a new tuned matrix on A's device (see
+    ``sparsex_tpu_torch/ops/spgemm.py``; ref api.py:223-226)."""
+    from sparsex_tpu_torch.ops.spgemm import spgemm as _spgemm
+    return Matrix(csx=_spgemm(a.csx, b.csx))
+
+
 _csr_cache = OrderedDict()
 _CSR_CACHE_MAX = 16
 
@@ -310,4 +318,4 @@ __all__ = ["OP_REORDER", "INDEX_ZERO_BASED", "INDEX_ONE_BASED", "init",
            "mat_set_entry", "mat_save", "mat_restore", "mat_get_partition",
            "mat_destroy", "partition_csr", "matvec_mult", "matvec_kernel",
            "matvec_kernel_csr", "matvec_kernel_csr_invalidate",
-           "matmat_mult", "matmat_kernel"]
+           "matmat_mult", "matmat_kernel", "spgemm"]

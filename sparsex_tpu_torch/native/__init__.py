@@ -66,6 +66,7 @@ def _build() -> bool:
 
 def _bind(lib: ctypes.CDLL) -> None:
     i64p = ctypes.POINTER(ctypes.c_longlong)
+    i32p = ctypes.POINTER(ctypes.c_int)
     f64p = ctypes.POINTER(ctypes.c_double)
     f32p = ctypes.POINTER(ctypes.c_float)
     u8p = ctypes.POINTER(ctypes.c_ubyte)
@@ -80,6 +81,14 @@ def _bind(lib: ctypes.CDLL) -> None:
                                      i64p, i64p, i64p, u8p]
     lib.spx_lexsort_rc.restype = None
     lib.spx_lexsort_rc.argtypes = [i64p, i64p, ctypes.c_longlong, i64p]
+    lib.spx_csr_spmv_f64.restype = None
+    lib.spx_csr_spmv_f64.argtypes = [
+        ctypes.c_longlong, i64p, i32p, f64p, f64p,
+        ctypes.c_double, ctypes.c_double, f64p, ctypes.c_int]
+    lib.spx_csr_spmv_f32.restype = None
+    lib.spx_csr_spmv_f32.argtypes = [
+        ctypes.c_longlong, i64p, i32p, f32p, f32p,
+        ctypes.c_float, ctypes.c_float, f32p, ctypes.c_int]
     lib.spx_mark_covered.restype = None
     lib.spx_mark_covered.argtypes = [i64p, i64p, ctypes.c_longlong,
                                      ctypes.c_longlong, u8p]
@@ -129,6 +138,10 @@ def get_lib() -> Optional[ctypes.CDLL]:
         except (OSError, AttributeError):
             _lib = None
     return _lib
+
+
+def available() -> bool:
+    return get_lib() is not None
 
 
 def _ptr(a: np.ndarray, ctype):
@@ -208,6 +221,41 @@ def lexsort_rc(rows: np.ndarray, cols: np.ndarray):
                        _ptr(cols, ctypes.c_longlong), rows.size,
                        _ptr(order, ctypes.c_longlong))
     return order
+
+
+# ---------------------------------------------------------------------------
+# csr_spmv
+# ---------------------------------------------------------------------------
+def csr_spmv(nrows: int, rowptr, colind, values, x, alpha=1.0, beta=0.0,
+             y=None, nthreads: Optional[int] = None):
+    """Multithreaded native CSR SpMV, or None when unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    values = np.ascontiguousarray(values)
+    dt = values.dtype
+    if dt not in (np.dtype(np.float64), np.dtype(np.float32)):
+        return None
+    rowptr = np.ascontiguousarray(rowptr, dtype=np.int64)
+    colind = np.ascontiguousarray(colind, dtype=np.int32)
+    x = np.ascontiguousarray(x, dtype=dt)
+    out = (np.zeros(nrows, dtype=dt) if y is None
+           else np.ascontiguousarray(y, dtype=dt).copy())
+    if nthreads is None:
+        nthreads = min(16, os.cpu_count() or 1)
+    if dt == np.dtype(np.float64):
+        lib.spx_csr_spmv_f64(
+            nrows, _ptr(rowptr, ctypes.c_longlong),
+            _ptr(colind, ctypes.c_int), _ptr(values, ctypes.c_double),
+            _ptr(x, ctypes.c_double), float(alpha), float(beta),
+            _ptr(out, ctypes.c_double), int(nthreads))
+    else:
+        lib.spx_csr_spmv_f32(
+            nrows, _ptr(rowptr, ctypes.c_longlong),
+            _ptr(colind, ctypes.c_int), _ptr(values, ctypes.c_float),
+            _ptr(x, ctypes.c_float), float(alpha), float(beta),
+            _ptr(out, ctypes.c_float), int(nthreads))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,7 @@ library's ``sparsex_test.c`` walkthrough), with ``device="cpu"``; then the
 API the port gained with its several-shard slice, each held against the
 JAX package on the same input:
 
-- the exported names (the reference's ``__all__`` less ``spgemm``);
+- the exported names (the reference's ``__all__`` and ``resolve_device``);
 - entries: ``mat_get_entry`` of every stored entry and ``tocoo`` equal to
   the reference's, in 1 and 2 shards, symmetric included; ``set_entry``
   writes the host tables at once and the next SpMV plans and uploads the
@@ -298,9 +298,10 @@ def test_measure_load_imbalance():
 # ---------------------------------------------------------------------------
 
 def test_exports_match_the_reference(monkeypatch):
-    """Every name of the reference's ``__all__`` but ``spgemm`` (ROADMAP
-    Queue 1 item 12); the error handler and the environment options."""
-    assert set(ref.__all__) - set(spt.__all__) == {"spgemm"}
+    """Every name of the reference's ``__all__``, ``spgemm`` included, and
+    the port's ``resolve_device``; the error handler and the environment
+    options."""
+    assert set(spt.__all__) == set(ref.__all__) | {"resolve_device"}
     assert all(hasattr(spt, name) for name in spt.__all__)
     seen = []
     old = spt.set_error_handler(lambda *a: seen.append(a[0]))

@@ -16,7 +16,11 @@ paged-units kernels (atomic adds in no fixed order).  The k-batched (SpMM) varia
 of K1, T1, K2, K3 and the lane gather, at kb = 1, 3 and 8 (K2 at every
 kb from 1 to 8), must equal
 their plain versions the same way, and each column c the kb = 0 kernel on
-column c (K3 also at kb = 5).  The K3 tests alone: add ``-k k3``.
+column c (K3 also at kb = 5).  The K3 tests alone: add ``-k k3``.  The
+solvers (``-k "solver or block_cg"``): CG and block CG from one captured
+block of iterations against the same solve run eagerly, the block's graph
+holding ``solvers.BLOCK`` SpMVs' (SpMMs') kernels, a capture that fails
+raising, and the card's solve against the CPU's.
 """
 
 import numpy as np
@@ -1354,3 +1358,145 @@ def test_symmetric_shards_on_the_card(dev, monkeypatch, mode):
         assert chip_smoke.graph_kernels(
             A.csx._executor()._graphs[("mv",)].graph) == {
             k: v for k, v in chip_smoke.matrix_counts(A.csx).items() if v}
+
+
+# ---------------------------------------------------------------------------
+# the solvers: a block of iterations captured as one CUDA graph
+# ---------------------------------------------------------------------------
+
+# s.p.d. matrices -> (chip_smoke builder, rows, options): the CSX-Sym
+# matrix with 2.0 on its diagonal as a general matrix (the fused delta
+# pipeline), as its full mirror and in two shards; HPCG's stencil at 16^3
+# (the plain DIA tables)
+SOLVER_PLANS = {
+    "general": ("spd_symmetric_matrix", 1 << 17, {}),
+    "mirror": ("spd_symmetric_matrix", 1 << 17,
+               {"spx.matrix.symmetric": "true", "spx.tpu.sym_full": "on"}),
+    "shards": ("spd_symmetric_matrix", 1 << 16, {"spx.rt.nr_threads": "2"}),
+    "hpcg": ("hpcg_matrix", 16 ** 3, {"spx.preproc.sampling": "none"}),
+}
+# graph against eager solve: max |x - x_eager| / max |x_eager|
+SOLVE_BAR = {"float64": 1e-10, "float32": 1e-5}
+
+
+def _solver_plan(plan, dtype):
+    import chip_smoke
+    import sparsex_tpu_torch as spt
+
+    build, n, options = SOLVER_PLANS[plan]
+    if build == "hpcg_matrix":
+        _n, rows, cols, vals = chip_smoke.hpcg_matrix(16)
+    else:
+        rows, cols, vals = getattr(chip_smoke, build)(n)
+    cfg = spt.Config.reset()
+    cfg.set("spx.tpu.value_dtype", dtype)
+    cfg.set("spx.preproc.xform", "all")
+    for key, value in options.items():
+        cfg.set(key, value)
+    A = spt.mat_tune(chip_smoke.csr_input(spt, rows, cols, vals, n))
+    return A, n, rows, cols, vals
+
+
+@pytest.mark.parametrize("plan", sorted(SOLVER_PLANS))
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_solver_graph_equals_eager(dev, plan, dtype):
+    """CG from one captured block of ``solvers.BLOCK`` iterations against
+    the same solve run eagerly (one iteration a Python step, the same
+    kernels): the same count and x within ``SOLVE_BAR`` (the shards' plans
+    add residuals with atomics, which reorder sums); the block's graph
+    holds ``BLOCK`` SpMVs' kernels; the f64 solve meets the float64 COO
+    oracle's residual.  The kept graph is read and dropped before any
+    assertion: a failed test's frames would keep it to be freed in the
+    middle of a later test's capture."""
+    import chip_smoke
+    from sparsex_tpu_torch import solvers
+
+    A, n, rows, cols, vals = _solver_plan(plan, dtype)
+    b = torch.as_tensor(np.random.default_rng(11).standard_normal(n),
+                        dtype=getattr(torch, dtype), device=dev)
+    tol = 1e-8 if dtype == "float64" else 1e-4
+    st, ste = {}, {}
+    x, it, res = solvers.cg(A.csx.matvec, b, tol=tol, stats=st)
+    xe, ite, rese = solvers.cg(A.csx.matvec, b, tol=tol, graph=False,
+                               stats=ste)
+    kernels = chip_smoke.graph_kernels(st.pop("graph"))
+    del st["state"], ste["state"]
+    assert it == ite and 0 < it < 1000
+    assert (x - xe).abs().max() <= SOLVE_BAR[dtype] * xe.abs().max()
+    assert ste["graph"] is None
+    assert st["blocks"] == ste["blocks"] == -(-it // solvers.BLOCK)
+    one = chip_smoke.matrix_counts(A.csx)
+    assert kernels == {k: solvers.BLOCK * v for k, v in one.items() if v}
+    if dtype == "float64":
+        xh = x.cpu().numpy()
+        r = b.cpu().numpy() - np.bincount(rows, weights=vals * xh[cols],
+                                          minlength=n)
+        assert np.linalg.norm(r) <= 1e-7 * np.linalg.norm(b.cpu().numpy())
+
+
+@pytest.mark.parametrize("k", [3, 8])
+def test_block_cg_graph_runs_the_kb_kernels(dev, k):
+    """Block CG on the fused plan: one captured block replays ``BLOCK``
+    k-batched SpMMs; its x is the eager solve's within ``SOLVE_BAR`` and,
+    column by column, cg's within 1e-8."""
+    import chip_smoke
+    from sparsex_tpu_torch import solvers
+
+    A, n, rows, cols, vals = _solver_plan("general", "float64")
+    B = torch.as_tensor(np.random.default_rng(12).standard_normal((n, k)),
+                        device=dev)
+    st = {}
+    X, it, res = solvers.block_cg(A.csx.matmat, B, tol=1e-8, stats=st)
+    Xe, ite, _ = solvers.block_cg(A.csx.matmat, B, tol=1e-8, graph=False)
+    kernels = chip_smoke.graph_kernels(st.pop("graph"), kb=True)
+    del st
+    assert it == ite and res.shape == (k,)
+    assert (X - Xe).abs().max() <= SOLVE_BAR["float64"] * Xe.abs().max()
+    one = chip_smoke.matrix_counts(A.csx, k)
+    assert kernels == {key: solvers.BLOCK * v for key, v in one.items() if v}
+    for j in range(k):
+        xj, itj, _ = solvers.cg(A.csx.matvec, B[:, j].contiguous(),
+                                tol=1e-8)
+        assert itj <= it
+        assert (X[:, j] - xj).abs().max() <= 1e-8 * xj.abs().max()
+
+
+def test_solver_capture_failure_raises(dev):
+    """A matvec that syncs with the host cannot be captured: the solve
+    raises, naming the block; it does not fall back to the eager loop."""
+    from sparsex_tpu_torch import solvers
+
+    A, n, *_rest = _solver_plan("hpcg", "float64")
+
+    def syncing(v):
+        float(v.sum())
+        return A.csx.matvec(v)
+
+    b = torch.ones(n, dtype=torch.float64, device=dev)
+    with pytest.raises(RuntimeError, match="cg's block of 16 iterations"):
+        solvers.cg(syncing, b)
+    x, it, _ = solvers.cg(syncing, b, graph=False)
+    assert it > 0 and torch.isfinite(x).all()
+    torch.cuda.synchronize()
+
+
+def test_solver_on_the_card_matches_the_cpu(dev):
+    """The same matrix and b solved on the card and on the CPU (the plain
+    kernel versions): the same count, x within 1e-10."""
+    import chip_smoke
+    import sparsex_tpu_torch as spt
+    from sparsex_tpu_torch import solvers
+
+    rows, cols, vals = chip_smoke.spd_symmetric_matrix(1 << 14)
+    n = 1 << 14
+    b = np.random.default_rng(13).standard_normal(n)
+    out = []
+    for device in ("cuda:0", "cpu"):
+        cfg = spt.Config.reset()
+        cfg.set("spx.preproc.xform", "all")
+        A = spt.mat_tune(chip_smoke.csr_input(spt, rows, cols, vals, n),
+                         device=device)
+        out.append(solvers.cg(A.csx.matvec, b, tol=1e-10, device=device))
+    (xg, itg, _), (xc, itc, _) = out
+    assert itg == itc
+    assert (xg.cpu() - xc).abs().max() <= 1e-10 * xc.abs().max()

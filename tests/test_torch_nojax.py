@@ -22,8 +22,10 @@ both paged delta streams and their scatter routes, and as its full
 mirror, within the same bar; that the headline matrix at 2^16 tunes in two
 shards, takes a ``set_entry`` on shard 1 (planned again once) and
 survives a ``mat_save`` / ``mat_restore`` round trip, each SpMV within the
-same bar; and that a class outside the ported slice (the stacked sharded
-delta of several devices) raises NotImplementedError; at the end no module of
+same bar; that a class outside the ported slice (the stacked sharded
+delta of several devices) raises NotImplementedError; and that
+``examples/cg_example_torch.py`` solves at 256 rows and passes its own
+check; at the end no module of
 ``jax``, ``sparsex_tpu`` or ``bench`` is loaded.
 ``chip_smoke.py`` imports none of them either, and without a CUDA device
 it exits non-zero and prints no result.
@@ -221,6 +223,14 @@ except NotImplementedError as e:
     out["out_of_slice"] = ("NotImplementedError" if "ROADMAP.md" in str(e)
                            and "item 13" in str(e) else str(e))
 
+# the CG example (a symmetric matrix, the solver's blocks) at a small size
+import importlib.util
+spec = importlib.util.spec_from_file_location(
+    "cg_example_torch", "examples/cg_example_torch.py")
+example = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(example)
+out["cg_example"] = example.main(["--n", "256", "--device", "cpu"])
+
 out["blocked_modules"] = sorted(m for m in sys.modules
                                 if m.split(".")[0] in BLOCKED)
 print(json.dumps(out))
@@ -266,6 +276,7 @@ def test_port_runs_and_refuses_without_jax():
     assert out["shards"][:2] == [2, 1]
     assert max(out["shards"][2:4]) < tol and out["shards"][4] == 4.0
     assert out["out_of_slice"] == "NotImplementedError"
+    assert out["cg_example"] == 0
 
 
 def test_chip_smoke_imports_no_jax_and_refuses_without_cuda():

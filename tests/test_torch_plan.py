@@ -28,8 +28,9 @@ in source rows outside a merged plan.  The reference keeps it, and K1's
 one G1 grid keeps the last fold's wires (a wrong y wherever its paged
 variant runs); the port re-plans that table as its paged units with their
 own route.  Everything else of that plan is the reference's.  Last, no
-file of the port or ``chip_smoke.py`` imports ``sparsex_tpu``, ``jax`` or
-``bench`` at any depth.
+file of the port, ``chip_smoke.py``, ``tools/*_torch.py`` or
+``examples/*_torch.py`` imports ``sparsex_tpu``, ``jax`` or ``bench`` at
+any depth.
 """
 
 import ast
@@ -258,10 +259,16 @@ def test_port_imports_nothing_of_the_reference():
                                           "*.py"), recursive=True))
     files.append(os.path.join(ROOT, "chip_smoke.py"))
     files += sorted(glob.glob(os.path.join(ROOT, "tools", "*_torch.py")))
+    files += sorted(glob.glob(os.path.join(ROOT, "examples", "*_torch.py")))
     assert len(files) > 20
     names = {os.path.relpath(f, ROOT) for f in files}
     assert {"sparsex_tpu_torch/persist.py",
-            "sparsex_tpu_torch/ops/vector.py"} <= names
+            "sparsex_tpu_torch/ops/vector.py",
+            "sparsex_tpu_torch/solvers.py",
+            "sparsex_tpu_torch/ops/spgemm.py",
+            "sparsex_tpu_torch/ops/oracle.py",
+            "examples/cg_example_torch.py"} <= names
+    assert len([n for n in names if n.startswith("examples/")]) == 9
     bad = {}
     for path in files:
         top = {m.split(".")[0] for m in _imports(path)}
