@@ -26,6 +26,8 @@ this script imports nothing of the JAX package or its benchmark):
     route plan;
   - ``lane_skew_matrix(1 << 21)`` (singles on a coarse column grid): the
     delta pipeline in K1 style sl with its own route instances;
+  - both timed in float32 and checked in float64 at 2^19 rows, where the
+    planners make the same plan classes and styles;
   - one untimed float32 check of ``wide_run_matrix(1 << 19, 128)``, whose
     run table takes K1 style run128 (seven roll passes) on 8 route
     instances of its own besides the delta pipeline's, so that K3 runs in
@@ -39,6 +41,8 @@ this script imports nothing of the JAX package or its benchmark):
     table with an ``fs`` route beside the delta pipeline;
   - ``block3_matrix(3 << 19)`` (9.44M nonzeros of 3x3 blocks, as 3-D FEM
     matrices have): a paged block table with an ``fs`` route;
+  - both timed in float32 and checked in float64 at a quarter of the
+    rows (2^19 and 3 x 2^17);
   - one untimed check in float32 and float64 of
     ``overlap_run_matrix(1 << 16)`` (3 width-16 runs a row), whose fused
     run plan had route instances overlapping outside a merged plan: the
@@ -94,6 +98,30 @@ this script imports nothing of the JAX package or its benchmark):
   ``set_entry`` on a delta and a DIA entry of shard 1 shows in the next
   SpMV, and ``mat_save`` / ``mat_restore`` on the card gives bit-equal
   plans and SpMV (``entries_phase``);
+- several ranks, one process each (``parallel.shard.ShardedCsx`` on
+  torch.distributed; ``run_rank_paths``, the counterpart of the JAX
+  package's ``dryrun_multichip``): the matrix tuned here in N shards (its
+  one-device executor, y, plan bytes and CG the comparison), its host
+  tables handed to N spawned ranks (``parallel.comm.run_ranks``, a
+  ``FileStore``), all on cuda:0 with gloo, the exchanges through the
+  host: headline 2^20 on 2 ranks (x replicated; K1 lp, T1, K2, K3 per
+  rank; SpMM k = 8 in float32 through the kb kernels), HPCG 128^3 on 4
+  (a halo ring of one chunk each way; the DIA kernel on each rank's local
+  set, its halo delta beside it), bench.py's CSX-Sym matrix at 2^20 on 2
+  (the per-shard symmetric plan: DIA, ``dpages`` / ``dpagesT``, the
+  ``dscatter`` lane gathers; the partials reduce-scattered) and
+  symmetric HPCG 128^3 on 4 (symmetric halo: one window-rebased table
+  set a rank), float32 timed and float64 checked, then CG in float64 to
+  1e-8 on symmetric HPCG x4 (``graph=False``) against the one-device CG.
+  Per path and type: every rank's y equal, within the bar of the oracle
+  and of the one-device y; each rank's first call launching its
+  executors' plans' kernels (warm-up and capture) and its replay none;
+  rank 0's kernels against their plain versions at its shapes; each
+  rank's plan bytes on its device and under (1 + 1/N) / 2 of the whole
+  matrix's; timed, each rank's executors alone (in turns), each exchange
+  and the whole SpMV, labelled ``ONE_CARD``: not a multi-GPU time.  With
+  two GPUs or more the same paths also run on NCCL, a GPU a rank;
+  otherwise a line says it was not run;
 - the solvers (``sparsex_tpu_torch.solvers``; a block of
   ``solvers.BLOCK`` iterations captured as one CUDA graph a solve, the
   host reading the stop flag once a block): CG on symmetric HPCG 128^3's
@@ -107,10 +135,11 @@ this script imports nothing of the JAX package or its benchmark):
   ``examples/*_torch.py`` at its default size;
 - the SpMM (``matmat_kernel``, X of shape (n, k) from a numpy seed) on the
   matrix each path has tuned: timed at k = 8 (one k-batched chunk) on
-  headline 2^20, blocky 2^21, wide-run and lane-skew 2^21 in float32 and
-  float64 and on blocky 2^19 and fs-run 2^21 (k-batched, the fs table by
-  row scatter) in float32 (blocky 2^19: bench.py's SpMM configuration,
-  whose SpMV is timed too); untimed checks in float32 at k = 11 on
+  headline 2^20 and blocky 2^21 in float32 and float64 and on wide-run
+  and lane-skew 2^21, blocky 2^19 and fs-run 2^21 (k-batched, the fs
+  table by row scatter) in float32 (blocky 2^19: bench.py's SpMM
+  configuration, whose SpMV is timed too); untimed checks in float64 at
+  k = 8 on wide-run and lane-skew 2^19, in float32 at k = 11 on
   headline 2^20 (chunks of 8 and 3), k = 3 on blocky 2^19 (the masked g3
   instance), k = 8 on fs-block (the SpMV once per column), k = 2 on the
   two fused-gate-off paths, HPCG 128^3, headline 2^22 and the symmetric
@@ -217,9 +246,11 @@ N = 1 << 20
 N_BLOCKY = 1 << 21
 N_BLOCKY_CHECK = 1 << 19
 N_DENSE = 1 << 21       # the wide-run (W = 16) and lane-skew matrices
+N_DENSE_CHECK = 1 << 19  # their float64 checks, and the fs-run one
 N_RUN128 = 1 << 19      # the width-128 wide-run check
 N_BIG = 1 << 22         # past the fused planners' 2^21-row cap
 N_FS_BLOCK = 3 << 19    # the 3x3-block matrix: 2^19 block rows
+N_FS_BLOCK_CHECK = 3 << 17  # its float64 check
 HPCG_NX = 128           # the HPCG stencil's grid edge: 2^21 rows
 N_OVERLAP = 1 << 16     # the run matrix whose fused-run route overlapped
 # the fused pipeline kept off (a public option): the legacy paged variant
@@ -1385,12 +1416,15 @@ def shards_kernel_phase(exs, x, label, timed=True, loops=LOOPS,
     several shards, each labelled with its shard), merged into one entry a
     kernel: the largest error, and the times and bounds of all the shards'
     calls summed (the calls of one matrix SpMV), ``bound_by`` that of the
-    shard with the largest bound."""
+    shard with the largest bound.  ``x`` is every executor's input, or a
+    list of each one's (a rank's local and halo executors read its x chunk
+    and its halo window)."""
+    xs = x if isinstance(x, list) else [x] * len(exs)
     if len(exs) == 1:
-        return kernel_phase(exs[0], x, label, timed, loops, outer)
+        return kernel_phase(exs[0], xs[0], label, timed, loops, outer)
     res, top = {}, {}
     for i, ex in enumerate(exs):
-        for name, r in kernel_phase(ex, x, f"{label} shard {i}", timed,
+        for name, r in kernel_phase(ex, xs[i], f"{label} shard {i}", timed,
                                     loops, outer).items():
             acc = res.setdefault(name, dict.fromkeys(r, None))
             acc["max_abs_err"] = max(acc["max_abs_err"] or 0.0,
@@ -2868,6 +2902,464 @@ def run_shard_paths(spx, tf, summary):
     return entries_out
 
 
+# ---------------------------------------------------------------------------
+# several ranks (sparsex_tpu_torch.parallel.shard.ShardedCsx)
+# ---------------------------------------------------------------------------
+
+# the timing label of every number of the ranks' paths on one card
+ONE_CARD = ("one H100, ranks sharing it, gloo through the host: not a "
+            "multi-GPU time")
+RANK_REPS = 10          # host-clock repeats of the exchanges and the SpMV
+HPCG_CG_TOL, HPCG_CG_MAXITER = 1e-8, 2000
+
+
+def _tensor_bytes(tree):
+    """Bytes of the tensors in an executor's ``arrays`` tree."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tensor_bytes(v) for v in tree)
+    return 0
+
+
+def _tensor_devices(tree):
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return {str(tree.device)}
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return set().union(*(_tensor_devices(v) for v in tree)) if tree \
+            else set()
+    return set()
+
+
+def _host_time_us(fn, reps=RANK_REPS):
+    """Host-clock µs per call of ``fn`` (a collective every rank makes in
+    step), median of 3 runs of ``reps`` calls, synchronised."""
+    import torch
+    import torch.distributed as dist
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / reps * 1e6)
+    return statistics.median(times)
+
+
+def rank_path_body(rank, case_path, out_dir):
+    """One rank of a path of ``run_rank_paths`` (spawned; the module of
+    this function is imported afresh): each case of ``case_path`` (the
+    path in each value type) in turn, its record to
+    ``out_dir/rank<rank>.<case>.pkl`` (:func:`_rank_case`).  What fails
+    here raises and fails the run."""
+    import pickle
+
+    import torch
+    torch.set_num_threads(2)
+    with open(case_path, "rb") as fp:
+        cases = pickle.load(fp)
+    for j, case in enumerate(cases):
+        out = _rank_case(rank, case)
+        with open(os.path.join(out_dir, f"rank{rank}.{j}.pkl"), "wb") as fp:
+            pickle.dump(out, fp)
+        del out
+        torch.cuda.empty_cache()
+
+
+def _rank_case(rank, case):
+    """One rank's run of one case: build ``ShardedCsx`` from the matrix's
+    host tables on its device, run the SpMV (and SpMM, CG) and record its
+    y, launch counts against its executors' plans, plan bytes and device
+    placement; on rank 0 every kernel of its executors against its plain
+    version at its shapes; when timed, each rank's executors alone (in
+    turns), each exchange and the whole SpMV (all ranks together)."""
+    import torch
+    import torch.distributed as dist
+
+    import sparsex_tpu_torch as spx
+    from sparsex_tpu_torch import solvers
+    from sparsex_tpu_torch.ops import fused as tf
+    from sparsex_tpu_torch.parallel.shard import ShardedCsx, host_matrix
+    cfg = spx.Config.reset()
+    for key, value in case["options"]:
+        cfg.set(key, value)
+    dev = torch.device(case["devices"][rank])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    label = case["label"]
+    mat = host_matrix(case["host"])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    sh = ShardedCsx(mat, device=dev)
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0,
+           "allocated": torch.cuda.memory_allocated(dev) - base,
+           "plan_bytes": sum(_tensor_bytes(ex.arrays)
+                             for ex in sh.executors),
+           "devices": sorted(set().union(*(_tensor_devices(ex.arrays)
+                                           for ex in sh.executors))),
+           "layout": (sh.x_mode, sh.halo_k, sh.chunk),
+           "plans": [(ex.variant, sorted(extras_of(ex.meta)),
+                      [(a, len(o)) for a, o, _n in ex.meta[4]],
+                      _fused_desc(ex.meta)) for ex in sh.executors]}
+    x = torch.as_tensor(case["x"], device=dev)
+    tf.launches.clear()
+    y = sh.matvec(x)
+    torch.cuda.synchronize()
+    out["counts"] = tf.launch_counts()
+    want = dict.fromkeys(tf.KERNELS, 0)
+    for ex in sh.executors:     # warm-up and capture of each executor
+        for key, v in expected_counts(ex.meta).items():
+            want[key] += 2 * v
+    out["want"] = want
+    tf.launches.clear()
+    y2 = sh.matvec(x, 2.0, 0.5, y)      # replays: nothing from Python
+    torch.cuda.synchronize()
+    out["replay_counts"] = {k: v for k, v in tf.launch_counts().items() if v}
+    out["y"], out["y2"] = y.cpu().numpy(), y2.cpu().numpy()
+    if case["X"] is not None:
+        X = torch.as_tensor(case["X"], device=dev)
+        k = X.shape[1]
+        tf.launches.clear()
+        Y = sh.matmat(X)
+        torch.cuda.synchronize()
+        out["mm_counts"] = tf.launch_counts()
+        want = dict.fromkeys(tf.KERNELS, 0)
+        for ex in sh.executors:
+            for key, v in expected_counts(ex.meta, k).items():
+                want[key] += 2 * v
+        out["mm_want"], out["Y"] = want, Y.cpu().numpy()
+    # each executor's input: x, the own chunk, the halo window
+    lay = sh.layout
+    if lay.x_mode == "halo":
+        xloc = sh.x_chunk(x)
+        xwin = sh.comm.ring_window(xloc, lay.halo_k).wait()
+        xs = [xwin] if sh.symmetric else [xloc, xwin][:len(sh.executors)]
+    else:
+        xs = [x]
+    dist.barrier()
+    if rank == 0:
+        out["kernels"] = shards_kernel_phase(
+            sh.executors, xs, f"{label} rank 0", case["kernels_timed"])
+    dist.barrier()
+    if case["timed"]:
+        for r in range(dist.get_world_size()):   # one rank at a time
+            dist.barrier()
+            if r == rank:
+                out["executor_us"] = [
+                    cuda_time_ms(lambda ex=ex, xi=xi: ex(xi)) * 1e3
+                    for ex, xi in zip(sh.executors, xs)]
+        dist.barrier()
+        comm = sh.comm
+        ex_us = {}
+        if lay.x_mode == "halo":
+            ex_us["ring"] = _host_time_us(
+                lambda: comm.ring_window(xloc, lay.halo_k).wait())
+        if sh.symmetric:
+            z = sh.executors[0](xs[0])
+            ex_us["reduce_scatter"] = _host_time_us(
+                lambda: comm.reduce_scatter_rows(z, lay.row_start,
+                                                 lay.nrows_loc))
+        rows = sh.own_rows(x)
+        ex_us["all_gather"] = _host_time_us(
+            lambda: comm.all_gather_rows(rows, sh.gather_idx))
+        out["exchange_us"] = ex_us
+        out["matvec_us"] = _host_time_us(lambda: sh.matvec(x))
+        comm.reset()
+        sh.matvec(x)
+        out["bytes_per_spmv"] = dict(comm.bytes)
+        out["host_bytes_per_spmv"] = dict(comm.host_bytes)
+    if case["cg"] is not None:
+        b = torch.as_tensor(case["cg"], device=dev)
+        t0 = time.perf_counter()
+        xc, it, res = solvers.cg(lambda v: sh.matvec(v), b, tol=HPCG_CG_TOL,
+                                 maxiter=HPCG_CG_MAXITER, graph=False)
+        torch.cuda.synchronize()
+        out["cg"] = (xc.cpu().numpy(), it, float(res),
+                     time.perf_counter() - t0)
+    out["allocated_end"] = torch.cuda.memory_allocated(dev)
+    return out
+
+
+def rank_case(spx, label, nranks, n, rows, cols, vals, dtype_name, tol,
+              options, timed, mm_k=0, cg=False, backend="gloo"):
+    """One value type of a path on ``nranks`` ranks, made ready here: the
+    matrix tuned in ``nranks`` shards on cuda:0 (its one-device executor,
+    per shard for a symmetric matrix: its plan bytes and y, and for ``cg``
+    its CG are what the ranks are held against).  Returns (the case the
+    ranks run, what its checks need)."""
+    import torch
+    from sparsex_tpu_torch import solvers
+    from sparsex_tpu_torch.parallel.shard import host_side
+    opts = tuple(options) + (("spx.rt.nr_threads", str(nranks)),)
+    sym = ("spx.matrix.symmetric", "true") in opts
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    mat = tune(spx, rows, cols, vals, n, dtype_name, label + " one device",
+               opts + ((("spx.tpu.sym_full", "off"),) if sym else ()))
+    csx = mat.csx
+    csx._executor()
+    torch.cuda.synchronize()
+    ref = {"label": label, "dtype": dtype_name, "tol": tol, "timed": timed,
+           "mm_k": mm_k, "one_alloc": torch.cuda.memory_allocated() - m0,
+           "one_bytes": sum(_tensor_bytes(ex.arrays)
+                            for ex in csx.executors)}
+    x = x_for(mat, n, dtype_name)
+    ref["y_one"] = csx.matvec(x).double().cpu().numpy()
+    ref["want"] = _oracle_spmv(n, rows, cols, vals, x)
+    xh = x.cpu().numpy()
+    X = (np.random.default_rng(3).standard_normal((n, mm_k)).astype(
+        xh.dtype) if mm_k else None)
+    b = None
+    if cg:
+        b = _oracle_spmv(n, rows, cols, vals, np.ones(n)).astype(xh.dtype)
+        t1 = time.perf_counter()
+        xo, ito, _res = solvers.cg(csx.matvec,
+                                   torch.as_tensor(b, device=x.device),
+                                   tol=HPCG_CG_TOL, maxiter=HPCG_CG_MAXITER)
+        torch.cuda.synchronize()
+        ref["cg_one"] = (xo.double().cpu().numpy(), ito,
+                         time.perf_counter() - t1)
+    ref["X"], ref["b"] = X, b
+    ref["devices"] = [str(x.device) if backend == "gloo" else f"cuda:{r}"
+                      for r in range(nranks)]
+    case = {"label": label, "options": opts, "x": xh, "X": X, "cg": b,
+            "timed": timed, "kernels_timed": timed, "backend": backend,
+            "devices": ref["devices"], "host": host_side(csx)}
+    del mat, csx, x
+    torch.cuda.empty_cache()
+    return case, ref
+
+
+def check_rank_case(ref, outs, nranks, n, rows, cols, vals, mode, backend,
+                    ranks_s):
+    """The ranks' records ``outs`` of one case against ``ref``
+    (:func:`rank_case`): every rank's y equal, within the bar of the
+    float64 COO oracle and of the one-device y; x mode ``mode``; each
+    rank's launches those of its executors' plans and a replay launching
+    nothing from Python, the SpMM likewise; each rank's plan on its device
+    and under (1 + 1/N) / 2 of the whole matrix's bytes; the sharded CG's
+    count within one of the one-device CG's with a true residual under
+    ``CG_BAR``.  Prints the timings.  Returns ({label: summary}, kernel
+    entries)."""
+    label, tol, mm_k, devices = (ref["label"], ref["tol"], ref["mm_k"],
+                                 ref["devices"])
+    one_bytes, want = ref["one_bytes"], ref["want"]
+    o0 = outs[0]
+    x_mode, k, chunk = o0["layout"]
+    if x_mode != mode:
+        fail(f"[{label}] x mode {x_mode}, expected {mode}")
+    for r, o in enumerate(outs):
+        for i, (variant, extras, dias, fused) in enumerate(o["plans"]):
+            say(f"[{label}] rank {r} executor {i}: {variant} variant; "
+                f"extras {extras}; DIA tables {dias}; {fused}")
+        if not np.array_equal(o["y"], o0["y"]):
+            fail(f"[{label}] rank {r}'s y differs from rank 0's")
+        got = {kk: v for kk, v in o["counts"].items() if v}
+        exp = {kk: v for kk, v in o["want"].items() if v}
+        if got != exp or not exp:
+            fail(f"[{label}] rank {r} launched {got}, its plans {exp}")
+        if o["replay_counts"]:
+            fail(f"[{label}] rank {r}'s replay launched "
+                 f"{o['replay_counts']} from Python")
+        if mm_k:
+            got = {kk: v for kk, v in o["mm_counts"].items() if v}
+            exp = {kk: v for kk, v in o["mm_want"].items() if v}
+            if got != exp:
+                fail(f"[{label}] rank {r}'s SpMM launched {got}, its "
+                     f"plans {exp}")
+        if o["devices"] != [devices[r]]:
+            fail(f"[{label}] rank {r}'s tensors on {o['devices']}")
+        if not o["plan_bytes"] < (1 + 1 / nranks) / 2 * one_bytes:
+            fail(f"[{label}] rank {r} holds {o['plan_bytes']} plan bytes "
+                 f"of the whole matrix's {one_bytes}")
+    y = o0["y"]
+    err = _mixed_rel_err(y, want)
+    err_one = _mixed_rel_err(y, ref["y_one"])
+    err2 = _mixed_rel_err(o0["y2"], 2.0 * want + 0.5 * y)
+    say(f"[{label}] {nranks} ranks ({backend}) on "
+        + ", ".join(sorted(set(devices))) + f": x_mode {x_mode}, halo_k "
+        f"{k}, chunk {chunk}; ranks' build "
+        + ", ".join(f"{o['build_s']:.2f}" for o in outs) + " s; plan MiB "
+        + ", ".join(f"{o['plan_bytes'] / 2**20:.2f}" for o in outs)
+        + f" against the whole matrix's {one_bytes / 2**20:.2f} on one "
+        f"device (allocated: "
+        + ", ".join(f"{o['allocated'] / 2**20:.2f}" for o in outs)
+        + f" against {ref['one_alloc'] / 2**20:.2f} MiB); the ranks' run "
+        f"of the path's cases {ranks_s:.1f} s")
+    say(f"[{label}] y against the float64 COO oracle {err:.3e}, against "
+        f"the one-device executor {err_one:.3e}, alpha=2/beta=0.5 "
+        f"{err2:.3e} (bar {tol:g}); each rank's first call launched its "
+        f"plans' kernels (warm-up and capture), its replay none")
+    if not (err <= tol and err_one <= tol and err2 <= tol):
+        fail(f"[{label}] y off: oracle {err:.3e}, one device {err_one:.3e}"
+             f", alpha/beta {err2:.3e}, bar {tol:g}")
+    summary = {"x_mode": x_mode, "halo_k": k, "chunk": chunk,
+               "backend": backend, "ranks": nranks,
+               "oracle_rel_err": err, "one_device_rel_err": err_one,
+               "plan_mib": [o["plan_bytes"] / 2**20 for o in outs],
+               "one_device_plan_mib": one_bytes / 2**20,
+               "launches_first_spmv": [
+                   {kk: v for kk, v in o["counts"].items() if v}
+                   for o in outs]}
+    if mm_k:
+        errm = _mixed_rel_err(o0["Y"],
+                              _oracle_spmv(n, rows, cols, vals, ref["X"]))
+        say(f"[{label}] SpMM k={mm_k}: against the oracle {errm:.3e}; "
+            "launches as the plans' SpMM")
+        if not errm <= tol:
+            fail(f"[{label}] SpMM off: {errm:.3e}")
+        summary["spmm_rel_err"] = errm
+    if ref["timed"]:
+        summary.update(
+            timing=ONE_CARD,
+            executor_us=[o["executor_us"] for o in outs],
+            exchange_us=[o["exchange_us"] for o in outs],
+            matvec_us=[o["matvec_us"] for o in outs],
+            bytes_per_spmv=o0["bytes_per_spmv"],
+            host_bytes_per_spmv=o0["host_bytes_per_spmv"])
+        say(f"[{label}] {ONE_CARD}: each rank's executors alone (CUDA "
+            "events, graph replays, one rank at a time) "
+            + "; ".join(", ".join(f"{u:.2f}" for u in o["executor_us"])
+                        for o in outs)
+            + " us; exchanges (host clock, all ranks) "
+            + "; ".join(f"{op} {us:.1f} us" for op, us in
+                        o0["exchange_us"].items())
+            + "; the whole SpMV from Python "
+            + ", ".join(f"{o['matvec_us']:.1f}" for o in outs)
+            + " us a rank; rank 0 hands the transport "
+            + ", ".join(f"{op} {v / 2**20:.2f} MiB" for op, v in
+                        o0["bytes_per_spmv"].items())
+            + " an SpMV, host copies "
+            + ", ".join(f"{op} {v / 2**20:.2f} MiB" for op, v in
+                        o0["host_bytes_per_spmv"].items()))
+    if ref["b"] is not None:
+        b = ref["b"]
+        xc, it, _res, secs = o0["cg"]
+        xo, ito, secs_one = ref["cg_one"]
+        rel = float(np.linalg.norm(b - _oracle_spmv(n, rows, cols, vals, xc))
+                    / np.linalg.norm(b))
+        dx = float(np.abs(xc - xo).max() / np.abs(xo).max())
+        say(f"[cg {label}] tol {HPCG_CG_TOL:g}, graph=False: {it} "
+            f"iterations ({ito} on one device), x within {dx:.3e} of the "
+            f"one-device x, true residual ||b - Ax|| / ||b|| {rel:.3e} "
+            f"(float64 COO oracle); {secs:.2f} s ({secs_one:.2f} s on one "
+            f"device with its graph; {ONE_CARD})")
+        if abs(it - ito) > 1 or not rel <= CG_BAR[ref["dtype"]]:
+            fail(f"[cg {label}] {it} iterations against {ito}, true "
+                 f"residual {rel:.3e}")
+        summary["cg"] = {"iterations": it, "one_device_iterations": ito,
+                         "true_residual": rel, "x_rel_to_one_device": dx,
+                         "seconds": secs, "one_device_seconds": secs_one}
+    entries = []
+    if ref["timed"]:
+        entries = kernel_entries(o0["kernels"], o0["counts"], None,
+                                 f"{label} rank 0")
+    return {label: summary}, entries
+
+
+def rank_path(spx, prefix, nranks, n, rows, cols, vals, options, mode,
+              mm_k=0, cg=False, backend="gloo"):
+    """One path on ``nranks`` spawned ranks (``rank_path_body``), float32
+    timed (with the SpMM of ``mm_k`` columns) and float64 checked (with
+    ``cg``), both cases in one spawn of the ranks: each made ready by
+    :func:`rank_case`, run, and checked by :func:`check_rank_case`.
+    Returns ({label: summary}, kernel entries)."""
+    import pickle
+    import tempfile
+
+    from sparsex_tpu_torch.parallel.comm import run_ranks
+    t0 = time.perf_counter()
+    cases, refs = [], []
+    for dtype_name, tol in (("float32", CHECK_TOL), ("float64", 1e-6)):
+        f32 = dtype_name == "float32"
+        case, ref = rank_case(
+            spx, prefix + dtype_name + ("" if backend == "gloo" else
+                                        " nccl"),
+            nranks, n, rows, cols, vals, dtype_name, tol, options,
+            f32 and backend == "gloo", mm_k=mm_k if f32 else 0,
+            cg=cg and not f32, backend=backend)
+        cases.append(case)
+        refs.append(ref)
+    with tempfile.TemporaryDirectory(prefix="spx_rank_path_") as d:
+        with open(os.path.join(d, "cases.pkl"), "wb") as fp:
+            pickle.dump(cases, fp)
+        del cases
+        t1 = time.perf_counter()
+        run_ranks(rank_path_body, nranks, (os.path.join(d, "cases.pkl"), d),
+                  backend=backend, timeout_s=900)
+        ranks_s = time.perf_counter() - t1
+        outs = []
+        for j in range(len(refs)):
+            outs.append([])
+            for r in range(nranks):
+                with open(os.path.join(d, f"rank{r}.{j}.pkl"), "rb") as fp:
+                    outs[j].append(pickle.load(fp))
+    summary, entries = {}, []
+    for ref, outs_j in zip(refs, outs):
+        s, e = check_rank_case(ref, outs_j, nranks, n, rows, cols, vals,
+                               mode, backend, ranks_s)
+        summary.update(s)
+        entries += e
+    say(f"[{prefix.strip()}] path done in {time.perf_counter() - t0:.1f} s")
+    return summary, entries
+
+
+def run_rank_paths(spx, summary):
+    """The paths of several ranks, one process each, on the card
+    (``ShardedCsx``, the counterpart of ``dryrun_multichip``): headline
+    2^20 on 2 ranks (replicated x; SpMM k = 8 in float32), HPCG 128^3 on
+    4 (halo x), the CSX-Sym matrix at 2^20 on 2 (symmetric, replicated)
+    and symmetric HPCG 128^3 on 4 (symmetric halo; in float64 CG to
+    1e-8), float32 timed and float64 checked, all ranks on cuda:0 with
+    gloo.  With several GPUs the same paths also run on NCCL, a GPU a
+    rank.  Returns their kernel entries."""
+    import torch
+    entries = []
+    hpcg = lambda: hpcg_matrix(HPCG_NX)[1:]   # noqa: E731
+    paths = (
+        ("headline 2^20 ranks x2 ", 2, N, lambda: build_matrix(N), (),
+         "replicated", 8, False),
+        ("hpcg 128^3 ranks x4 ", 4, HPCG_NX ** 3, hpcg, (), "halo", 0,
+         False),
+        ("symmetric 2^20 ranks x2 ", 2, N_SYM,
+         lambda: build_symmetric_matrix(N_SYM), SYMMETRIC, "replicated", 0,
+         False),
+        ("symmetric hpcg 128^3 ranks x4 ", 4, HPCG_NX ** 3, hpcg, SYMMETRIC,
+         "halo", 0, True),
+    )
+    ngpu = torch.cuda.device_count()
+    backends = ["gloo"] + (["nccl"] if ngpu >= 2 else [])
+    if ngpu < 2:
+        say(f"[ranks] the NCCL form (a GPU a rank) not run: "
+            f"torch.cuda.device_count() = {ngpu}, and NCCL refuses two "
+            "ranks on one device; the gloo form runs every rank on cuda:0")
+    for prefix, nranks, n, build, options, mode, mm_k, cg in paths:
+        rows, cols, vals = build()
+        for backend in backends:
+            if backend == "nccl" and nranks > ngpu:
+                say(f"[{prefix.strip()}] NCCL not run: {nranks} ranks, "
+                    f"{ngpu} GPUs")
+                continue
+            s, e = rank_path(spx, prefix, nranks, n, rows, cols, vals,
+                             options, mode, mm_k=mm_k, cg=cg,
+                             backend=backend)
+            summary.update(s)
+            entries += e
+        del rows, cols, vals
+    return entries
+
+
 def run_solver_paths(spx, tf, summary):
     """CG and block CG on the CSX-Sym matrix made s.p.d.
     (``spd_symmetric_matrix(1 << 20)``, Gershgorin checked on the host),
@@ -2935,7 +3427,6 @@ def main():
     # k-batched chunk (bench.py's SpMM figure), k = 11 two chunks (8 + 3)
     both, f32 = ("float32", "float64"), ("float32",)
     mm8 = ((8, True, both),)
-    mm8_f32 = ((8, True, f32), (8, False, ("float64",)))
     sym = SYMMETRIC + (("spx.tpu.sym_full", "on"),)
     # (label, rows of the matrix, its builder, plan check, extra tune
     # options, value types to run, timed (all of them, or the types
@@ -2949,16 +3440,31 @@ def main():
          lambda: build_blocky_matrix(N_BLOCKY_CHECK),
          check_masked_blocky_plan, (), tols[:1], True,
          ((8, True, f32), (3, False, f32))),
-        # (the paths timed in f32 only check f64 untimed, which keeps the
-        # script with the shard paths well inside its time limit)
+        # (the paths timed in f32 check f64 untimed, and at a quarter of
+        # the rows, which keeps the script with the shard and rank paths
+        # well inside its time limit: the same plan classes and K1 styles,
+        # a quarter of the host's tuning)
         ("wide-run 2^21 W=16 ", N_DENSE, lambda: wide_run_matrix(N_DENSE, 16),
-         check_dense_plan("run16"), (), tols, f32, mm8_f32),
+         check_dense_plan("run16"), (), tols[:1], True, ((8, True, f32),)),
+        ("wide-run 2^19 W=16 ", N_DENSE_CHECK,
+         lambda: wide_run_matrix(N_DENSE_CHECK, 16),
+         check_dense_plan("run16"), (), tols[1:], False,
+         ((8, False, ("float64",)),)),
         ("lane-skew 2^21 ", N_DENSE, lambda: lane_skew_matrix(N_DENSE),
-         check_dense_plan("sl"), (), tols, f32, mm8_f32),
+         check_dense_plan("sl"), (), tols[:1], True, ((8, True, f32),)),
+        ("lane-skew 2^19 ", N_DENSE_CHECK,
+         lambda: lane_skew_matrix(N_DENSE_CHECK), check_dense_plan("sl"),
+         (), tols[1:], False, ((8, False, ("float64",)),)),
         ("fs-run 2^21 W=5 ", N_DENSE, lambda: wide_run_matrix(N_DENSE, 5),
-         check_fs_plan("runs"), (), tols, f32, ((8, True, f32),)),
+         check_fs_plan("runs"), (), tols[:1], True, ((8, True, f32),)),
+        ("fs-run 2^19 W=5 ", N_DENSE_CHECK,
+         lambda: wide_run_matrix(N_DENSE_CHECK, 5), check_fs_plan("runs"),
+         (), tols[1:], False, ()),
         ("fs-block 3x2^19 ", N_FS_BLOCK, lambda: block3_matrix(N_FS_BLOCK),
-         check_fs_plan("blocks"), (), tols, f32, ((8, False, f32),)),
+         check_fs_plan("blocks"), (), tols[:1], True, ((8, False, f32),)),
+        ("fs-block 3x2^17 ", N_FS_BLOCK_CHECK,
+         lambda: block3_matrix(N_FS_BLOCK_CHECK), check_fs_plan("blocks"),
+         (), tols[1:], False, ()),
         ("overlap-run 2^16 W=16 ", N_OVERLAP,
          lambda: overlap_run_matrix(N_OVERLAP), check_overlap_plan, (),
          tols, False, ()),
@@ -3017,6 +3523,9 @@ def main():
     say(f"[spd symmetric 2^20] solver paths done in "
         f"{time.perf_counter() - t0:.1f} s")
     kernels_out += run_shard_paths(spx, tf, summary)
+    t0 = time.perf_counter()
+    kernels_out += run_rank_paths(spx, summary)
+    say(f"[ranks] paths done in {time.perf_counter() - t0:.1f} s")
     spgemm_phase(spx, summary)
     t0 = time.perf_counter()
     examples_phase(spx, summary)

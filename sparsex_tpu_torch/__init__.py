@@ -18,15 +18,20 @@ CUDA graph a call for all of them), entries (``mat_get_entry`` /
 ``mat_restore``), partitions, the CSR kernel cache and the ``spx_vec_*``
 ops (``vec``), SpGEMM (``spgemm``, ``ops/spgemm.py``), the solvers
 (``solvers.cg`` / ``block_cg``, a block of iterations a CUDA graph on the
-card) and the host oracle (``ops/oracle.py``).  Not yet: several devices
-(ROADMAP.md Queue 1 item 13); ``check_slice`` refuses the stacked
-sharded delta with ``NotImplementedError`` naming that item.
+card) and the host oracle (``ops/oracle.py``), and several devices
+(``parallel.shard.ShardedCsx``: a torch.distributed process group of a
+rank per shard, x replicated or passed round a halo ring, a symmetric
+matrix's partials reduce-scattered, y gathered on every rank;
+``parallel.comm.run_ranks`` starts the ranks).
 
     import sparsex_tpu_torch as spx
     A = spx.mat_tune(spx.input_load_mmf("matrix.mtx"))       # on cuda:0
     y = spx.matvec_kernel(alpha=1.0, mat=A, x=x, beta=0.0, y=None)
     Y = spx.matmat_kernel(1.0, A, X, 0.0, None)               # X (ncols, k)
     x, iters, res = spx.solvers.cg(A.csx.matvec, b)           # s.p.d. A
+    # each rank of a group of N ranks, A tuned in N shards on the host:
+    from sparsex_tpu_torch.parallel.shard import ShardedCsx
+    y = ShardedCsx(A.csx).matvec(x)         # the whole y on every rank
 """
 
 from sparsex_tpu_torch.config import (Config, option_get, option_set,

@@ -119,17 +119,13 @@ def tables_to_arrays(tables: CsxTables) -> Dict[str, Any]:
                              "vals": t.vals})
     return arrs
 
-# table classes, extras and merged-plan parts of the reference executor ->
-# where their port is queued in ROADMAP.md
-_QUEUED = {
-    "dsfused": "Queue 1 item 13 (stacked sharded fused delta)",
-}
-
-
-def _refuse(what: str, item: str) -> None:
+def _refuse(what: str) -> None:
+    """Refuse a plan part that no planner of the port makes: the
+    reference's stacked multi-device classes (``dsfused``, DIA tables with
+    traced offsets) included, since each rank of ``parallel/shard.py``
+    plans its own tables."""
     raise NotImplementedError(
-        f"{what} is not ported to sparsex_tpu_torch yet; see ROADMAP.md "
-        f"{item}")
+        f"{what} is not a plan that sparsex_tpu_torch makes or runs")
 
 
 def _kind(entry):
@@ -167,8 +163,7 @@ def check_slice(meta) -> None:
     for key in extras:
         if key not in ("dfused", "k3dias", "fall", "dpages", "dscatter",
                        "dpagesT", "dscatterT"):
-            _refuse(f"the {key!r} execution class",
-                    _QUEUED.get(key, "Queue 1"))
+            _refuse(f"the {key!r} execution class")
     if "dfused" in extras:
         fmeta = extras["dfused"][0]
         k1_style(fmeta[6] if len(fmeta) > 6 else "sl")
@@ -188,26 +183,22 @@ def check_slice(meta) -> None:
             k1_style(e[5][1][5])
             continue
         if kind is not None:
-            _refuse(f"run table class {kind!r}", _QUEUED.get(kind, "Queue 1"))
+            _refuse(f"run table class {kind!r}")
     for e in block_meta:
         kind = _kind(e)
         if kind not in (None, "cvt", "fblk"):
-            _refuse(f"block table class {kind!r}",
-                    _QUEUED.get(kind, "Queue 1"))
+            _refuse(f"block table class {kind!r}")
     if "fall" in extras:
         segs, _inst, _bounds, res_desc = extras["fall"]
         for seg in segs:
             if seg[0] not in ("delta", "run", "blk"):
-                _refuse(f"merged-plan segment {seg[0]!r}",
-                        _QUEUED.get(seg[0], "Queue 1"))
+                _refuse(f"merged-plan segment {seg[0]!r}")
         for rd in res_desc:
             if rd[0] not in ("dres", "rres", "bres"):
-                _refuse(f"merged-plan residual {rd[0]!r}",
-                        _QUEUED.get(rd[0], "Queue 1"))
+                _refuse(f"merged-plan residual {rd[0]!r}")
     if "k3dias" not in extras and any(offs is None
                                       for _a, offs, _n in dia_meta):
-        _refuse("a DIA table with per-shard (dynamic) offsets",
-                "Queue 1 item 13 (parallel/shard.py)")
+        _refuse("a DIA table with per-shard (dynamic) offsets")
 
 
 @functools.lru_cache(maxsize=64)
@@ -468,7 +459,7 @@ def fused_mm_contrib(meta, arrs, xt, *, nrows_part: int, ncols: int):
 
 def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int,
                   symmetric: bool = False, row_start: int = 0,
-                  nrows_glob: int = None):
+                  nrows_glob: int = None, z_off: int = 0):
     """The dense (nrows_part,) contribution of one partition: every fused
     segment's K1 (the delta bulk and tail, each fused run table) and each
     fblk table's block-row streams, then either their per-segment route
@@ -485,7 +476,11 @@ def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int,
     starts from ``dvals * x_own`` and the result is ``(acc, z)``, ``z`` the
     upper mirror's contributions over all ``nrows_glob`` rows
     (:func:`transposed_contrib`).  Its SpMV is 1-D: an SpMM runs it once
-    per column."""
+    per column.  In the multi-device executor's symmetric halo mode
+    (``parallel/shard.py``) x is a window of the whole x: ``row_start`` is
+    then the shard's first row in the window's frame and ``z_off`` the
+    window's first column, which every z destination derived from a column
+    adds (the reference's ``z_off``, kernels.py:262-266)."""
     if x.dim() not in (1, 2):
         raise ValueError(f"x: shape {tuple(x.shape)} is neither (ncols,) nor "
                          "k-major (k, ncols)")
@@ -652,7 +647,8 @@ def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int,
         return acc, transposed_contrib(
             meta, arrs, x, x2, nrows_part=nrows_part, ncols=ncols,
             row_start=row_start,
-            nrows_glob=ncols if nrows_glob is None else nrows_glob)
+            nrows_glob=ncols if nrows_glob is None else nrows_glob,
+            z_off=z_off)
     return acc
 
 
@@ -666,7 +662,7 @@ def own_rows(x, row_start: int, nrows_part: int):
 
 
 def transposed_contrib(meta, arrs, x, x2, *, nrows_part: int, ncols: int,
-                       row_start: int, nrows_glob: int):
+                       row_start: int, nrows_glob: int, z_off: int = 0):
     """``z``, dense over the ``nrows_glob`` rows of a symmetric matrix: the
     upper mirror of a shard's strict lower triangle, each stored value
     applied a second time with row and column swapped (ref
@@ -682,7 +678,10 @@ def transposed_contrib(meta, arrs, x, x2, *, nrows_part: int, ncols: int,
     shard has no paged stream; each run and block table's transposed
     products, gathered at the unit's rows and added at its columns
     (:589-598, :666-682).  Destinations outside [0, nrows_glob) are
-    dropped, as ``mode="drop"`` drops them."""
+    dropped, as ``mode="drop"`` drops them.  ``z_off`` is added to every
+    destination derived from a table column (the DIA windows, the plain
+    delta, the unit tables); the paged stream and ``delta_t`` were planned
+    with global destinations (``symmetric.shard_plan``)."""
     extras = {e[0]: e[1:] for e in meta[5:] if e}
     dev = x.device
     x_own = own_rows(x, row_start, nrows_part)
@@ -699,7 +698,7 @@ def transposed_contrib(meta, arrs, x, x2, *, nrows_part: int, ncols: int,
                              nrows_glob, z, x2=x2)
     for (anti, offsets, _nd), t in zip(meta[4], arrs.get("dias", ())):
         for k, o in enumerate(offsets):
-            lo = o - nrows_part + 1 if anti else o
+            lo = (o - nrows_part + 1 if anti else o) + z_off
             z0, z1 = max(0, lo), min(nrows_glob, lo + nrows_part)
             if z1 <= z0:
                 continue
@@ -709,10 +708,12 @@ def transposed_contrib(meta, arrs, x, x2, *, nrows_part: int, ncols: int,
             else:        # z[r + o] += dv[r] * x_own[r], one pass a diagonal
                 z[z0:z1].addcmul_(t["vals"][k][z0 - lo:z1 - lo],
                                   x_own[z0 - lo:z1 - lo])
-    dt = arrs.get("delta_t", arrs.get("delta"))
+    dt, off = arrs.get("delta_t"), 0
+    if dt is None:   # no paged stream: the plain delta, columns rebased
+        dt, off = arrs.get("delta"), z_off
     if dt is not None and dt["cols"].shape[0]:
-        add_products(z, dt["vals"], dt["row_ids"] + row_start, dt["cols"], x,
-                     ncols)
+        add_products(z, dt["vals"], dt["row_ids"] + row_start,
+                     dt["cols"] + off if off else dt["cols"], x, ncols)
     for kind, metas in (("runs", meta[2]), ("blocks", meta[3])):
         for entry, t in zip(metas, arrs[kind]):
             steps, _each, offs = _unit_layout(kind, entry, dev)
@@ -724,7 +725,8 @@ def transposed_contrib(meta, arrs, x, x2, *, nrows_part: int, ncols: int,
                 prods = (t["vals"] * xr[:, :, None]).sum(1)
             else:                  # (U, W) values, one x value per element
                 prods = t["vals"] * xr
-            dest = (t["cols"][:, None] + steps).clamp(0, nrows_glob - 1)
+            dest = (t["cols"][:, None] + steps + z_off).clamp(
+                0, nrows_glob - 1)
             z.index_add_(0, dest.reshape(-1), prods.reshape(-1))
     return z
 

@@ -248,7 +248,8 @@ def mirror_full_tables(shards: List[CsxTables],
                                             or np.dtype(val_dtype).name))
 
 
-def shard_plan(tables: CsxTables, nrows: int, ncols: int):
+def shard_plan(tables: CsxTables, nrows: int, ncols: int,
+               gather_off: Optional[int] = None, z_off: int = 0):
     """``(meta, arrays)``: one shard's paged per-shard plan (host arrays)
     as the reference's ``_build_sym_arrays`` makes its ``_sym_paged``
     (symmetric.py:309-379): the shard's tables (``static_meta``,
@@ -261,20 +262,29 @@ def shard_plan(tables: CsxTables, nrows: int, ncols: int):
     into the shard's rows, ``dscatterT`` into all rows), their leftovers
     as ``delta`` and ``delta_t`` (whose ``cols`` are rows of the result).
     The reference pages only float32 values, and runs its plain variant
-    (the tables alone) elsewhere; the port runs this plan in any type."""
+    (the tables alone) elsewhere; the port runs this plan in any type.
+
+    ``ncols`` is the frame of x.  For the multi-device executor's symmetric
+    halo mode (``parallel/shard.py``, the reference's
+    ``stack_sym_delta_pages`` with ``gather_off`` and ``col_rebase``,
+    shard.py:554-664) the tables' columns are in a window's frame of
+    ``ncols`` columns starting at global column ``z_off``: the transposed
+    stream gathers x at ``row_ids + gather_off`` (default ``row_start``)
+    and scatters to ``cols + z_off``, and ``delta_t``'s columns are global
+    rows of the result."""
     meta, arrs = static_meta(tables), tables_to_arrays(tables)
     d = tables.delta
     if d is not None and d.nnz:
         cols = np.asarray(d.cols, dtype=np.int64)
         rows = np.asarray(d.row_ids, dtype=np.int64)
         vals = np.asarray(d.vals)
-        r0 = tables.row_start
+        r0 = tables.row_start if gather_off is None else gather_off
         rep_d, left_d = build_delta_pages(
             cols, rows, vals, ncols, tables.nrows,
             sort_key=fold_sort_key(rows, tables.nrows, cols))
         rep_t, left_t = build_delta_pages(
-            rows + r0, cols, vals, nrows, nrows,
-            sort_key=fold_sort_key(cols, nrows, rows + r0))
+            rows + r0, cols + z_off, vals, ncols, nrows,
+            sort_key=fold_sort_key(cols + z_off, nrows, rows + r0))
         if rep_d is not None and rep_t is not None:
             qd, npd = rep_d.pop("q"), rep_d.pop("npages")
             qt, npt = rep_t.pop("q"), rep_t.pop("npages")
@@ -284,7 +294,7 @@ def shard_plan(tables: CsxTables, nrows: int, ncols: int):
             arrs["delta"] = ({"row_ids": d.row_ids[ld], "cols": d.cols[ld],
                               "vals": d.vals[ld]} if left_d.size else None)
             arrs["delta_t"] = {"row_ids": d.row_ids[left_t],
-                               "cols": d.cols[left_t],
+                               "cols": d.cols[left_t] + z_off,
                                "vals": d.vals[left_t]}
             meta = meta + (("dpages", rep_d["plo"].size, qd, npd),
                            ("dpagesT", rep_t["plo"].size, qt, npt))
@@ -308,32 +318,42 @@ class SymShardExecutor(CsxExecutor):
     :class:`CsxExecutor` (the same graphs, epilogue and column loop) whose
     body is ``local_contrib(..., symmetric=True)``, the lower triangle and
     the diagonal into the shard's rows plus the upper mirror into all
-    ``nrows_glob`` rows.  ``tables`` are the shard's host tables."""
+    ``nrows_glob`` rows.  ``tables`` are the shard's host tables.  In the
+    multi-device executor's symmetric halo mode x is a window of
+    ``ncols`` columns from global column ``z_off``, in whose frame the
+    shard's rows start at ``gather_off`` (:func:`shard_plan`)."""
 
     def __init__(self, tables: CsxTables, meta, arrays, dtype: torch.dtype,
-                 device: torch.device, nrows_glob: int):
-        super().__init__(meta, arrays, tables.nrows, tables.ncols, dtype,
+                 device: torch.device, nrows_glob: int,
+                 ncols: Optional[int] = None,
+                 gather_off: Optional[int] = None, z_off: int = 0):
+        super().__init__(meta, arrays, tables.nrows,
+                         tables.ncols if ncols is None else ncols, dtype,
                          device, variant="sym")
         self.tables = tables
         self.row_start = tables.row_start
+        self.gather_off = tables.row_start if gather_off is None else (
+            gather_off)
+        self.z_off = z_off
         self.nrows_glob = nrows_glob
 
     @classmethod
     def from_plan(cls, tables: CsxTables, meta, host, dvalues, nrows_glob,
-                  device) -> "SymShardExecutor":
+                  device, **frame) -> "SymShardExecutor":
         """Upload one shard's per-shard plan (:func:`shard_plan`) and its
-        diagonal values to ``device``."""
+        diagonal values to ``device``; ``frame`` (``ncols``,
+        ``gather_off``, ``z_off``) as :func:`shard_plan` was given it."""
         check_slice(meta)
         dtype = _DTYPES[tables.value_type or str(np.asarray(dvalues).dtype)]
         arrays = plan_to_torch(meta, dict(host, dvals=dvalues), device, dtype)
         return cls(tables, meta, arrays, dtype, torch.device(device),
-                   nrows_glob)
+                   nrows_glob, **frame)
 
     def _matvec(self, x: torch.Tensor) -> torch.Tensor:
         acc, z = local_contrib(self.meta, self.arrays, x,
                                nrows_part=self.nrows, ncols=self.ncols,
-                               symmetric=True, row_start=self.row_start,
-                               nrows_glob=self.nrows_glob)
+                               symmetric=True, row_start=self.gather_off,
+                               nrows_glob=self.nrows_glob, z_off=self.z_off)
         z[self.row_start:self.row_start + self.nrows] += acc
         return z
 

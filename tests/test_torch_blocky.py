@@ -466,12 +466,12 @@ _FR = (1, 1, 8, None, None, ("frun", (8, 4, 32, (), 0, "rlp8"), 0))
 
 @pytest.mark.parametrize("runs,blocks,extras,item", [
     ((), (), (("dfused", (8, 4, 32, (), 0, 0, "sl")),
-              ("dsfused", 8, 4, 32, (), False, "lp")), "Queue 1 item 13"),
+              ("dsfused", 8, 4, 32, (), False, "lp")), "'dsfused'"),
     ((_FR[:5] + (("frun", (8, 4, 32, (), 0, "run8"), 0),),), (),
-     (_DF, ("dsfused", 8, 4, 32, (), False, "lp")), "Queue 1 item 13"),
+     (_DF, ("dsfused", 8, 4, 32, (), False, "lp")), "'dsfused'"),
 ])
 def test_check_slice_refusals(runs, blocks, extras, item):
-    """What the port does not run yet is refused, naming its queue item;
+    """What the port does not run is refused, naming the class;
     a paged run table, a paged plan without a fused segment and an ``fs``
     route are admitted (ported since), so their cases carry a refused
     class."""

@@ -1500,3 +1500,77 @@ def test_solver_on_the_card_matches_the_cpu(dev):
     (xg, itg, _), (xc, itc, _) = out
     assert itg == itc
     assert (xg.cpu() - xc).abs().max() <= 1e-10 * xc.abs().max()
+
+
+def _banded_coo(n, bands, seed):
+    """A banded COO, symmetric in pattern and values when ``bands`` is."""
+    rng = np.random.default_rng(seed)
+    vals_of = {b: rng.standard_normal(n) + 2.0 for b in bands if b >= 0}
+    rows, cols, vals = [], [], []
+    for b in bands:
+        r = np.arange(max(0, -b), min(n, n - b))
+        rows.append(r)
+        cols.append(r + b)
+        vals.append(vals_of[abs(b)][np.minimum(r, r + b)])
+    rows, cols, vals = (np.concatenate(a) for a in (rows, cols, vals))
+    o = np.lexsort((cols, rows))
+    return rows[o], cols[o], vals[o]
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+@pytest.mark.parametrize("x_mode", ["replicated", "halo"])
+def test_sharded_ranks_share_the_card(dev, tmp_path, symmetric, x_mode):
+    """``ShardedCsx`` on two gloo ranks sharing cuda:0 (each a spawned
+    process, ``tests/torch_ranks.run_cuda_case``), in each x mode, plain
+    and symmetric, float64: each rank's plan tensors all on the card,
+    its first call launching its executors' plans' kernels twice (warm-up
+    and capture), a replay giving the same y, and y and a k = 3 SpMM
+    within 1e-12 of the one-device executor of the same matrix (tuned
+    here in 2 shards); the exchanges copy through the host."""
+    import pickle
+
+    import sparsex_tpu_torch as spt
+    from sparsex_tpu_torch.ops import _build
+    from sparsex_tpu_torch.parallel.comm import run_ranks
+    from sparsex_tpu_torch.parallel.shard import host_side
+    import torch_ranks
+    _build.library()      # once, before the ranks load it
+    n = 4096
+    rows, cols, vals = _banded_coo(n, (0, 1, -1, 7, -7, 300, -300), seed=5)
+    options = {"spx.rt.nr_threads": 2, "spx.preproc.xform": "all",
+               "spx.preproc.sampling": "none",     # the bands as DIA tables
+               "spx.tpu.value_dtype": "float64", "spx.tpu.x_mode": x_mode}
+    if symmetric:
+        options["spx.matrix.symmetric"] = "true"
+    cfg = spt.Config.reset()
+    for key, value in options.items():
+        cfg.set(key, str(value))
+    rowptr = np.zeros(n + 1, dtype=np.int64)
+    rowptr[1:] = np.cumsum(np.bincount(rows, minlength=n))
+    A = spt.mat_tune(spt.input_load_csr(rowptr, cols, vals, n, n))
+    rng = np.random.default_rng(6)
+    x, X = rng.standard_normal(n), rng.standard_normal((n, 3))
+    y_one = A.csx.matvec(x).cpu().numpy()
+    Y_one = A.csx.matmat(X).cpu().numpy()
+    case = {"options": options, "x": x, "X": X,
+            "host": host_side(A.csx)}
+    del A
+    spt.Config.reset()
+    with open(tmp_path / "case.pkl", "wb") as fp:
+        pickle.dump(case, fp)
+    run_ranks(torch_ranks.run_cuda_case, 2,
+              (str(tmp_path / "case.pkl"), str(tmp_path)))
+    for r in range(2):
+        with open(tmp_path / f"cuda.{r}.pkl", "rb") as fp:
+            out = pickle.load(fp)
+        assert out["x_mode"] == x_mode
+        assert out["devices"] == ["cuda:0"] and out["plan_bytes"] > 0
+        got = {k: v for k, v in out["counts"].items() if v}
+        want = {k: v for k, v in out["want"].items() if v}
+        assert got == want and want, (got, want)
+        assert out["host_bytes"]
+        scale = np.abs(y_one).max()
+        assert np.abs(out["y"] - y_one).max() <= 1e-12 * scale
+        assert np.abs(out["y2"] - out["y"]).max() <= 1e-12 * scale
+        assert np.abs(out["Y"] - Y_one).max() <= 1e-12 * np.abs(
+            Y_one).max()

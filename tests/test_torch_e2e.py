@@ -277,8 +277,8 @@ def test_api_errors():
         assert np.abs(y.double().numpy() - want).max() < (
             1e-5 * np.abs(want).max())
     # two shards (spx.rt.nr_threads, ROADMAP Queue 1 item 5) run, plain
-    # and symmetric in both modes; what stays out of the slice is refused
-    # by name (the stacked sharded delta, Queue 1 item 13)
+    # and symmetric in both modes; a class no planner of the port makes is
+    # refused by name (the reference's stacked sharded delta)
     spt.Config.instance().set("spx.rt.nr_threads", "2")
     for mode in ("on", "off"):
         spt.Config.instance().set("spx.tpu.sym_full", mode)
@@ -295,5 +295,5 @@ def test_api_errors():
     y = spt.matvec_mult(1.0, A2, x)
     assert np.abs(y.double().numpy() - want).max() < (
         1e-5 * np.abs(want).max())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="'dsfused'"):
         kernels.check_slice((n, n, (), (), (), ("dsfused", None)))

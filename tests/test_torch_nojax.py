@@ -22,10 +22,10 @@ both paged delta streams and their scatter routes, and as its full
 mirror, within the same bar; that the headline matrix at 2^16 tunes in two
 shards, takes a ``set_entry`` on shard 1 (planned again once) and
 survives a ``mat_save`` / ``mat_restore`` round trip, each SpMV within the
-same bar; that a class outside the ported slice (the stacked sharded
-delta of several devices) raises NotImplementedError; and that
-``examples/cg_example_torch.py`` solves at 256 rows and passes its own
-check; at the end no module of
+same bar; that a class no planner of the port makes (the reference's
+stacked sharded delta of several devices) raises NotImplementedError; and
+that ``examples/cg_example_torch.py`` solves at 256 rows and passes its
+own check; at the end no module of
 ``jax``, ``sparsex_tpu`` or ``bench`` is loaded.
 ``chip_smoke.py`` imports none of them either, and without a CUDA device
 it exits non-zero and prints no result.
@@ -213,15 +213,15 @@ errs = [spmv_err(M, n, rows, cols, vals, 10) for M in (A, B)]
 out["shards"] = [len(A.csx.executors), A.csx.replans] + errs + [
     spx.mat_get_entry(B, int(rows[i]), int(cols[i]))]
 
-# a class still queued: the stacked sharded delta of several devices
-# (ROADMAP Queue 1 item 13)
+# a class no planner of the port makes: the reference's stacked sharded
+# delta of several devices
 from sparsex_tpu_torch.ops.kernels import check_slice
 try:
     check_slice((ns, ns, (), (), (), ("dsfused", None)))
     out["out_of_slice"] = "passed"
 except NotImplementedError as e:
-    out["out_of_slice"] = ("NotImplementedError" if "ROADMAP.md" in str(e)
-                           and "item 13" in str(e) else str(e))
+    out["out_of_slice"] = ("NotImplementedError" if "'dsfused'" in str(e)
+                           else str(e))
 
 # the CG example (a symmetric matrix, the solver's blocks) at a small size
 import importlib.util

@@ -547,8 +547,8 @@ def test_check_slice_admits_both_variants():
 
 @pytest.mark.parametrize("runs,blocks,dias,extras,item", [
     ((), (), (), (("dpages", 12, 4, 16),
-                  ("dsfused", 8, 4, 32, (), False, "lp")), "Queue 1 item 13"),
-    ((), (), ((False, None, 3),), (), "Queue 1 item 13"),
+                  ("dsfused", 8, 4, 32, (), False, "lp")), "'dsfused'"),
+    ((), (), ((False, None, 3),), (), "dynamic"),
 ])
 def test_check_slice_still_refuses(runs, blocks, dias, extras, item):
     with pytest.raises(NotImplementedError, match=item):

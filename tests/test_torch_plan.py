@@ -260,6 +260,8 @@ def test_port_imports_nothing_of_the_reference():
     files.append(os.path.join(ROOT, "chip_smoke.py"))
     files += sorted(glob.glob(os.path.join(ROOT, "tools", "*_torch.py")))
     files += sorted(glob.glob(os.path.join(ROOT, "examples", "*_torch.py")))
+    # the rank bodies of the multi-device tests, which spawned ranks import
+    files.append(os.path.join(ROOT, "tests", "torch_ranks.py"))
     assert len(files) > 20
     names = {os.path.relpath(f, ROOT) for f in files}
     assert {"sparsex_tpu_torch/persist.py",
@@ -267,7 +269,10 @@ def test_port_imports_nothing_of_the_reference():
             "sparsex_tpu_torch/solvers.py",
             "sparsex_tpu_torch/ops/spgemm.py",
             "sparsex_tpu_torch/ops/oracle.py",
-            "examples/cg_example_torch.py"} <= names
+            "examples/cg_example_torch.py",
+            "sparsex_tpu_torch/parallel/shard.py",
+            "sparsex_tpu_torch/parallel/comm.py",
+            "tests/torch_ranks.py"} <= names
     assert len([n for n in names if n.startswith("examples/")]) == 9
     bad = {}
     for path in files:

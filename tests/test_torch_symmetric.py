@@ -390,8 +390,8 @@ def test_sym_plan_checks(monkeypatch):
 def test_refusals():
     """An unsymmetric pattern is refused (SPX_ERR_INPUT_MAT); two shards
     (ROADMAP Queue 1 item 5) tune and run against the oracle,
-    and what stays out of the slice, the stacked sharded delta of several
-    devices, is refused by name (Queue 1 item 13)."""
+    and a class no planner of the port makes, the reference's stacked
+    sharded delta of several devices, is refused by name."""
     n, rows, cols, vals = _structure()
     keep = rows != 40
     cfg = spt.Config.instance()
@@ -407,7 +407,7 @@ def test_refusals():
     x = np.random.default_rng(2).standard_normal(n)
     assert _rel(spt.matvec_mult(1.0, A, x).numpy(),
                 _oracle(n, rows, cols, vals, x)) < 1e-12
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="'dsfused'"):
         tk.check_slice((n, n, (), (), (), ("dsfused", None)))
 
 
