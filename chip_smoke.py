@@ -17,8 +17,16 @@ this script imports nothing of the JAX package or its benchmark):
 - the blocky matrix (``build_blocky_matrix(1 << 21)``: 2^21 rows, 6.82M
   nonzeros of 4x2 blocks, width-8 runs and singles): the delta pipeline
   plus two fused run tables (K1 styles rlp8 and rlp2) in one merged route
-  plan (per instance: the G1 lane gather, T1, K2), one K3; then one untimed
-  float32 check at 2^19, whose merged plan has a masked instance;
+  plan (per instance: the G1 lane gather, T1, K2), one K3; timed in
+  float32; then the same plan classes at 2^19, whose merged plan has a
+  masked instance: timed in float32 (bench.py's blocky size) and checked
+  untimed in float64;
+- bench.py's diag-class matrix (``build_diagc_matrix(1 << 19)``: 2^19
+  rows, 1.11M nonzeros of partial diagonals, anti-diagonals, vertical
+  runs and singles): the delta pipeline alone (K1 lp bulk and tail, 4
+  route instances of T1 and K2, the fourth of a shape of its own, one K3
+  with no DIA), the vertical runs demoted into it (``cvt``); timed in
+  float32, checked in float64;
 - the dense-tile K1 styles, which the planners take where lane placement
   does not apply:
   - ``wide_run_matrix(1 << 21, 16)`` (width-16 runs plus singles): a fused
@@ -133,13 +141,20 @@ this script imports nothing of the JAX package or its benchmark):
   C = A A tuned onto the card; ``spgemm_panel`` of the headline 2^20 f32
   matrix and a 2^20 x 256 operand in panels of 64) and each
   ``examples/*_torch.py`` at its default size;
+- the tools (``tools/*_torch.py``, ``tools_phase``), as a user runs them:
+  the diagc matrix at 2^19 as an MMF through ``test_sparsex_torch`` and
+  ``bench_spmv_torch`` (the port, torch's CSR product, the host's native
+  CSR and scipy), ``profile_fused_torch`` on bench.py's four workloads
+  and blocky's SpMM, then ``weak_scaling_torch`` and ``soak_torch`` (its
+  sharded checks on 2 ranks) as processes of their own;
 - the SpMM (``matmat_kernel``, X of shape (n, k) from a numpy seed) on the
   matrix each path has tuned: timed at k = 8 (one k-batched chunk) on
-  headline 2^20 and blocky 2^21 in float32 and float64 and on wide-run
+  headline 2^20 in float32 and float64 and on blocky 2^21, wide-run
   and lane-skew 2^21, blocky 2^19 and fs-run 2^21 (k-batched, the fs
   table by row scatter) in float32 (blocky 2^19: bench.py's SpMM
   configuration, whose SpMV is timed too); untimed checks in float64 at
-  k = 8 on wide-run and lane-skew 2^19, in float32 at k = 11 on
+  k = 8 on blocky, wide-run and lane-skew 2^19, in float32 at k = 8 on
+  diagc 2^19, at k = 11 on
   headline 2^20 (chunks of 8 and 3), k = 3 on blocky 2^19 (the masked g3
   instance), k = 8 on fs-block (the SpMV once per column), k = 2 on the
   two fused-gate-off paths, HPCG 128^3, headline 2^22 and the symmetric
@@ -220,7 +235,11 @@ Every phase is fatal on failure:
    columns against the oracle within ``CHECK_TOL``, the host MFLOPS of
    ``spgemm_coo`` (labelled a host number), µs per panel and the k = 64
    graph's MiB; then each example's ``main`` must return 0 after its own
-   check (``examples_phase``), with its seconds.
+   check (``examples_phase``), with its seconds;
+11. the tools (``tools_phase``): each must exit 0 (``test_sparsex_torch``
+   within 1e-6 of the COO oracle, ``bench_spmv_torch``'s four adapters
+   cross-checked OK, ``soak_torch`` passing every check), with its
+   seconds; their numbers go into the summary.
 
 The card's name and power limit (nvidia-smi) come two lines before the
 last; the line before the last is a JSON object ``{"kernels": [...]}``
@@ -257,6 +276,7 @@ N_OVERLAP = 1 << 16     # the run matrix whose fused-run route overlapped
 # with its routed delta scatter, fused block tables and their merged plan
 NO_FUSE = (("spx.tpu.min_fused_nnz", str(1 << 30)),)
 N_SYM = 1 << 20         # bench.py's CSX-Sym matrix (build_symmetric_matrix)
+N_DIAGC = 1 << 19       # bench.py's diag-class matrix (build_diagc_matrix)
 # a symmetric matrix, tuned as its lower triangle and diagonal; its two
 # modes (spx.tpu.sym_full): the full mirror and the per-shard plan
 SYMMETRIC = (("spx.matrix.symmetric", "true"),)
@@ -599,6 +619,36 @@ def check_masked_blocky_plan(mat, label):
     if all(m[9] & 2 for m in extras_of(ex.meta)["fall"][1]):
         fail(f"[{label}] no merged instance with a masked g3 (um & 2 == 0)")
     return ex
+
+
+def check_diagc_plan(instances):
+    """The diag-class plan (``build_diagc_matrix``): the fused delta
+    pipeline only (``dfused``, no DIA tables in K3, no fused run table),
+    with the mined run tables demoted into it (``cvt`` entries: the
+    vertical runs, and at small sizes the partial diagonals too) and
+    ``instances`` route instances."""
+    def check(mat, label):
+        from sparsex_tpu_torch.ops.kernels import _kind
+        ex = mat.csx.executors[0]
+        meta = ex.meta
+        extras = extras_of(meta)
+        kinds = [_kind(e) for e in meta[2]]
+        n_inst = (len(extras["dfused"][0][3]) if "dfused" in extras
+                  else None)
+        desc = (f"extras {sorted(extras)}; run tables (enc, delta, width, "
+                f"class) {[e[:3] + (k,) for e, k in zip(meta[2], kinds)]}; "
+                f"block tables {[e[:3] for e in meta[3]]}; DIA tables "
+                f"{[(a, len(o)) for a, o, _n in meta[4]]}; "
+                + _fused_desc(meta))
+        if not (set(extras) == {"dfused"} and kinds
+                and set(kinds) == {"cvt"} and not meta[3]
+                and not any(offs for _a, offs, _n in meta[4])
+                and n_inst == instances):
+            fail(f"[{label}] expected dfused alone with cvt run tables and "
+                 f"{instances} route instances: {desc}")
+        say(f"[{label}] plan: {desc}")
+        return ex
+    return check
 
 
 def check_dense_plan(style):
@@ -1647,45 +1697,63 @@ _KERNEL_NAME = re.compile(r"\b(k1_lp|k1_rlp|k1_sl|k1_run|t1|k2|k3|"
                           r"(_kb)?_kernel\b")
 
 
-def profile_phase(spmv, reps=50, kb=False):
-    """Device microseconds per SpMV of each kernel and of the PyTorch glue
-    kernels (pads, the hybrid interleave, the residual adds), from a
-    torch.profiler trace of ``reps`` SpMVs: the kernels as the main path
-    runs them, each finding in L2 what the previous one left.  Returns
-    ``(us, glue)``, ``glue`` the four largest glue kernels by name, or
-    ``(None, None)`` when the trace holds no device events.  ``kb``: the
-    calls are k-batched, so a kernel that serves both forms under one name
-    (K2) counts under its ``_kb`` key."""
+def trace_us(fn, reps):
+    """{device event name: microseconds per call of ``fn``} from a
+    torch.profiler trace of ``reps`` calls (after one call outside it):
+    the kernels and copies, which do not nest; None when the trace holds
+    no device event.  The events of CUDA graph replays are the graphs'
+    kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    spmv()
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            spmv()
+            fn()
         torch.cuda.synchronize()
+    agg = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            agg[ev.name] = (agg.get(ev.name, 0.0)
+                            + ev.time_range.elapsed_us() / reps)
+    return agg or None
+
+
+def kernel_key(name, kb=False):
+    """The launch-count key of a kernel of ours by its device event name
+    (``k1`` for K1 lp; with ``kb`` a kernel that serves both forms under
+    one name, K2, counts under its ``_kb`` key), or None for any other
+    kernel (the PyTorch glue)."""
     from sparsex_tpu_torch.ops.fused import KERNELS
+    m = _KERNEL_NAME.search(name)
+    if not m:
+        return None
+    key = ("k1" if m.group(1) == "k1_lp" else m.group(1)) + (m.group(2)
+                                                              or "")
+    return key + "_kb" if kb and key + "_kb" in KERNELS else key
+
+
+def profile_phase(spmv, reps=50, kb=False):
+    """Device microseconds per SpMV of each kernel and of the PyTorch glue
+    kernels (pads, the hybrid interleave, the residual adds), from a
+    torch.profiler trace of ``reps`` SpMVs (:func:`trace_us`): the kernels
+    as the main path runs them, each finding in L2 what the previous one
+    left.  Returns ``(us, glue)``, ``glue`` the four largest glue kernels
+    by name, or ``(None, None)`` when the trace holds no device events.
+    ``kb``: the calls are k-batched (:func:`kernel_key`)."""
+    from sparsex_tpu_torch.ops.fused import KERNELS
+    agg = trace_us(spmv, reps)
+    if agg is None:
+        return None, None
     us = dict.fromkeys(KERNELS + ("glue",), 0.0)
     glue = {}
-    seen = False
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        seen = True
-        m = _KERNEL_NAME.search(ev.name)
-        key = (("k1" if m.group(1) == "k1_lp" else m.group(1))
-               + (m.group(2) or "")) if m else "glue"
-        if kb and key + "_kb" in us:
-            key += "_kb"
-        us[key] += ev.time_range.elapsed_us() / reps
-        if not m:
-            name = ev.name[:70]
-            glue[name] = (glue.get(name, 0.0)
-                          + ev.time_range.elapsed_us() / reps)
-    if not seen:
-        return None, None
+    for name, t in agg.items():
+        key = kernel_key(name, kb)
+        us[key or "glue"] += t
+        if key is None:
+            glue[name[:70]] = glue.get(name[:70], 0.0) + t
     return us, sorted(glue.items(), key=lambda kv: -kv[1])[:4]
 
 
@@ -2554,11 +2622,21 @@ def spgemm_phase(spx, summary):
     summary.update(out)
 
 
+def _script(folder, name):
+    """The module ``<folder>/<name>.py`` (the examples and the tools are
+    scripts, not packages)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, folder, name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def examples_phase(spx, summary):
     """Each ``examples/*_torch.py``'s ``main`` in this process on the card
     at its default size (the caching pair through a temporary directory);
     each must return 0 after its own check."""
-    import importlib.util
     import shutil
     import tempfile
     tmp = tempfile.mkdtemp()
@@ -2569,10 +2647,7 @@ def examples_phase(spx, summary):
     secs = {}
     try:
         for name in names:
-            spec = importlib.util.spec_from_file_location(
-                name, os.path.join(ROOT, "examples", name + ".py"))
-            mod = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(mod)
+            mod = _script("examples", name)
             argv = (["--cache", os.path.join(tmp, "cache.npz")]
                     if "caching" in name else [])
             spx.Config.reset()
@@ -2586,6 +2661,121 @@ def examples_phase(spx, summary):
         shutil.rmtree(tmp, ignore_errors=True)
         spx.Config.reset()
     summary["examples_s"] = secs
+
+
+def _tool_main(spx, label, name, argv):
+    """``tools/<name>.py``'s ``main(argv)`` in this process; its output
+    is printed with ``label`` before each line.  Returns (its output, its
+    seconds); fails the run unless it returns 0."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    spx.Config.reset()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = _script("tools", name).main(argv)
+    finally:
+        spx.Config.reset()
+        secs = time.perf_counter() - t0
+        for line in buf.getvalue().splitlines():
+            say(f"[{label}] {line}")
+    say(f"[{label}] rc {rc}, {secs:.2f} s")
+    if rc != 0:
+        fail(f"[{label}] exited {rc}")
+    return buf.getvalue(), secs
+
+
+def _tool_process(label, name, argv, timeout=600):
+    """``python3 tools/<name>.py argv`` as a process of its own (the tools
+    whose spawned ranks import them by path), its output printed with
+    ``label`` before each line.  Returns (its output, its seconds); fails
+    the run unless it exits 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tools", name + ".py")] + argv,
+        capture_output=True, text=True, timeout=timeout, cwd=ROOT)
+    secs = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        say(f"[{label}] {line}")
+    say(f"[{label}] rc {proc.returncode}, {secs:.2f} s")
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        fail(f"[{label}] exited {proc.returncode}")
+    return proc.stdout, secs
+
+
+def tools_phase(spx, summary):
+    """Each ``tools/*_torch.py`` on the card, as a user runs it: the diagc
+    matrix at 2^19 written once as an MMF (``io.mmf.save_mmf``), through
+    ``test_sparsex_torch`` (``-t``, then ``-r``) and ``bench_spmv_torch``
+    (``-l sparsex,csr,native,scipy --json``, float64: the four adapters'
+    MFLOPS, cross-checked); ``profile_fused_torch`` on each of bench.py's
+    four workloads at bench.py's sizes and on blocky's SpMM at k = 8 (the
+    per-kernel budget beside the chain's CUDA-event time); then as
+    processes of their own ``weak_scaling_torch --devices 1 2 --base-n
+    262144`` in both x modes and ``soak_torch`` at its default sizes on 2
+    ranks (gloo, both on the card: its sharded checks pass x round a ring
+    and gather the rows as the rank paths do).  Every
+    tool must exit 0; each one's seconds go into the summary."""
+    import shutil
+    import tempfile
+
+    from sparsex_tpu_torch.io.mmf import save_mmf
+    tmp = tempfile.mkdtemp(prefix="spx_tools_")
+    secs, out = {}, {}
+    try:
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "diagc_2^19.mtx")
+        rows, cols, vals = build_diagc_matrix(N_DIAGC)
+        save_mmf(path, N_DIAGC, N_DIAGC, rows, cols, vals)
+        secs["save_mmf"] = time.perf_counter() - t0
+        del rows, cols, vals
+        say(f"[tools] diagc 2^19 written as an MMF in {secs['save_mmf']:.2f}"
+            " s")
+        xform = ["-o", "spx.preproc.xform=all"]
+        for flag in ("-t", "-r"):
+            label = f"test_sparsex {flag}"
+            _, secs[label] = _tool_main(spx, label, "test_sparsex_torch",
+                                        [path, flag] + xform)
+        text, secs["bench_spmv"] = _tool_main(
+            spx, "bench_spmv", "bench_spmv_torch",
+            ["-f", path, "-l", "sparsex,csr,native,scipy", "--json"])
+        out["bench_spmv"] = json.loads(text.splitlines()[-1])
+        if ("FAILED" in text or "SKIPPED" in text
+                or text.count("[OK]") != 3):
+            fail("[bench_spmv] a cross-check failed or an adapter skipped")
+        prof_json = os.path.join(tmp, "profile.json")
+        for work, spmm in (("headline", 0), ("blocky", 0),
+                           ("symmetric", 0), ("diagc", 0), ("blocky", 8)):
+            label = f"profile_fused {work}" + (f" spmm {spmm}" if spmm
+                                               else "")
+            _, secs[label] = _tool_main(
+                spx, label, "profile_fused_torch",
+                ["--workload", work, "--spmm", str(spmm), "--json",
+                 prof_json])
+        with open(prof_json) as fp:
+            out["profile_fused"] = {
+                k: {kk: v[kk] for kk in ("nnz", "total_us_per_iter",
+                                         "chain_us_per_iter")}
+                for k, v in json.load(fp).items()}
+        out["weak_scaling"] = {}
+        for mode in ("replicated", "halo"):
+            label = f"weak_scaling {mode}"
+            wjson = os.path.join(tmp, f"weak_{mode}.json")
+            _, secs[label] = _tool_process(
+                label, "weak_scaling_torch",
+                ["--devices", "1", "2", "--base-n", "262144", "--mode", mode,
+                 "--json", wjson])
+            with open(wjson) as fp:
+                out["weak_scaling"][mode] = json.load(fp)
+        _, secs["soak"] = _tool_process("soak", "soak_torch",
+                                        ["--ranks", "2"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        spx.Config.reset()
+    out["seconds"] = secs
+    summary["tools"] = out
 
 
 # ---------------------------------------------------------------------------
@@ -2603,14 +2793,10 @@ BF16_PATHS = ("", "blocky ")
 
 
 def _mixed_rel_err(a, b) -> float:
-    """max |a-b| / (|b| + 1e-3*max|b|): relative where |b| is large, scaled
-    absolute near zero rows (bench.py:72)."""
-    a = np.asarray(a, dtype=np.float64)
-    b = np.asarray(b, dtype=np.float64)
-    if not a.size:
-        return 0.0
-    scale = 1e-3 * float(np.max(np.abs(b))) + 1e-30
-    return float(np.max(np.abs(a - b) / (np.abs(b) + scale)))
+    """bench.py's mixed relative error (bench.py:72), the port's
+    ``ops.oracle.mixed_rel_err``."""
+    from sparsex_tpu_torch.ops.oracle import mixed_rel_err
+    return mixed_rel_err(a, b)
 
 
 def _dedup_sort(rows, cols, n, seed=1):
@@ -2657,6 +2843,38 @@ def build_blocky_matrix(n):
     rows.append(np.repeat(hr, 8))
     cols.append((hc[:, None] + np.arange(8)[None]).ravel())
     m = n // 4
+    rows.append(rng.integers(0, n, size=m))
+    cols.append(rng.integers(0, n, size=m))
+    return _dedup_sort(np.concatenate(rows), np.concatenate(cols), n)
+
+
+def build_diagc_matrix(n):
+    """Diag-class: partial diagonal runs, anti-diagonal runs and vertical
+    runs + singles (bench.py:209), the diag / rdiag / vert classes that the
+    other workloads never touch."""
+    rng = np.random.default_rng(9)
+    rows, cols = [], []
+    j16 = np.arange(16)
+    # partial diagonal segments (length 16, scattered offsets)
+    nd = n // 24
+    dr = rng.integers(0, n - 16, size=nd)
+    dc = rng.integers(0, n - 16, size=nd)
+    rows.append((dr[:, None] + j16[None]).ravel())
+    cols.append((dc[:, None] + j16[None]).ravel())
+    # anti-diagonal segments (length 16)
+    ar = rng.integers(0, n - 16, size=nd)
+    ac = rng.integers(16, n, size=nd)
+    rows.append((ar[:, None] + j16[None]).ravel())
+    cols.append((ac[:, None] - j16[None]).ravel())
+    # vertical runs (length 8)
+    j8 = np.arange(8)
+    nv = n // 12
+    vr = rng.integers(0, n - 8, size=nv)
+    vc = rng.integers(0, n, size=nv)
+    rows.append((vr[:, None] + j8[None]).ravel())
+    cols.append(np.repeat(vc, 8))
+    # singles
+    m = n // 8
     rows.append(rng.integers(0, n, size=m))
     cols.append(rng.integers(0, n, size=m))
     return _dedup_sort(np.concatenate(rows), np.concatenate(cols), n)
@@ -3434,12 +3652,19 @@ def main():
     paths = (
         ("", N, lambda: build_matrix(N), check_plan, (), tols, True,
          mm8 + ((11, False, f32),)),
+        # (blocky 2^21 is timed in f32; its f64 is checked untimed at
+        # 2^19, the same plan classes and styles)
         ("blocky ", N_BLOCKY, lambda: build_blocky_matrix(N_BLOCKY),
-         check_blocky_plan, (), tols, True, mm8),
+         check_blocky_plan, (), tols[:1], True, ((8, True, f32),)),
         ("blocky 2^19 ", N_BLOCKY_CHECK,
          lambda: build_blocky_matrix(N_BLOCKY_CHECK),
-         check_masked_blocky_plan, (), tols[:1], True,
-         ((8, True, f32), (3, False, f32))),
+         check_masked_blocky_plan, (), tols, f32,
+         ((8, True, f32), (3, False, f32), (8, False, ("float64",)))),
+        # bench.py's fourth workload: the delta pipeline with the vertical
+        # runs demoted into it, 4 route instances (the fourth of its own
+        # shape); f32 timed, f64 and a k = 8 SpMM checked
+        ("diagc 2^19 ", N_DIAGC, lambda: build_diagc_matrix(N_DIAGC),
+         check_diagc_plan(4), (), tols, f32, ((8, False, f32),)),
         # (the paths timed in f32 check f64 untimed, and at a quarter of
         # the rows, which keeps the script with the shard and rank paths
         # well inside its time limit: the same plan classes and K1 styles,
@@ -3530,6 +3755,9 @@ def main():
     t0 = time.perf_counter()
     examples_phase(spx, summary)
     say(f"[examples] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tools_phase(spx, summary)
+    say(f"[tools] done in {time.perf_counter() - t0:.1f} s")
     kernels_out += solver_entries(kernels_out, summary)
 
     say("summary: " + json.dumps(summary))

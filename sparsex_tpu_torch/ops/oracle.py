@@ -61,3 +61,14 @@ def max_rel_error(a, b) -> float:
     b = np.asarray(b, dtype=np.float64)
     denom = np.maximum(np.abs(b), 1e-30)
     return float(np.max(np.abs(a - b) / denom)) if a.size else 0.0
+
+
+def mixed_rel_err(a, b) -> float:
+    """max |a-b| / (|b| + 1e-3*max|b|): relative where |b| is large, scaled
+    absolute near zero rows (bench.py's ``_mixed_rel_err``)."""
+    a = np.asarray(a, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    if not a.size:
+        return 0.0
+    scale = 1e-3 * float(np.max(np.abs(b))) + 1e-30
+    return float(np.max(np.abs(a - b) / (np.abs(b) + scale)))

@@ -449,6 +449,20 @@ def host_side(csx) -> dict:
             "dvalues": getattr(csx, "dvalues", None)}
 
 
+def host_from_coo(nrows: int, ncols: int, rows, cols, vals, cfg,
+                  nparts: int) -> dict:
+    """:func:`host_side` of the matrix ``CsxMatrix.from_coo`` would tune
+    in ``nparts`` shards under ``cfg``: partitioned, mined and encoded on
+    the host, with no plan and no executor."""
+    from sparsex_tpu_torch.csx import map_shards, shard_encoder
+    _part, encode = shard_encoder(nrows, ncols, rows, cols, vals, cfg,
+                                  nparts)
+    return {"nrows": int(nrows), "ncols": int(ncols),
+            "nnz": int(np.size(rows)),
+            "shards": [t for t, _log in map_shards(encode, nparts)],
+            "symmetric": False, "dvalues": None}
+
+
 def host_matrix(host: dict):
     """A matrix of :func:`host_side`'s shards that holds no executor."""
     from sparsex_tpu_torch.csx import CsxMatrix
