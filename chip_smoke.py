@@ -1516,37 +1516,6 @@ _MANGLED = re.compile(r"\d(k1_lp|k1_rlp|k1_sl|k1_run|t1|k2|k3|lane_gather|"
                       r"(_kb)?_kernelI")
 
 
-def _driver_call():
-    """``call(fn, *args)``: a CUDA driver function by name, failing on an
-    error code."""
-    import ctypes
-    drv = ctypes.CDLL("libcuda.so.1")
-
-    def call(fn, *args):
-        rc = getattr(drv, fn)(*args)
-        if rc:
-            fail(f"{fn} returned CUDA driver error {rc}")
-    return call
-
-
-def _graph_nodes(graph):
-    """``(node, CUgraphNodeType)`` of each node of ``graph`` (a kept
-    ``torch.cuda.CUDAGraph``): 0 kernel, 1 memcpy, 2 memset, ..."""
-    import ctypes
-    call = _driver_call()
-    raw = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    call("cuGraphGetNodes", raw, None, ctypes.byref(n))
-    nodes = (ctypes.c_void_p * n.value)()
-    call("cuGraphGetNodes", raw, nodes, ctypes.byref(n))
-    out = []
-    for node in nodes:
-        kind = ctypes.c_int()
-        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
-        out.append((node, kind.value))
-    return out
-
-
 def graph_kernels(graph, kb=False):
     """Launches of our kernels in one replay of ``graph`` (a
     ``torch.cuda.CUDAGraph`` kept with ``keep_graph=True``, as an
@@ -1555,9 +1524,11 @@ def graph_kernels(graph, kb=False):
     runs no Python, so the launch counters cannot see it.  PyTorch's glue
     kernels are left out.  ``kb`` as in :func:`profile_phase`."""
     import ctypes
-    call = _driver_call()
+
+    from sparsex_tpu_torch.device import driver_call, graph_nodes
+    call = driver_call()
     out = {}
-    for node, kind in _graph_nodes(graph):
+    for node, kind in graph_nodes(graph):
         if kind != 0:                        # CU_GRAPH_NODE_TYPE_KERNEL
             continue
         params = (ctypes.c_byte * 128)()     # CUDA_KERNEL_NODE_PARAMS_v2
@@ -2015,25 +1986,18 @@ def sym_mode(spx, mat, mode, label):
         f"{time.perf_counter() - t0:.2f} s")
 
 
-def graph_node_types(graph):
-    """The number of nodes of each type in ``graph`` (``_graph_nodes``)."""
-    out = {}
-    for _node, kind in _graph_nodes(graph):
-        out[kind] = out.get(kind, 0) + 1
-    return out
-
-
 def shards_phase(mat, x, label):
     """A matrix of several shards: its one graph's node types (the x copy
     runs before the replay, outside the graph, once a call), each shard's
     SpMV alone (``measure_load_imbalance``: CUDA events around replays of
     that shard's own graph, median of 5 x 32) and the load imbalance."""
+    from sparsex_tpu_torch.device import graph_node_types
     csx = mat.csx
     types = graph_node_types(csx._executor()._graphs[("mv",)].graph)
     secs, imb = csx.measure_load_imbalance(x)
     say(f"[{label}] {len(secs)} shards: the matrix graph holds "
-        f"{types.get(0, 0)} kernel, {types.get(1, 0)} memcpy and "
-        f"{types.get(2, 0)} memset nodes; each shard's SpMV alone "
+        f"{types.get('kernel', 0)} kernel, {types.get('memcpy', 0)} memcpy "
+        f"and {types.get('memset', 0)} memset nodes; each shard's SpMV alone "
         + ", ".join(f"{s * 1e6:.2f}" for s in secs)
         + f" us (sum {sum(secs) * 1e6:.2f}); load imbalance (max-min)/min "
         f"{imb:.3f}")

@@ -22,7 +22,9 @@ card) and the host oracle (``ops/oracle.py``), and several devices
 (``parallel.shard.ShardedCsx``: a torch.distributed process group of a
 rank per shard, x replicated or passed round a halo ring, a symmetric
 matrix's partials reduce-scattered, y gathered on every rank;
-``parallel.comm.run_ranks`` starts the ranks).
+``parallel.comm.run_ranks`` starts the ranks).  The port records its own
+spans and counters (``timing``: ``trace_snapshot()``, ``trace_reset()``;
+README.md, "Tracing").
 
     import sparsex_tpu_torch as spx
     A = spx.mat_tune(spx.input_load_mmf("matrix.mtx"))       # on cuda:0
@@ -38,6 +40,7 @@ from sparsex_tpu_torch.config import (Config, option_get, option_set,
                                       options_set_from_env)
 from sparsex_tpu_torch.errors import ErrorCode, SparsexError, set_error_handler
 from sparsex_tpu_torch import timing
+from sparsex_tpu_torch.timing import trace_reset, trace_snapshot
 from sparsex_tpu_torch.api import (INDEX_ONE_BASED, INDEX_ZERO_BASED,
                                    OP_REORDER, Input, Matrix, Partition,
                                    finalize, init, input_destroy,
@@ -60,7 +63,7 @@ __version__ = "0.1.0"
 __all__ = [
     "Config", "option_set", "option_get", "options_set_from_env",
     "SparsexError", "ErrorCode", "set_error_handler",
-    "timing", "vec",
+    "timing", "trace_snapshot", "trace_reset", "vec",
     "OP_REORDER", "INDEX_ZERO_BASED", "INDEX_ONE_BASED",
     "init", "finalize",
     "input_load_csr", "input_load_mmf", "input_destroy",

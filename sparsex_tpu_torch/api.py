@@ -55,6 +55,7 @@ from sparsex_tpu_torch.parallel.partition import (RowPartition,
                                                   split_rows_by_nnz)
 from sparsex_tpu_torch.persist import restore_csx, save_csx
 from sparsex_tpu_torch.symmetric import build_symmetric_csx
+from sparsex_tpu_torch.timing import span, span_seconds
 
 # Flags mirroring the reference's option macros.
 OP_REORDER = "reorder"  # SPX_MAT_REORDER
@@ -165,6 +166,8 @@ def mat_tune(input_: Input, *flags: str, device=None) -> Matrix:
     selects (api.py:148-153)."""
     cfg = Config.instance()
     dev = resolve_device(device)
+    before = {name: span_seconds(f"spx.tune.{name}")
+              for name in ("sort", "encode", "plan", "upload")}
     rows, cols, vals = input_.tocoo()
     nrows, ncols = input_.nrows, input_.ncols
     permutation = None
@@ -182,6 +185,10 @@ def mat_tune(input_: Input, *flags: str, device=None) -> Matrix:
                                  permutation=permutation, device=dev)
     log_info("tuned matrix on %s: %dx%d nnz=%d csx_size=%dB", dev,
              nrows, ncols, csx.nnz, csx.csx_size())
+    log_info("tune split: " + ", ".join(
+        f"{name} {span_seconds(f'spx.tune.{name}') - s:.6f} s"
+        for name, s in before.items())
+        + f" of preproc {csx.timers.get_secs('preproc'):.6f} s")
     return Matrix(csx=csx, permutation=permutation)
 
 
@@ -238,30 +245,34 @@ def _on(mat: Matrix, device) -> None:
 
 def matvec_mult(alpha: float, mat: Matrix, x, device=None):
     """``spx_matvec_mult`` parity: y = alpha*A*x."""
-    _on(mat, device)
-    return mat.csx.mult(x, alpha=alpha)
+    with span("spx.api.matvec_mult"):
+        _on(mat, device)
+        return mat.csx.mult(x, alpha=alpha)
 
 
 def matvec_kernel(alpha: float, mat: Matrix, x, beta: float, y,
                   device=None):
     """``spx_matvec_kernel`` parity: y = alpha*A*x + beta*y."""
-    _on(mat, device)
-    return mat.csx.matvec(x, alpha=alpha, beta=beta, y=y)
+    with span("spx.api.matvec_kernel"):
+        _on(mat, device)
+        return mat.csx.matvec(x, alpha=alpha, beta=beta, y=y)
 
 
 def matmat_mult(alpha: float, mat: Matrix, X, device=None):
     """SpMM: Y = alpha*A*X with X of shape (ncols, k) (the reference's
     multi-RHS extension of ``spx_matvec_mult``, api.py:209-215)."""
-    _on(mat, device)
-    return mat.csx.matmat(X, alpha=alpha, beta=0.0)
+    with span("spx.api.matmat_mult"):
+        _on(mat, device)
+        return mat.csx.matmat(X, alpha=alpha, beta=0.0)
 
 
 def matmat_kernel(alpha: float, mat: Matrix, X, beta: float, Y,
                   device=None):
     """SpMM: Y = alpha*A*X + beta*Y (multi-RHS ``spx_matvec_kernel``,
     api.py:218-220)."""
-    _on(mat, device)
-    return mat.csx.matmat(X, alpha=alpha, beta=beta, Y=Y)
+    with span("spx.api.matmat_kernel"):
+        _on(mat, device)
+        return mat.csx.matmat(X, alpha=alpha, beta=beta, Y=Y)
 
 
 def spgemm(a: Matrix, b: Matrix) -> Matrix:

@@ -41,7 +41,7 @@ from sparsex_tpu_torch.preprocess.encoder import Encoder
 from sparsex_tpu_torch.preprocess.mining import is_sorted_rc, lexsort_rc, take1
 from sparsex_tpu_torch.preprocess.tables import CsxTables
 from sparsex_tpu_torch.preprocess.xform import run_step
-from sparsex_tpu_torch.timing import TimerCollection
+from sparsex_tpu_torch.timing import TimerCollection, carry, span
 
 
 def round_values(vals, value_type: str) -> np.ndarray:
@@ -58,12 +58,13 @@ def map_shards(fn, nparts: int) -> list:
     """``[fn(i) for i in range(nparts)]``, on a thread pool when there are
     several (the reference's PreprocessThread per partition,
     ``CsxBuild.hpp:290-341``; the hot loops are native C++ and NumPy,
-    which release the GIL)."""
+    which release the GIL); the spans ``fn`` opens there count as inside
+    the caller's."""
     if nparts == 1:
         return [fn(0)]
     workers = min(nparts, max(1, os.cpu_count() or 1))
     with ThreadPoolExecutor(max_workers=workers) as pool:
-        return list(pool.map(fn, range(nparts)))
+        return list(pool.map(carry(fn), range(nparts)))
 
 
 def shard_encoder(nrows: int, ncols: int, rows, cols, vals, cfg: Config,
@@ -73,25 +74,27 @@ def shard_encoder(nrows: int, ncols: int, rows, cols, vals, cfg: Config,
     value type (ref csx.py:55-73), and ``encode(i)``, which mines and
     encodes shard i and returns its ``CsxTables`` and encoding log
     (:79-87)."""
-    if cfg._typed("spx.tpu.host_malloc_tune"):
-        tune_host_allocator()   # recycle big host temporaries
-    rows = np.asarray(rows, dtype=np.int64)
-    cols = np.asarray(cols, dtype=np.int64)
-    vals = round_values(vals, cfg.value_type)
-    part = split_rows_by_nnz(row_counts_from_coo(rows, nrows), nparts)
-    if not is_sorted_rc(rows, cols):
-        order = lexsort_rc(rows, cols)
-        rows, cols = take1(rows, order), take1(cols, order)
-        vals = take1(vals, order)
-    bounds = np.searchsorted(rows, part.row_start + [nrows])
+    with span("spx.tune.sort"):
+        if cfg._typed("spx.tpu.host_malloc_tune"):
+            tune_host_allocator()   # recycle big host temporaries
+        rows = np.asarray(rows, dtype=np.int64)
+        cols = np.asarray(cols, dtype=np.int64)
+        vals = round_values(vals, cfg.value_type)
+        part = split_rows_by_nnz(row_counts_from_coo(rows, nrows), nparts)
+        if not is_sorted_rc(rows, cols):
+            order = lexsort_rc(rows, cols)
+            rows, cols = take1(rows, order), take1(cols, order)
+            vals = take1(vals, order)
+        bounds = np.searchsorted(rows, part.row_start + [nrows])
 
     def encode(i):
-        lo, hi = bounds[i], bounds[i + 1]
-        r0 = part.row_start[i]
-        enc = Encoder(part.row_end[i] - r0, ncols, rows[lo:hi] - r0,
-                      cols[lo:hi], vals[lo:hi], config=cfg)
-        enc.encode()
-        return enc.finalize(row_start=r0), enc.encoding_log
+        with span("spx.tune.encode"):
+            lo, hi = bounds[i], bounds[i + 1]
+            r0 = part.row_start[i]
+            enc = Encoder(part.row_end[i] - r0, ncols, rows[lo:hi] - r0,
+                          cols[lo:hi], vals[lo:hi], config=cfg)
+            enc.encode()
+            return enc.finalize(row_start=r0), enc.encoding_log
 
     return part, encode
 
@@ -137,23 +140,26 @@ class CsxMatrix:
         nparts = max(1, cfg.nr_threads)
         mat = cls(nrows=int(nrows), ncols=int(ncols), nnz=int(np.size(rows)),
                   device=dev, permutation=permutation)
+        mat.timers.create_timer("preproc", span="spx.tune")
         mat.timers.start_timer("preproc")
-        part, encode = shard_encoder(nrows, ncols, rows, cols, vals, cfg,
-                                     nparts)
-        mat.partition = part
+        try:
+            part, encode = shard_encoder(nrows, ncols, rows, cols, vals, cfg,
+                                         nparts)
+            mat.partition = part
 
-        def build(i):   # encode, plan and upload shard i
-            tables, log = encode(i)
-            return tables, log, CsxExecutor.from_tables(tables, dev)
+            def build(i):   # encode, plan and upload shard i
+                tables, log = encode(i)
+                return tables, log, CsxExecutor.from_tables(tables, dev)
 
-        for i, (tables, log, ex) in enumerate(map_shards(build, nparts)):
-            mat.shards.append(tables)
-            mat.executors.append(ex)
-            log_info("shard %d: rows [%d,%d) nnz=%d encodings=%s "
-                     "csx_size=%dB", i, part.row_start[i], part.row_end[i],
-                     part.nnz_per_part[i], ",".join(log) or "none",
-                     tables.csx_size())
-        mat.timers.pause_timer("preproc")
+            for i, (tables, log, ex) in enumerate(map_shards(build, nparts)):
+                mat.shards.append(tables)
+                mat.executors.append(ex)
+                log_info("shard %d: rows [%d,%d) nnz=%d encodings=%s "
+                         "csx_size=%dB", i, part.row_start[i],
+                         part.row_end[i], part.nnz_per_part[i],
+                         ",".join(log) or "none", tables.csx_size())
+        finally:
+            mat.timers.pause_timer("preproc")
         return mat
 
     # ------------------------------------------------------------------

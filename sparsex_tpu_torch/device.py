@@ -6,6 +6,9 @@ With no argument the port runs on the first CUDA device and refuses to
 start without one; the CPU, where every kernel runs its plain PyTorch
 version, is used only when the caller names it.  ``tune_host_allocator`` is
 shared with the reference (the host planners are the same code).
+``graph_nodes`` / ``graph_node_types`` read a captured CUDA graph's nodes
+through the CUDA driver (a replay runs no Python, so nothing else sees
+them).
 """
 
 from __future__ import annotations
@@ -16,7 +19,14 @@ import torch
 
 from sparsex_tpu_torch.errors import ErrorCode, SparsexError
 
-__all__ = ["resolve_device", "tune_host_allocator"]
+__all__ = ["driver_call", "graph_node_types", "graph_nodes",
+           "resolve_device", "tune_host_allocator"]
+
+# CUgraphNodeType (cuda.h), by value
+NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
+              "wait_event", "event_record", "ext_semas_signal",
+              "ext_semas_wait", "mem_alloc", "mem_free", "batch_mem_op",
+              "conditional")
 
 _ALLOCATOR_TUNED = False
 
@@ -63,3 +73,43 @@ def resolve_device(device=None) -> torch.device:
         return dev
     raise SparsexError(ErrorCode.SPX_ERR_ARG_INVALID,
                        f"unsupported device {dev} (cuda or cpu)")
+
+
+def driver_call():
+    """``call(fn, *args)``: a CUDA driver function by name (``libcuda``,
+    through ctypes), raising ``RuntimeError`` on an error code."""
+    drv = ctypes.CDLL("libcuda.so.1")
+
+    def call(fn, *args):
+        rc = getattr(drv, fn)(*args)
+        if rc:
+            raise RuntimeError(f"{fn} returned CUDA driver error {rc}")
+    return call
+
+
+def graph_nodes(graph):
+    """``(node, CUgraphNodeType)`` of each node of ``graph``, a
+    ``torch.cuda.CUDAGraph`` kept with ``keep_graph=True``: 0 kernel,
+    1 memcpy, 2 memset, ... (``NODE_TYPES``)."""
+    call = driver_call()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    call("cuGraphGetNodes", raw, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    call("cuGraphGetNodes", raw, nodes, ctypes.byref(n))
+    out = []
+    for node in nodes:
+        kind = ctypes.c_int()
+        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+        out.append((node, kind.value))
+    return out
+
+
+def graph_node_types(graph) -> dict:
+    """The number of nodes of each type in ``graph`` (:func:`graph_nodes`),
+    by the type's name in ``NODE_TYPES``."""
+    out = {}
+    for _node, kind in graph_nodes(graph):
+        name = NODE_TYPES[kind] if kind < len(NODE_TYPES) else str(kind)
+        out[name] = out.get(name, 0) + 1
+    return out

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from sparsex_tpu_torch.ops.fused import L, _k2_gba, k1_style, k1_window
+from sparsex_tpu_torch.timing import count, span
 
 # index streams of the torch gathers and index_add_ residual adds
 _INDEX_KEYS = frozenset((
@@ -295,7 +296,45 @@ def plan_to_torch(pages_meta, pages_arrays, device,
     (``symmetric.shard_plan``) adds the transposed stream
     (``delta_pages_t``, ``delta_scatter_t``), its leftovers ``delta_t``
     (their ``cols`` global rows of the result) and the diagonal's values
-    ``dvals``.  ``g2b_{i}`` holds raw wires."""
+    ``dvals``.  ``g2b_{i}`` holds raw wires.
+
+    Runs in the span ``spx.tune.upload``, which ends when the copies are
+    complete, and adds the bytes of the uploaded tensors to the counters
+    ``plan.bytes.<class>`` (``PLAN_CLASSES``) and ``plan.bytes``."""
+    with span("spx.tune.upload"):
+        out = _plan_to_torch(pages_meta, pages_arrays, device, dtype)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+    total = 0
+    for key, tree in out.items():
+        n = _tree_bytes(tree)
+        if n:
+            count(f"plan.bytes.{PLAN_CLASSES.get(key, key)}", n)
+            total += n
+    count("plan.bytes", total)
+    return out
+
+
+# the plan class each of plan_to_torch's keys holds (plan.bytes.<class>)
+PLAN_CLASSES = {"delta_pages": "dpages", "delta_pages_t": "dpagesT",
+                "delta_scatter": "dscatter", "delta_scatter_t": "dscatterT",
+                "delta_t": "deltaT", "dias_fused_dv": "dia",
+                "dias_fused_adv": "dia", "dias": "dia"}
+
+
+def _tree_bytes(tree) -> int:
+    """Bytes of the tensors in a nest of dicts and lists."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    return 0
+
+
+def _plan_to_torch(pages_meta, pages_arrays, device,
+                   dtype: torch.dtype) -> Dict[str, object]:
     extras = {e[0]: e[1:] for e in pages_meta[5:] if e}
     _check_windows(pages_meta, pages_arrays)
     _check_pages(pages_meta, pages_arrays)

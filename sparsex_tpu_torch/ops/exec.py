@@ -46,6 +46,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from sparsex_tpu_torch.device import graph_node_types
 from sparsex_tpu_torch.logger import log_warning
 from sparsex_tpu_torch.ops.convert import plan_to_torch
 from sparsex_tpu_torch.ops.fused import MAX_KB as MM_FUSED_KB
@@ -63,6 +64,7 @@ from sparsex_tpu_torch.ops.route import build_scatter_plan, fold_sort_key
 from sparsex_tpu_torch.preprocess.encodings import EncType
 from sparsex_tpu_torch.preprocess.tables import CsxTables
 from sparsex_tpu_torch.preprocess.xform import run_step
+from sparsex_tpu_torch.timing import count_max, span
 
 # the compute dtype of each value type: bf16 matrices compute in f32
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
@@ -699,7 +701,10 @@ class CsxExecutor:
         paged plan, or the plain tables when the planner made none, to
         ``device``; raises ``NotImplementedError`` for a plan outside the
         ported slice."""
-        return cls.from_plan(HostPlan(tables), device)
+        with span("spx.tune.plan"):
+            plan = HostPlan(tables)
+            plan._maybe_build_pages()
+        return cls.from_plan(plan, device)
 
     @classmethod
     def from_plan(cls, plan: HostPlan, device) -> "CsxExecutor":
@@ -726,29 +731,31 @@ class CsxExecutor:
         epilogue runs after it, so one graph serves every alpha and beta.
         A bf16 x is computed in the plan's dtype and gives a bf16 result
         (exec.py:861-867).  The result is always a new tensor."""
-        low = isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16
-        x = self._as_vector(x, "x")
-        apply_alpha = not (isinstance(alpha, (int, float))
-                           and float(alpha) == 1.0)
-        apply_beta = not (y is None or (isinstance(beta, (int, float))
-                                        and float(beta) == 0.0))
-        with self._on_device():
-            if x.dim() == 2:
-                # the graph reads X.T, copied in k-major, and writes Y.T
-                acc, static = self._replayed(("mm", x.shape[1]),
-                                             self._matmat, x.T)
-                yt, acc = acc, acc.T.contiguous()   # a view only at k = 1
-                static = static and acc.data_ptr() == yt.data_ptr()
-            else:
-                acc, static = self._replayed(("mv",), self._matvec, x)
-            if apply_alpha:
-                acc = acc * alpha
-            if apply_beta:
-                acc = acc + beta * self._as_vector(y, "y")
-            if low:
-                acc = acc.to(torch.bfloat16)
-            elif static and not (apply_alpha or apply_beta):
-                acc = acc.clone()   # never the graph's own output
+        with span("spx.exec.call"):
+            low = isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16
+            x = self._as_vector(x, "x")
+            apply_alpha = not (isinstance(alpha, (int, float))
+                               and float(alpha) == 1.0)
+            apply_beta = not (y is None or (isinstance(beta, (int, float))
+                                            and float(beta) == 0.0))
+            with self._on_device():
+                if x.dim() == 2:
+                    # the graph reads X.T, copied in k-major, and writes Y.T
+                    acc, static = self._replayed(("mm", x.shape[1]),
+                                                 self._matmat, x.T)
+                    yt, acc = acc, acc.T.contiguous()  # a view only at k = 1
+                    static = static and acc.data_ptr() == yt.data_ptr()
+                else:
+                    acc, static = self._replayed(("mv",), self._matvec, x)
+                with span("spx.exec.epilogue"):
+                    if apply_alpha:
+                        acc = acc * alpha
+                    if apply_beta:
+                        acc = acc + beta * self._as_vector(y, "y")
+                    if low:
+                        acc = acc.to(torch.bfloat16)
+                    elif static and not (apply_alpha or apply_beta):
+                        acc = acc.clone()   # never the graph's own output
         return acc
 
     def matmat(self, X: torch.Tensor) -> torch.Tensor:
@@ -802,12 +809,14 @@ class CsxExecutor:
             return body(x.contiguous()), False
         g = self._graphs.get(key)
         if g is None:
-            g = self._capture(key, body, x)
+            with span("spx.exec.capture"):
+                g = self._capture(key, body, x)
         else:
             self._graphs.move_to_end(key)
         g.x.copy_(x)
         try:
-            g.graph.replay()
+            with span("spx.exec.replay"):
+                g.graph.replay()
         except RuntimeError as e:
             raise RuntimeError(f"replaying the CUDA graph of {key} failed: "
                                f"{e}") from e
@@ -839,6 +848,12 @@ class CsxExecutor:
                                f"{e}") from e
         g = _Graph(graph, static_x, out,
                    torch.cuda.memory_reserved() - reserved)
+        count_max("graph.bytes_max", g.nbytes)
+        label = "exec.graph_nodes." + "".join(str(k) for k in key)
+        types = graph_node_types(graph)
+        count_max(label, sum(types.values()))
+        for kind, n in types.items():
+            count_max(f"{label}.{kind}", n)
         self._graphs[key] = g
         widths = [k for k in self._graphs if k[0] == "mm"]
         for old in widths[:-MM_GRAPHS]:

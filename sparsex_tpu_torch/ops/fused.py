@@ -53,6 +53,7 @@ from sparsex_tpu_torch.ops.pallas_kernels import (DELTA_TILE, PAGE,
                                                   build_delta_pages,
                                                   build_unit_pages,
                                                   page_grid)
+from sparsex_tpu_torch.timing import planner
 
 # ---------------------------------------------------------------------------
 # the planners (copied from sparsex_tpu/ops/fused.py:44-762, :814-880,
@@ -385,6 +386,7 @@ def _stride_tiles(tile_group: np.ndarray, GT: int = None) -> np.ndarray:
     return sigma
 
 
+@planner(lambda out: out[0] is None)
 def build_fused_delta(cols: np.ndarray, rows: np.ndarray, vals: np.ndarray,
                       ncols: int, nrows_part: int, max_k: int = 8):
     """Plan the fused pipeline for one partition's delta singles.
@@ -657,6 +659,7 @@ def instance_g1(S1_total: int, metas, arrs_list) -> np.ndarray:
     return g1_all
 
 
+@planner(lambda out: out[0] is None)
 def build_fused_run(cols_u: np.ndarray, rows_u: np.ndarray,
                     vals2d: np.ndarray, ncols: int, nrows_part: int,
                     W: int, step: int = 1, max_k: int = 8):

@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from sparsex_tpu_torch.ops._launch import (L, _check, _launch,
                                            _offsets_tensor, _route, _stream,
                                            _value_dtype)
+from sparsex_tpu_torch.timing import planner
 
 TILE = 32 * 1024  # rows per DIA tile of the reference (its x frame's unit)
 
@@ -59,6 +60,7 @@ MAX_Q = 8             # max contiguous pages one tile may span
 MIN_PAGE_NNZ = 1 << 14  # below this the XLA gather is cheaper than a plan
 
 
+@planner(lambda out: out[0] is None)
 def build_delta_pages(cols: np.ndarray, rows: np.ndarray, vals: np.ndarray,
                       ncols: int, nrows_part: int, q_force: int = 0,
                       t_force: int = 0, sort_key=None, group_ids=None):
@@ -169,6 +171,7 @@ def build_delta_pages(cols: np.ndarray, rows: np.ndarray, vals: np.ndarray,
     return rep, leftover_idx
 
 
+@planner(lambda out: out[2] is None)
 def build_unit_pages(flat_cols: np.ndarray, W: int, ncols: int,
                      q_force: int = 0, min_elems: int = 1 << 13):
     """Plan a paged gather for a (U, W) column-index table.

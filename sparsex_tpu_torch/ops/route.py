@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from sparsex_tpu_torch.ops._launch import (L, _batch, _check, _launch,
                                            _route, _stream, _value_dtype)
+from sparsex_tpu_torch.timing import planner
 
 # ---------------------------------------------------------------------------
 # the planner (copied from sparsex_tpu/ops/route.py:45-421)
@@ -99,6 +100,7 @@ def _chunk_ranges(dest: np.ndarray, n_dest: int, S1_total: int):
     return ranges
 
 
+@planner(lambda out: out is None)
 def build_scatter_plan(dest: np.ndarray, n_dest: int, max_k: int = 8,
                        min_elems: int = None,
                        uniform_chunks: bool = False,
@@ -303,13 +305,15 @@ def build_scatter_plan(dest: np.ndarray, n_dest: int, max_k: int = 8,
                else np.zeros(0, dtype=np.int64))
     if res_pos.size > n_valid * max_res_frac:
         # too much residual: the plan would not pay off.  Say so — the
-        # caller falls back to the serialized XLA scatter (~17x slower
-        # per element), which must never happen silently.
+        # caller falls back to an unrouted scatter (a paged delta stream:
+        # the delta-pages kernel's atomic scatter epilogue), which must
+        # never happen silently.
         from sparsex_tpu_torch.logger import log_warning
         log_warning(
             "scatter-route plan rejected: %d of %d elements exceed "
-            "network capacity (folds>%d or k>%d); falling back to the "
-            "serialized XLA scatter for this table",
+            "network capacity (folds>%d or k>%d); falling back to an "
+            "unrouted scatter for this table (a paged delta stream's: the "
+            "delta-pages kernel's scatter epilogue)",
             res_pos.size, n_valid, max_folds, max_k)
         return None
     res_dest = dest[res_pos].astype(np.int32)

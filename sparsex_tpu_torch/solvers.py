@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from sparsex_tpu_torch.device import resolve_device
+from sparsex_tpu_torch.timing import count_max, span
 
 # iterations a block runs between two reads of the stop flag on the host
 BLOCK = 16
@@ -174,12 +175,18 @@ def _operand(v, device) -> torch.Tensor:
 def _solve(kind, fn, b, x0, tol, maxiter, device, graph, stats):
     """Run ``kind``'s recurrence to its stop point.  ``stats`` (a dict)
     gets ``iterations``, ``blocks`` (host reads of the flag), ``seconds``
-    (the whole solve, synchronised), ``capture_s`` (0 without a graph),
+    (the whole solve, synchronised), ``capture_s`` (the seconds of the
+    span ``spx.solver.capture``; 0 without a graph),
     ``graph`` (the captured ``torch.cuda.CUDAGraph``, kept for its kernel
     nodes, or None), ``state`` (the tensors the graph reads and writes,
     kept with it: a further replay runs ``BLOCK`` more iterations on them,
     masked past the stop point) and ``graph_bytes`` (its pool at the
     capture)."""
+    with span("spx.solver.solve"):
+        return _run(kind, fn, b, x0, tol, maxiter, device, graph, stats)
+
+
+def _run(kind, fn, b, x0, tol, maxiter, device, graph, stats):
     t0 = time.perf_counter()
     b = _operand(b, device)
     if x0 is None:
@@ -201,14 +208,19 @@ def _solve(kind, fn, b, x0, tol, maxiter, device, graph, stats):
           else contextlib.nullcontext()):
         if bool(s["go"]):
             if on_card and graph:
-                t1 = time.perf_counter()
-                captured, nbytes = _capture(kind, fn, s)
-                capture_s = time.perf_counter() - t1
+                with span("spx.solver.capture") as sp:
+                    captured, nbytes = _capture(kind, fn, s)
+                capture_s = sp.seconds
+                count_max("graph.bytes_max", nbytes)
+                # the first replay instantiates the kept graph
+                with span("spx.solver.instantiate"):
+                    captured.replay()
+                blocks = 1
                 run = captured.replay
             else:
                 def run():
                     _block(kind, fn, s)
-            going = True
+            going = not blocks or bool(s["go"])
             while going:
                 run()
                 blocks += 1
@@ -231,12 +243,15 @@ def _capture(kind, fn, s):
     current = torch.cuda.current_stream()
     side = torch.cuda.Stream()
     side.wait_stream(current)
-    with torch.cuda.stream(side):
+    with span("spx.solver.capture.warm"), torch.cuda.stream(side):
         kind.step(fn, {k: v.clone() for k, v in s.items()})
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     what = f"{kind.name}'s block of {BLOCK} iterations"
     try:
-        with torch.cuda.graph(graph, stream=side):
+        # entering the graph context collects garbage and empties the
+        # allocator's cache
+        with span("spx.solver.capture.graph"), torch.cuda.graph(
+                graph, stream=side):
             reserved = torch.cuda.memory_reserved()
             _block(kind, fn, s)
     except Exception as e:

@@ -66,6 +66,7 @@ from sparsex_tpu_torch.preprocess.mining import lexsort_rc, take1
 from sparsex_tpu_torch.preprocess.tables import (BlockTable, CsxTables,
                                                  DeltaTable, DiagTable,
                                                  RunTable)
+from sparsex_tpu_torch.timing import span
 
 
 @dataclass
@@ -385,8 +386,9 @@ class SymCsxMatrix(CsxMatrix):
 
     def _full_executor(self) -> CsxExecutor:
         if self._full_exec is None:
-            ft = mirror_full_tables(self.shards, self.dvalues,
-                                    self.nrows, self.ncols)
+            with span("spx.tune.plan"):
+                ft = mirror_full_tables(self.shards, self.dvalues,
+                                        self.nrows, self.ncols)
             log_info("sym full-expansion tables: nnz=%d sig=%s",
                      ft.nnz, ft.signature())
             self._full_exec = CsxExecutor.from_tables(ft, self.device)
@@ -404,8 +406,9 @@ class SymCsxMatrix(CsxMatrix):
         if not hasattr(self, "_sym_paged"):
             self._sym_paged = [None] * len(self.shards)
         if self._sym_paged[si] is None:
-            self._sym_paged[si] = shard_plan(self.shards[si], self.nrows,
-                                             self.ncols)
+            with span("spx.tune.plan"):
+                self._sym_paged[si] = shard_plan(self.shards[si], self.nrows,
+                                                 self.ncols)
         return self._sym_paged[si]
 
     def _shard_executors(self) -> List[SymShardExecutor]:
@@ -522,40 +525,46 @@ def build_symmetric_csx(nrows: int, ncols: int, rows, cols, vals, *,
 
     mat = SymCsxMatrix(nrows=int(nrows), ncols=int(ncols),
                        nnz=int(rows.size), device=dev)
+    mat.timers.create_timer("preproc", span="spx.tune")
     mat.timers.start_timer("preproc")
-    nparts = max(1, cfg.nr_threads)
-    # the reference balances the lower triangle's nonzeros (its
-    # (nnz + n) / 2 symmetric load, SparseInternal.hpp:72-95)
-    part = split_rows_by_nnz(row_counts_from_coo(rows, nrows), nparts)
-    mat.partition = part
-    order = lexsort_rc(rows, cols)
-    rows, cols = take1(rows, order), take1(cols, order)
-    vals = take1(vals, order)
-    bounds = np.searchsorted(rows, part.row_start + [nrows])
+    try:
+        nparts = max(1, cfg.nr_threads)
+        with span("spx.tune.sort"):
+            # the reference balances the lower triangle's nonzeros (its
+            # (nnz + n) / 2 symmetric load, SparseInternal.hpp:72-95)
+            part = split_rows_by_nnz(row_counts_from_coo(rows, nrows),
+                                     nparts)
+            mat.partition = part
+            order = lexsort_rc(rows, cols)
+            rows, cols = take1(rows, order), take1(cols, order)
+            vals = take1(vals, order)
+            bounds = np.searchsorted(rows, part.row_start + [nrows])
 
-    def encode(i):   # PreprocessThreadSym parity (CsxBuild.hpp:290-341)
-        lo, hi = bounds[i], bounds[i + 1]
-        r0 = part.row_start[i]
-        nr = part.row_end[i] - r0
-        pr, pc, pv = rows[lo:hi] - r0, cols[lo:hi], vals[lo:hi]
-        diag_mask = (pr + r0) == pc
-        dvalues = np.zeros(nr, dtype=vals.dtype)
-        dvalues[pr[diag_mask]] = pv[diag_mask]
-        enc = Encoder(nr, ncols, pr[~diag_mask], pc[~diag_mask],
-                      pv[~diag_mask], config=cfg)
-        enc.encode()
-        return (enc.finalize(row_start=r0), dvalues,
-                int((~diag_mask).sum()), enc.encoding_log)
+        def encode(i):   # PreprocessThreadSym parity (CsxBuild.hpp:290-341)
+            with span("spx.tune.encode"):
+                lo, hi = bounds[i], bounds[i + 1]
+                r0 = part.row_start[i]
+                nr = part.row_end[i] - r0
+                pr, pc, pv = rows[lo:hi] - r0, cols[lo:hi], vals[lo:hi]
+                diag_mask = (pr + r0) == pc
+                dvalues = np.zeros(nr, dtype=vals.dtype)
+                dvalues[pr[diag_mask]] = pv[diag_mask]
+                enc = Encoder(nr, ncols, pr[~diag_mask], pc[~diag_mask],
+                              pv[~diag_mask], config=cfg)
+                enc.encode()
+                return (enc.finalize(row_start=r0), dvalues,
+                        int((~diag_mask).sum()), enc.encoding_log)
 
-    for i, (tables, dvalues, lower, log) in enumerate(
-            map_shards(encode, nparts)):
-        mat.shards.append(tables)
-        mat.dvalues.append(dvalues)
-        log_info("sym shard %d: rows [%d,%d) lower-nnz=%d encodings=%s", i,
-                 part.row_start[i], part.row_end[i], lower,
-                 ",".join(log) or "none")
-    mat._executor()
-    mat.timers.pause_timer("preproc")
+        for i, (tables, dvalues, lower, log) in enumerate(
+                map_shards(encode, nparts)):
+            mat.shards.append(tables)
+            mat.dvalues.append(dvalues)
+            log_info("sym shard %d: rows [%d,%d) lower-nnz=%d "
+                     "encodings=%s", i, part.row_start[i], part.row_end[i],
+                     lower, ",".join(log) or "none")
+        mat._executor()
+    finally:
+        mat.timers.pause_timer("preproc")
     return mat
 
 

@@ -5,7 +5,8 @@ library's ``sparsex_test.c`` walkthrough), with ``device="cpu"``; then the
 API the port gained with its several-shard slice, each held against the
 JAX package on the same input:
 
-- the exported names (the reference's ``__all__`` and ``resolve_device``);
+- the exported names (the reference's ``__all__``, ``resolve_device`` and
+  the registry's ``trace_snapshot`` / ``trace_reset``);
 - entries: ``mat_get_entry`` of every stored entry and ``tocoo`` equal to
   the reference's, in 1 and 2 shards, symmetric included; ``set_entry``
   writes the host tables at once and the next SpMV plans and uploads the
@@ -299,9 +300,10 @@ def test_measure_load_imbalance():
 
 def test_exports_match_the_reference(monkeypatch):
     """Every name of the reference's ``__all__``, ``spgemm`` included, and
-    the port's ``resolve_device``; the error handler and the environment
-    options."""
-    assert set(spt.__all__) == set(ref.__all__) | {"resolve_device"}
+    the port's ``resolve_device``, ``trace_snapshot`` and ``trace_reset``;
+    the error handler and the environment options."""
+    assert set(spt.__all__) == set(ref.__all__) | {
+        "resolve_device", "trace_snapshot", "trace_reset"}
     assert all(hasattr(spt, name) for name in spt.__all__)
     seen = []
     old = spt.set_error_handler(lambda *a: seen.append(a[0]))
