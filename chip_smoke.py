@@ -4,6 +4,11 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
+or, for some of the one-card paths alone (all their value types, no phase
+after them), with their labels:
+
+    python3 chip_smoke.py --paths "urand 2^19" "headline 2^22"
+
 It builds the CUDA kernels from ``sparsex_tpu_torch/csrc`` (one nvcc per
 source, run together) and drives the port's paths on the card at full
 width, each tuned with ``sparsex_tpu_torch.mat_tune`` and multiplied with
@@ -79,6 +84,12 @@ this script imports nothing of the JAX package or its benchmark):
     paged-units kernel forms and scatter-adds itself (the unit-page
     gather is held against its plain version on the same windows, off
     this path);
+  - GAP's urand graph at scale 19 (``urand_matrix(1 << 19)``: 16.8M
+    entries, 1 / degree of the column; the benchmark's
+    ``gap-urand19-f32``): the paged delta stream laid out in row blocks
+    (``drows``), the row-blocked epilogue kernel
+    (``delta_rowblock_acc``) alone; both delta streams of 2^22 above are
+    too sparse for row blocks and keep the planner's layout;
 - symmetric matrices (``spx.matrix.symmetric``), each tuned once as its
   lower triangle and diagonal and run in both modes (``spx.tpu.sym_full``
   on, then off): bench.py's CSX-Sym matrix ``build_symmetric_matrix(1 <<
@@ -174,8 +185,8 @@ Every phase is fatal on failure:
    route), the DIA kernel, the delta-pages product, the unit-page gather
    (on the fblk tables' window streams where the path runs it) and the
    paged-units kernel bit-equal, K3 and the scatter epilogues of the
-   delta-pages and paged-units kernels (atomic adds, as ``index_add_``'s)
-   within 1e-6 of the largest value;
+   delta-pages (fold-sorted or row-blocked) and paged-units kernels
+   (atomic adds, as ``index_add_``'s) within 1e-6 of the largest value;
 4. the SpMV end to end against a float64 COO oracle (``CHECK_TOL`` in
    float32, 1e-6 in float64) at alpha=1/beta=0 and alpha=2/beta=0.5.  An
    executor replays a CUDA graph of its own on every call, captured at its
@@ -277,6 +288,7 @@ N_OVERLAP = 1 << 16     # the run matrix whose fused-run route overlapped
 NO_FUSE = (("spx.tpu.min_fused_nnz", str(1 << 30)),)
 N_SYM = 1 << 20         # bench.py's CSX-Sym matrix (build_symmetric_matrix)
 N_DIAGC = 1 << 19       # bench.py's diag-class matrix (build_diagc_matrix)
+N_URAND = 1 << 19       # GAP's urand graph at scale 19 (urand_matrix)
 # a symmetric matrix, tuned as its lower triangle and diagonal; its two
 # modes (spx.tpu.sym_full): the full mirror and the per-shard plan
 SYMMETRIC = (("spx.matrix.symmetric", "true"),)
@@ -291,6 +303,7 @@ SOURCE = {"lane_gather": "sparsex_tpu_torch/csrc/route.cu",
           "dia": "sparsex_tpu_torch/csrc/dia.cu",
           "delta_pages": "sparsex_tpu_torch/csrc/pages.cu",
           "delta_pages_acc": "sparsex_tpu_torch/csrc/pages.cu",
+          "delta_rowblock_acc": "sparsex_tpu_torch/csrc/pages.cu",
           "paged_gather": "sparsex_tpu_torch/csrc/pages.cu",
           "paged_units": "sparsex_tpu_torch/csrc/pages.cu"}
 FUSED_SOURCE = "sparsex_tpu_torch/csrc/fused.cu"
@@ -307,6 +320,8 @@ REPLACES = {
     "delta_pages": "sparsex_tpu/ops/pallas_kernels.py:233",
     # the delta-pages product with the scatter-add after it (:312-321)
     "delta_pages_acc": "sparsex_tpu/ops/pallas_kernels.py:233",
+    # the same, over the port's row-blocked layout of the stream
+    "delta_rowblock_acc": "sparsex_tpu/ops/pallas_kernels.py:233",
     "paged_gather": "sparsex_tpu/ops/pallas_kernels.py:389",
     # the unit-page gather with the multiply and unit sums around it
     "paged_units": "sparsex_tpu/ops/pallas_kernels.py:389",
@@ -465,7 +480,8 @@ def expected_counts(meta, k=0):
     direct ``dpages`` and a symmetric shard's transposed ``dpagesT``) one
     delta-pages product and five lane gathers per instance of its scatter
     route (``dscatter``, ``dscatterT``), or one launch of the product's
-    scatter epilogue (``delta_pages_acc``) where it has no route; five lane
+    scatter epilogue (``delta_pages_acc``) where it has no route, one of the
+    row-blocked epilogue (``delta_rowblock_acc``) for ``drows``; five lane
     gathers per instance of a table's legacy scatter plan, one paged-units
     kernel per paged table.  Of one SpMM of ``k`` columns: on a
     fused
@@ -534,13 +550,19 @@ def _spmv_counts(tf, meta, unit_tables=True):
     for stream, route in (("dpages", "dscatter"), ("dpagesT", "dscatterT")):
         if stream in ex:
             counts["delta_pages" if route in ex else "delta_pages_acc"] += 1
+    counts["delta_rowblock_acc"] = int("drows" in ex)
     return counts
+
+
+ROW_BLOCKS = "spx.tune.plan.build_row_blocks"
 
 
 def tune(spx, rows, cols, vals, n, dtype_name, label, options=()):
     """mat_tune under bench.py's config and the extra ``options`` (key,
-    value) pairs."""
+    value) pairs; says what the row-blocked layout's planner took of the
+    tune (its span, rejected where the stream kept its layout)."""
     import torch
+    before = spx.trace_snapshot()["spans"].get(ROW_BLOCKS)
     cfg = spx.Config.reset()
     cfg.set("spx.tpu.value_dtype", dtype_name)
     cfg.set("spx.preproc.xform", "all")
@@ -553,6 +575,12 @@ def tune(spx, rows, cols, vals, n, dtype_name, label, options=()):
     mat.tune_s = time.perf_counter() - t0
     say(f"[{label}] mat_tune: {mat.tune_s:.2f} s, {n}x{n}, "
         f"nnz={mat.nnz}, on {mat.device}, {len(mat.csx.shards)} shard(s)")
+    after = spx.trace_snapshot()["spans"].get(ROW_BLOCKS)
+    if after is not None:
+        was = before or {"count": 0, "seconds": 0.0, "rejected_seconds": 0.0}
+        say(f"[{label}] build_row_blocks: {after['count'] - was['count']} "
+            f"call(s), {after['seconds'] - was['seconds']:.3f} s, rejected "
+            f"{after['rejected_seconds'] - was['rejected_seconds']:.3f} s")
     return mat
 
 
@@ -717,8 +745,11 @@ def check_pages_plan(mat, kind, label):
     """The plans of the non-fused variants, as the reference planner makes
     them: ``hpcg`` the plain-table variant, one DIA table of 27 diagonals
     and nothing else; ``headline`` the paged delta stream (``dpages``, no
-    scatter route) and one standalone DIA table of 5; ``blocky`` the paged
-    delta stream with paged run and block tables."""
+    scatter route: too sparse for row blocks, it keeps the planner's
+    layout) and one standalone DIA table of 5; ``blocky`` the paged delta
+    stream (likewise) with paged run and block tables; ``urand`` the paged
+    delta stream laid out in row blocks (``drows``, the port's own layout)
+    and no DIA, run or block table."""
     ex = mat.csx.executors[0]
     meta = ex.meta
     extras = extras_of(meta)
@@ -731,6 +762,8 @@ def check_pages_plan(mat, kind, label):
                      and dias == [(False, 5)]),
         "blocky": (ex.variant == "paged" and set(extras) == {"dpages"}
                    and {k for k, _i, _e in paged} == {"runs", "blocks"}),
+        "urand": (ex.variant == "paged" and set(extras) == {"drows"}
+                  and meta[2:4] == ((), ()) and not dias),
     }[kind]
     delta = ex.arrays["delta"]
     desc = (f"{ex.variant} variant; extras {extras}; DIA tables {dias}; "
@@ -968,6 +1001,17 @@ def _bound_pages_acc(a, out):
         2 * vals.numel())
 
 
+def _bound_rowblock_acc(a, out):
+    """The row-blocked scatter epilogue (plo, sl, lrow, vals, x2, q, acc,
+    blk_tile, rb): as the delta-pages epilogue's, its local rows the
+    stream of rows."""
+    from sparsex_tpu_torch.ops import pallas_kernels as tpk
+    plo, sl, lrow, vals, x2, q, acc, blk_tile, rb = a
+    rows = tpk._rowblock_rows(lrow, blk_tile, rb)
+    nbytes, ops = _bound_pages_acc((plo, sl, vals, x2, q, acc, rows), out)
+    return nbytes - _nbytes(rows) + _nbytes(lrow, blk_tile), ops
+
+
 def _bound_units(a, out):
     """The paged-units kernel (plo, sl, vals, x2, q, each): plo, sl and
     vals read and the partials written once, plus each distinct x value
@@ -1016,6 +1060,7 @@ BOUNDS = {
     "dia": lambda a, out: (_nbytes(a[0], a[1], out), 2 * a[0].numel()),
     "delta_pages": _bound_pages,
     "delta_pages_acc": _bound_pages_acc,
+    "delta_rowblock_acc": _bound_rowblock_acc,
     "paged_gather": _bound_pages,
     "paged_units": _bound_units,
 }
@@ -1057,6 +1102,15 @@ def _library_delta_pages(a):
     return lambda: acc.index_add_(0, rows, torch.take(flat, idx) * v)
 
 
+def _library_delta_rowblock(a):
+    """``_library_delta_pages`` of the row-blocked stream, its rows made
+    from the local rows beforehand."""
+    from sparsex_tpu_torch.ops import pallas_kernels as tpk
+    plo, sl, lrow, vals, x2, q, acc, blk_tile, rb = a
+    return _library_delta_pages((plo, sl, vals, x2, q, acc,
+                                 tpk._rowblock_rows(lrow, blk_tile, rb)))
+
+
 def _library_paged_units(a):
     """The glue the paged-units kernel replaced: ``torch.take`` of the
     window values, the multiply and the unit sums (no sum for ``each``),
@@ -1088,6 +1142,7 @@ def _library_paged_units(a):
 LIBRARY = {"t1": _library_t1, "t1_kb": _library_t1,
            "delta_pages": _library_delta_pages,
            "delta_pages_acc": _library_delta_pages,
+           "delta_rowblock_acc": _library_delta_rowblock,
            "paged_gather": _library_paged_gather,
            "paged_units": _library_paged_units}
 
@@ -1172,9 +1227,16 @@ def _fresh_delta_acc(a):
     return a[:5] + (a[5].clone().zero_(), a[6])
 
 
+def _fresh_rowblock_acc(a):
+    """A row-blocked epilogue argument tuple with a zeroed copy of its
+    accumulator."""
+    return a[:6] + (a[6].clone().zero_(),) + a[7:]
+
+
 # per kernel that adds into an operand in place: the argument tuple each
 # checked call gets (check_kernel's ``fresh``)
-FRESH = {"paged_units": _fresh_acc, "delta_pages_acc": _fresh_delta_acc}
+FRESH = {"paged_units": _fresh_acc, "delta_pages_acc": _fresh_delta_acc,
+         "delta_rowblock_acc": _fresh_rowblock_acc}
 
 
 def unit_kernels(res, ex, x, label, timed, loops=LOOPS, outer=OUTER):
@@ -1212,8 +1274,10 @@ def delta_pages_kernels(res, ex, x, x2, label, timed, loops=LOOPS,
     product form (bit-equal to its plain version) on each stream with a
     scatter route, the scatter epilogue (``delta_pages_acc``, within 1e-6:
     atomic adds in no fixed order) on each stream without one, into an
-    accumulator of the stream's rows.  A shard whose transposed stream is
-    routed has its epilogue held too, on that stream, off the path."""
+    accumulator of the stream's rows; the row-blocked epilogue
+    (``delta_rowblock_acc``, likewise) on a ``drows`` stream.  A shard
+    whose transposed stream is routed has its epilogue held too, on that
+    stream, off the path."""
     import torch
     from sparsex_tpu_torch.ops import pallas_kernels as tpk
     extras = extras_of(ex.meta)
@@ -1245,6 +1309,14 @@ def delta_pages_kernels(res, ex, x, x2, label, timed, loops=LOOPS,
         check_kernel(res, label, timed, "delta_pages_acc", tpk.delta_pages_acc,
                      tpk.delta_pages_acc_plain, epilogue, False, loops, outer,
                      fresh=_fresh_delta_acc)
+    if "drows" in extras:
+        rep, (_T, q, _np, rb) = ex.arrays["delta_rows"], extras["drows"]
+        check_kernel(res, label, timed, "delta_rowblock_acc",
+                     tpk.delta_rowblock_acc, tpk.delta_rowblock_acc_plain,
+                     [(rep["plo"], rep["sl"], rep["lrow"], rep["vals"], x2, q,
+                       torch.zeros(ex.nrows, dtype=x.dtype, device=x.device),
+                       rep["blk_tile"], rb)], False, loops,
+                     outer, fresh=_fresh_rowblock_acc)
 
 
 def transposed_rows(ex):
@@ -1509,11 +1581,13 @@ def say_kernels(res, label):
 # the SpMV end to end
 # ---------------------------------------------------------------------------
 
+# the port's kernels by the names of their entry points (``<name>_kernel``
+# or ``<name>_kb_kernel``; K1's lp style ``k1_lp``)
+_KERNEL_NAMES = (r"k1_lp|k1_rlp|k1_sl|k1_run|t1|k2|k3|lane_gather|dia|"
+                 r"delta_pages_acc|delta_pages|delta_rowblock_acc|"
+                 r"paged_gather|paged_units")
 # an entry point's mangled name, as the CUDA driver gives it
-_MANGLED = re.compile(r"\d(k1_lp|k1_rlp|k1_sl|k1_run|t1|k2|k3|lane_gather|"
-                      r"dia|delta_pages_acc|delta_pages|paged_gather|"
-                      r"paged_units)"
-                      r"(_kb)?_kernelI")
+_MANGLED = re.compile(rf"\d({_KERNEL_NAMES})(_kb)?_kernelI")
 
 
 def graph_kernels(graph, kb=False):
@@ -1662,10 +1736,7 @@ def e2e_phase(spx, tf, mat, rows, cols, vals, x, tol, dtype_name,
     return counts, ms, host_ms, graph_time_ms(spmv), eager_ms, errs, spmv
 
 
-_KERNEL_NAME = re.compile(r"\b(k1_lp|k1_rlp|k1_sl|k1_run|t1|k2|k3|"
-                          r"lane_gather|dia|delta_pages_acc|delta_pages|"
-                          r"paged_gather|paged_units)"
-                          r"(_kb)?_kernel\b")
+_KERNEL_NAME = re.compile(rf"\b({_KERNEL_NAMES})(_kb)?_kernel\b")
 
 
 def trace_us(fn, reps):
@@ -2790,6 +2861,24 @@ def build_matrix(n):
     return _dedup_sort(np.concatenate(rows), np.concatenate(cols), n)
 
 
+def urand_matrix(n, degree=16, seed=3):
+    """GAP's urand graph (``-u log2(n) -k degree``, undirected) as
+    PageRank's transition matrix, the benchmark's ``gap-urand19-f32`` made
+    with NumPy: n * degree edges with both ends uniform, self loops and
+    duplicates dropped, both directions stored, sorted by row; the values
+    1 / degree of the column (float64).  About 2 * degree random entries a
+    row: a paged delta stream whose scatter route the planner rejects."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, n * degree)
+    dst = rng.integers(0, n, src.size)
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    key = np.sort(np.concatenate([dst * n + src, src * n + dst]))
+    key = key[np.r_[True, key[1:] != key[:-1]]]
+    rows, cols = key // n, key % n
+    return rows, cols, 1.0 / np.bincount(cols, minlength=n)[cols]
+
+
 def build_blocky_matrix(n):
     """Blocky: 4x2 dense blocks + horizontal runs (w=8) + singles
     (bench.py:155)."""
@@ -3573,7 +3662,12 @@ def run_solver_paths(spx, tf, summary):
 
 
 def main():
+    """All the phases; ``--paths LABEL ...`` runs only the one-card paths
+    of those labels (``"urand 2^19"``, ``"headline 2^22"``, ...), all their
+    value types, and none of the phases after them."""
     import torch
+    only = (sys.argv[sys.argv.index("--paths") + 1:]
+            if "--paths" in sys.argv else None)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
     sys.path.insert(0, ROOT)
@@ -3675,6 +3769,10 @@ def main():
         ("blocky 2^22 ", N_BIG, lambda: build_blocky_matrix(N_BIG),
          lambda m, lb: check_pages_plan(m, "blocky", lb), (), tols, True,
          ()),
+        # the benchmark's graph: the row-blocked delta-pages epilogue
+        ("urand 2^19 ", N_URAND, lambda: urand_matrix(N_URAND),
+         lambda m, lb: check_pages_plan(m, "urand", lb), (), tols, True,
+         ((2, False, f32),)),
         ("symmetric 2^20 ", N_SYM, lambda: build_symmetric_matrix(N_SYM),
          check_sym_plan("symmetric"), sym, tols, f32, ((2, False, f32),),
          tuple(SYM_MODES)),
@@ -3684,6 +3782,10 @@ def main():
     )
     # the paths whose tuned matrix a solver phase runs on (``solve``)
     solves = {"symmetric hpcg 128^3 ": hpcg_cg_phase}
+    if only is not None:
+        paths = [p for p in paths if p[0].strip() in only]
+        if len(paths) != len(only):
+            fail(f"--paths {only}: {len(paths)} of them are paths")
     for prefix, n, build, check, options, types, timed, mms, *modes in paths:
         rows, cols, vals = build()
         if modes:
@@ -3707,6 +3809,11 @@ def main():
                                       cols, vals))
         del rows, cols, vals
 
+    if only is not None:
+        say("summary: " + json.dumps(summary))
+        say(card)
+        say(json.dumps({"kernels": kernels_out}))
+        return
     t0 = time.perf_counter()
     kernels_out += run_solver_paths(spx, tf, summary)
     say(f"[spd symmetric 2^20] solver paths done in "

@@ -18,12 +18,35 @@
 // bound by the bytes of their streams (sl, vals, output), read and written
 // once, and the distinct x values the windows hold.
 //
-//   delta_pages_kernel:     out[e] = x * vals[e]  (one multiply, no sum)
-//   delta_pages_acc_kernel: acc[rows[e]] += x * vals[e]  (its epilogue form)
-//   paged_gather_kernel:    out[e] = x           (a copy: bit-exact)
+//   delta_pages_kernel:        out[e] = x * vals[e]  (one multiply, no sum)
+//   delta_pages_acc_kernel:    acc[rows[e]] += x * vals[e]  (epilogue form)
+//   delta_rowblock_acc_kernel: the same sums, row-blocked (epilogue form)
+//   paged_gather_kernel:       out[e] = x           (a copy: bit-exact)
 //
-// Both delta kernels run one body (delta_products): a block per tile, each
-// thread on V = 16 / sizeof(T) consecutive elements (4 in f32, 2 in f64).
+// The delta stream's two epilogue forms, and when each runs.  A paged delta
+// stream whose products have no scatter route (ops/exec.device_layout)
+// is laid out again by the port in row blocks of rb rows, where every tile
+// of each block's elements, taken in page order, keeps its window within 8
+// pages at the largest rb whose sums fit the planner's 64 KB (RB_SMEM in
+// ops/pallas_kernels.py: 16,384 rows in f32, 8,192 in f64; two thread
+// blocks an SM): delta_rowblock_acc_kernel runs it.  Where the rows are too
+// sparse for that, and for a symmetric shard's two streams, the stream
+// keeps the planner's layout and delta_pages_acc_kernel runs it.
+//
+// delta_pages_acc_kernel's products land on about 1024 distinct rows a
+// tile: one scattered atomicAdd into device memory each, an L2 sector
+// operation apiece, which bounds it (16.8 M on GAP urand at 2^19: 216 us,
+// where its streams need 50).  delta_rowblock_acc_kernel (below) streams
+// 8 bytes an element in f32 (int16 offset, int16 row in the block, value:
+// 134 MB on urand, 40 us at 3.35 TB/s) and keeps the sums in shared
+// memory, so device memory sees one coalesced atomic a row a thread
+// block; what bounds it now is the stream and the shared-memory adds
+// (compare-and-swap loops on sm_90), which the threads of an SM (two
+// blocks of 1024 in f32, one in f64) overlap with the stream (PERF.md).
+//
+// delta_pages_kernel and delta_pages_acc_kernel run one body
+// (delta_products): a block per tile, each thread on V = 16 / sizeof(T)
+// consecutive elements (4 in f32, 2 in f64).
 // plo[t] is read once per block (thread 0, through shared memory); a thread
 // reads its V int16 offsets as one vector (8 or 4 bytes) and its V values
 // as one 16-byte load, both streaming past the caches (each is read once),
@@ -40,9 +63,11 @@
 // (the epilogue of paged_units_kernel below).  Atomic adds sum in no fixed
 // order, as index_add_'s own kernel does.  The port's first design, a
 // thread per element with a 2-byte offset load, a plo load and a scalar
-// store each, reached 43-64 % of its bound in f32 (PERF.md).  Both
+// store each, reached 43-64 % of its bound in f32 (PERF.md).  The three
 // launchers refuse sl off its vector boundary, vals and out off 16 bytes,
-// rows off its vector boundary, and q outside 1..16: CUDA error 1.
+// rows and lrow off their vector boundaries, q outside 1..16, and rb past
+// 32,768 (int16 local rows) or its sums past the shared memory a block may
+// take: CUDA error 1.
 //
 // paged_gather_kernel (the fblk chain's gather, kernels.py:607-621) runs a
 // block per tile, each thread on V = 16 / sizeof(T) consecutive elements (4
@@ -89,6 +114,13 @@
 namespace {
 
 constexpr int PAGE = 1024;       // x values per page = elements per tile
+// The row-blocked epilogue's thread blocks: RB_THREADS threads and rb row
+// sums in shared memory (the planner's rb: 64 KB of sums), so that two fill
+// an H100 SM (2048 threads, 228 KB of shared memory) in float32, where 32
+// registers a thread do; in float64 they would spill, and one thread block
+// takes an SM.  A local row is int16: rb is at most RB_MAX_ROWS.
+constexpr int RB_THREADS = 1024;
+constexpr int RB_MAX_ROWS = 32768;
 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
@@ -194,6 +226,77 @@ delta_pages_acc_kernel(const int32_t* __restrict__ plo,
 #pragma unroll
   for (int j = 0; j < V; ++j)
     if (r[j] >= 0 && r[j] < n_acc) atomicAdd(acc + r[j], p[j]);
+}
+
+// The row-blocked epilogue form.  The stream's tiles are grouped by row
+// block (rows [b * rb, (b + 1) * rb) in tiles [blk_tile[b], blk_tile[b +
+// 1])), each element carrying its row as an int16 offset into its block
+// (lrow; -1 in padding slots, dropped).  Thread block i of the grid's N
+// takes the tiles [T * i / N, T * (i + 1) / N): for each row block that run
+// meets it zeroes rb sums in shared memory, adds each product there with a
+// shared-memory atomicAdd, then adds each nonzero sum into acc with one
+// coalesced atomic a row.  A tile is a group of 1024 / V threads, and the
+// block's groups walk the run's tiles together, each thread on V elements
+// of a tile as delta_products does (its offsets, local rows and values as
+// one vector each, streaming past the caches; its V gathers through L1;
+// __fmul_rn / __dmul_rn).  A grid of as many blocks as the card holds at
+// once gives each an equal run, where a block a row block would leave SMs
+// idle or run a second wave.
+template <typename T>
+__global__ void __launch_bounds__(RB_THREADS, 8 / sizeof(T))
+delta_rowblock_acc_kernel(const int32_t* __restrict__ plo,
+                          const int16_t* __restrict__ sl,
+                          const int16_t* __restrict__ lrow,
+                          const T* __restrict__ vals,
+                          const T* __restrict__ x2,
+                          const int32_t* __restrict__ blk_tile, int nb,
+                          long long n_tiles, T* __restrict__ acc,
+                          long long n_acc, int rb, int win) {
+  extern __shared__ __align__(16) unsigned char rb_smem[];
+  T* part = reinterpret_cast<T*>(rb_smem);
+  constexpr int V = 16 / sizeof(T);
+  constexpr int TPT = PAGE / V;            // threads a tile
+  constexpr int G = RB_THREADS / TPT;      // tiles the block walks at once
+  const int g = threadIdx.x / TPT;
+  const int lane = threadIdx.x - g * TPT;
+  const long long t_end = n_tiles * (blockIdx.x + 1) / gridDim.x;
+  long long t0 = n_tiles * blockIdx.x / gridDim.x;
+  int b = 0, hi = nb;                      // blk_tile[b] <= t0 < blk_tile[hi]
+  while (hi - b > 1) {
+    const int mid = (b + hi) / 2;
+    if (blk_tile[mid] <= t0) b = mid; else hi = mid;
+  }
+  while (t0 < t_end) {
+    while (blk_tile[b + 1] <= t0) ++b;     // past empty row blocks
+    const long long t1 = min(t_end, (long long)blk_tile[b + 1]);
+    for (int i = threadIdx.x; i < rb; i += RB_THREADS) part[i] = T(0);
+    __syncthreads();
+    for (long long t = t0 + g; t < t1; t += G) {
+      const long long e = t * PAGE + V * lane;
+      int s[V], r[V];
+      load_offsets(sl + e, s);
+      load_offsets(lrow + e, r);
+      T v[V];
+      load_values(vals + e, v);
+      const T* src = x2 + (long long)__ldg(plo + t) * PAGE;
+      T xv[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        xv[j] = (r[j] >= 0 && s[j] >= 0 && s[j] < win) ? __ldg(src + s[j])
+                                                       : T(0);
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        if ((unsigned)r[j] < (unsigned)rb)
+          atomicAdd(part + r[j], mul_rn(xv[j], v[j]));
+    }
+    __syncthreads();
+    const long long row0 = (long long)b * rb;
+    const long long n = n_acc - row0 < rb ? n_acc - row0 : rb;
+    for (int i = threadIdx.x; i < n; i += RB_THREADS)
+      if (part[i] != T(0)) atomicAdd(acc + row0 + i, part[i]);
+    __syncthreads();
+    t0 = t1;
+  }
 }
 
 // One block per tile, V elements a thread (a block of 1024 / V threads):
@@ -310,6 +413,47 @@ int launch_delta_pages_acc(const void* plo, const void* sl, const void* vals,
                               (cudaStream_t)stream>>>(
       (const int32_t*)plo, (const int16_t*)sl, (const T*)vals, (const T*)x2,
       (const int32_t*)rows, (T*)acc, n_acc, q * PAGE);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_rowblock(const void* plo, const void* sl, const void* lrow,
+                    const void* vals, const void* x2, const void* blk_tile,
+                    int nb, long long n_tiles, void* acc, long long n_acc,
+                    int rb, int q, void* stream) {
+  constexpr int V = 16 / sizeof(T);
+  if (acc == nullptr || lrow == nullptr || blk_tile == nullptr ||
+      delta_refused<T>(sl, vals, nullptr, nullptr, q) ||
+      ((uintptr_t)lrow & (2 * V - 1)) || rb < 1 || rb > RB_MAX_ROWS ||
+      nb < 1)
+    return (int)cudaErrorInvalidValue;
+  if (n_tiles == 0) return (int)cudaGetLastError();
+  auto kernel = delta_rowblock_acc_kernel<T>;
+  const size_t smem = (size_t)rb * sizeof(T);
+  // as many thread blocks as the card holds at once, each a run of tiles;
+  // rb sums past the shared memory a block may take are refused
+  int dev = 0, sms = 0, optin = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess && smem > (size_t)optin)
+    return (int)cudaErrorInvalidValue;
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        RB_THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  long long grid = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  if (grid > n_tiles) grid = n_tiles;
+  kernel<<<(unsigned)grid, RB_THREADS, smem, (cudaStream_t)stream>>>(
+      (const int32_t*)plo, (const int16_t*)sl, (const int16_t*)lrow,
+      (const T*)vals, (const T*)x2, (const int32_t*)blk_tile, nb, n_tiles,
+      (T*)acc, n_acc, rb, q * PAGE);
   return (int)cudaGetLastError();
 }
 
@@ -431,6 +575,22 @@ extern "C" int spx_delta_pages_acc_f64(const void* plo, const void* sl,
                                        void* stream) {
   return launch_delta_pages_acc<double>(plo, sl, vals, x2, rows, acc, n_acc,
                                         T, q, stream);
+}
+
+extern "C" int spx_delta_rowblock_acc_f32(
+    const void* plo, const void* sl, const void* lrow, const void* vals,
+    const void* x2, const void* blk_tile, int nb, long long T, void* acc,
+    long long n_acc, int rb, int q, void* stream) {
+  return launch_rowblock<float>(plo, sl, lrow, vals, x2, blk_tile, nb, T,
+                                acc, n_acc, rb, q, stream);
+}
+
+extern "C" int spx_delta_rowblock_acc_f64(
+    const void* plo, const void* sl, const void* lrow, const void* vals,
+    const void* x2, const void* blk_tile, int nb, long long T, void* acc,
+    long long n_acc, int rb, int q, void* stream) {
+  return launch_rowblock<double>(plo, sl, lrow, vals, x2, blk_tile, nb, T,
+                                 acc, n_acc, rb, q, stream);
 }
 
 extern "C" int spx_paged_gather_f32(const void* plo, const void* sl,

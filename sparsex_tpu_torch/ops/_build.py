@@ -143,6 +143,8 @@ def _signatures() -> dict:
     sig["dia"] = [vp, vp, vp, i, ll, vp, vp]
     sig["delta_pages"] = [vp, vp, vp, vp, vp, ll, i, vp]
     sig["delta_pages_acc"] = [vp, vp, vp, vp, vp, vp, ll, ll, i, vp]
+    sig["delta_rowblock_acc"] = [vp, vp, vp, vp, vp, vp, i, ll, vp, ll, i, i,
+                                 vp]
     sig["paged_gather"] = [vp, vp, vp, vp, ll, i, i, vp]
     sig["paged_units"] = [vp, vp, vp, vp, vp, vp, vp, ll, ll, i, i, i, i, i,
                           i, i, vp]

@@ -151,8 +151,8 @@ def _delta_rows(pages_meta, key: str) -> int:
 
 def _page_windows(pages_meta, pages_arrays):
     """(name, plo, q, npages) of every legacy paged part of the plan: the
-    ``dpages`` delta stream (and a symmetric shard's ``dpagesT``) and each
-    paged run or block table's unit plan."""
+    ``dpages`` delta stream or its row-blocked ``drows`` (and a symmetric
+    shard's ``dpagesT``) and each paged run or block table's unit plan."""
     extras = {e[0]: e[1:] for e in pages_meta[5:] if e}
     parts = []
     for key, arr_key, _s, _a in _DELTA_STREAMS:
@@ -160,6 +160,10 @@ def _page_windows(pages_meta, pages_arrays):
             _T, q, npages = extras[key]
             parts.append((f"{arr_key} plo", pages_arrays[arr_key]["plo"], q,
                           npages))
+    if "drows" in extras:
+        _T, q, npages, _rb = extras["drows"]
+        parts.append(("delta_rows plo", pages_arrays["delta_rows"]["plo"], q,
+                      npages))
     for kind, metas, key in (("run", pages_meta[2], "runs"),
                              ("block", pages_meta[3], "blocks")):
         for i, (entry, t) in enumerate(zip(metas, pages_arrays.get(key,
@@ -190,6 +194,27 @@ def _check_pages(pages_meta, pages_arrays) -> None:
             rows = np.asarray(rep["rows"])
             if rows.size and (rows.min() < 0 or rows.max() > n):
                 raise ValueError(f"{arr_key} rows outside [0, {n}]")
+    extras = {e[0]: e[1:] for e in pages_meta[5:] if e}
+    if "drows" in extras:
+        _check_row_blocks(extras["drows"], pages_arrays["delta_rows"],
+                          pages_meta[0])
+
+
+def _check_row_blocks(drows, rep, nrows: int) -> None:
+    """The row-blocked kernel walks the tiles of each row block and adds
+    its sums into that block's rows of y unchecked: the row blocks' tile
+    runs must cover the stream's tiles in order, one run a block of
+    ``rb`` rows of [0, nrows), and every local row lie in [-1, rb)."""
+    T, _q, _np, rb = drows
+    tiles = np.asarray(rep["blk_tile"], dtype=np.int64)
+    lrow = np.asarray(rep["lrow"])
+    if (tiles.size != -(-nrows // rb) + 1 or tiles[0] != 0
+            or tiles[-1] != T or (np.diff(tiles) < 0).any()):
+        raise ValueError(f"delta_rows blk_tile does not cover the {T} tiles "
+                         f"in {-(-nrows // rb)} row blocks")
+    if lrow.size != T * 1024 or (lrow.size and (lrow.min() < -1
+                                                or lrow.max() >= rb)):
+        raise ValueError(f"delta_rows lrow outside [-1, {rb})")
 
 
 def _scatter_plans(pages_meta, pages_arrays):
@@ -291,8 +316,11 @@ def plan_to_torch(pages_meta, pages_arrays, device,
     ``plan`` when paged, ``{}`` for a ``cvt`` one), ``fall`` (the merged
     plan), ``delta`` (plain delta singles, or None), ``delta_pages`` (the
     paged delta stream: ``sl`` kept int16, ``rows`` int32 as the kernel's
-    scatter epilogue reads them), ``delta_scatter`` (its scatter route), the
-    standalone ``dias`` and the K3 DIA grids; a symmetric shard's plan
+    scatter epilogue reads them), ``delta_rows`` (the same stream laid out
+    in row blocks, ``ops/exec.device_layout``: ``sl`` and ``lrow`` int16,
+    ``plo`` and ``blk_tile`` int32), ``delta_scatter`` (its scatter
+    route), the standalone ``dias`` and the K3 DIA grids; a symmetric
+    shard's plan
     (``symmetric.shard_plan``) adds the transposed stream
     (``delta_pages_t``, ``delta_scatter_t``), its leftovers ``delta_t``
     (their ``cols`` global rows of the result) and the diagonal's values
@@ -316,7 +344,8 @@ def plan_to_torch(pages_meta, pages_arrays, device,
 
 
 # the plan class each of plan_to_torch's keys holds (plan.bytes.<class>)
-PLAN_CLASSES = {"delta_pages": "dpages", "delta_pages_t": "dpagesT",
+PLAN_CLASSES = {"delta_pages": "dpages", "delta_rows": "drows",
+                "delta_pages_t": "dpagesT",
                 "delta_scatter": "dscatter", "delta_scatter_t": "dscatterT",
                 "delta_t": "deltaT", "dias_fused_dv": "dia",
                 "dias_fused_adv": "dia", "dias": "dia"}
@@ -359,6 +388,9 @@ def _plan_to_torch(pages_meta, pages_arrays, device,
                                                device, torch.int32)
         if skey in extras:
             out[sarr_key] = _upload_scatter(pages_arrays[sarr_key], device)
+    if "drows" in extras:      # plo, blk_tile int32, sl and lrow int16
+        out["delta_rows"] = _upload_tree(pages_arrays["delta_rows"], device,
+                                         dtype)
     delta = pages_arrays.get("delta")
     out["delta"] = (None if delta is None
                     else _upload_tree(delta, device, dtype))

@@ -14,7 +14,9 @@ parts:
   through the wrong lanes).  Its comments cite the reference's TPU
   measurements (the planners' origins); none is a number of the port;
 - :class:`CsxExecutor`, the device half: :meth:`CsxExecutor.from_tables`
-  plans on the host and uploads the resulting plan once through
+  plans on the host, lays the plan out for the card
+  (:func:`device_layout`: a paged delta stream without a scatter route in
+  row blocks, the port's own layout) and uploads it once through
   :func:`~sparsex_tpu_torch.ops.convert.plan_to_torch`.  On the card
   each call replays a CUDA graph of the executor's own (one for the SpMV,
   one per SpMM width k), the counterpart of the reference's compiled-call
@@ -59,12 +61,13 @@ from sparsex_tpu_torch.ops.kernels import (check_slice, fused_mm_contrib,
                                            static_meta, tables_to_arrays,
                                            unmerged_overlapping_runs)
 from sparsex_tpu_torch.ops.pallas_kernels import (build_delta_pages,
+                                                  build_row_blocks,
                                                   build_unit_pages)
 from sparsex_tpu_torch.ops.route import build_scatter_plan, fold_sort_key
 from sparsex_tpu_torch.preprocess.encodings import EncType
 from sparsex_tpu_torch.preprocess.tables import CsxTables
 from sparsex_tpu_torch.preprocess.xform import run_step
-from sparsex_tpu_torch.timing import count_max, span
+from sparsex_tpu_torch.timing import count, count_max, span
 
 # the compute dtype of each value type: bf16 matrices compute in f32
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
@@ -666,6 +669,39 @@ class HostPlan:
                 tuple(bounds), tuple(res_desc))
 
 
+def device_layout(plan: HostPlan):
+    """``(variant, meta, arrays)`` that the card runs of ``plan``: its paged
+    plan, else its plain tables.  One pass of the port's own follows the
+    shared planner: a paged delta stream (``dpages``) whose products are
+    scatter-added (no ``dscatter`` route) is laid out again in row blocks
+    (``build_row_blocks``), where the stream allows it: its meta entry
+    becomes ``("drows", T, q, npages, rb)`` and its arrays
+    ``delta_pages`` become ``delta_rows``, so that the fold-sorted tiles
+    and their int32 rows are not uploaded.  Counters:
+    ``plan.rowblock.plans`` and ``plan.rowblock.elems`` (the elements such
+    a layout holds), ``plan.rowblock.fallbacks`` (streams that kept
+    theirs)."""
+    if plan._pages_meta is None:
+        return "plain", plan.meta, plan.arrays
+    meta, arrays = plan._pages_meta, plan._pages_arrays
+    extras = {e[0]: e for e in meta[5:] if e}
+    if "dpages" not in extras or "dscatter" in extras:
+        return "paged", meta, arrays
+    _key, _T, _q, npages = extras["dpages"]
+    rep = build_row_blocks(arrays["delta_pages"], plan.tables.nrows, npages,
+                           _DTYPES[plan._dtype].itemsize)
+    if rep is None:
+        count("plan.rowblock.fallbacks")
+        return "paged", meta, arrays
+    count("plan.rowblock.plans")
+    count("plan.rowblock.elems", int(np.count_nonzero(rep["lrow"] >= 0)))
+    entry = ("drows", rep["plo"].size, rep.pop("q"), npages, rep.pop("rb"))
+    arrays = {k: v for k, v in arrays.items() if k != "delta_pages"}
+    arrays["delta_rows"] = rep
+    return "paged", meta[:5] + tuple(entry if e and e[0] == "dpages" else e
+                                     for e in meta[5:]), arrays
+
+
 class _Graph:
     """One captured executor call: the CUDA graph, the static input it
     reads, the static output it writes, and the device memory its private
@@ -704,19 +740,21 @@ class CsxExecutor:
         with span("spx.tune.plan"):
             plan = HostPlan(tables)
             plan._maybe_build_pages()
-        return cls.from_plan(plan, device)
+            layout = device_layout(plan)
+        return cls._upload(plan, layout, device)
 
     @classmethod
     def from_plan(cls, plan: HostPlan, device) -> "CsxExecutor":
         """Upload ``plan`` (its paged plan, planned here unless it was
-        planned or restored before, else its plain tables) to ``device``;
-        raises ``NotImplementedError`` for a plan outside the ported
-        slice."""
+        planned or restored before, else its plain tables; in the layout
+        :func:`device_layout` gives) to ``device``; raises
+        ``NotImplementedError`` for a plan outside the ported slice."""
         plan._maybe_build_pages()
-        if plan._pages_meta is not None:
-            variant, meta, host = "paged", plan._pages_meta, plan._pages_arrays
-        else:
-            variant, meta, host = "plain", plan.meta, plan.arrays
+        return cls._upload(plan, device_layout(plan), device)
+
+    @classmethod
+    def _upload(cls, plan: HostPlan, layout, device) -> "CsxExecutor":
+        variant, meta, host = layout
         check_slice(meta)
         dtype = _DTYPES[plan._dtype]
         arrays = plan_to_torch(meta, host, device, dtype)

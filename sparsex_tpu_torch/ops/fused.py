@@ -1523,13 +1523,14 @@ def add_products(acc, vals, cols, dest, x, ncols: int):
 # the CUDA kernels whose launches ``launches`` counts (K1 under one key
 # per style family: lp, rlp{W}, sl, run{W}; the lane gather is launched
 # from ``ops/route.py``, dia / delta_pages / delta_pages_acc /
-# paged_gather / paged_units from ``ops/pallas_kernels.py``), then the
+# delta_rowblock_acc / paged_gather / paged_units from
+# ``ops/pallas_kernels.py``), then the
 # k-batched (SpMM) variants, each under its kernel's key + ``_kb``
 KB_KERNELS = ("k1_kb", "k1_rlp_kb", "k1_sl_kb", "k1_run_kb", "t1_kb",
               "k2_kb", "k3_kb", "lane_gather_kb")
 KERNELS = ("k1", "k1_rlp", "k1_sl", "k1_run", "t1", "k2", "k3",
            "lane_gather", "dia", "delta_pages", "delta_pages_acc",
-           "paged_gather", "paged_units") + KB_KERNELS
+           "delta_rowblock_acc", "paged_gather", "paged_units") + KB_KERNELS
 
 
 def launch_counts() -> Dict[str, int]:

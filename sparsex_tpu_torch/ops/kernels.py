@@ -19,7 +19,9 @@ end:
   its scatter-add in the kernel (the scatter epilogue), or its products
   through their scatter route ``dscatter``
   (:403-422, ``route.apply_scatter_plan``: five lane gathers per route
-  instance) and the route's residual adds;
+  instance) and the route's residual adds; or ``drows``, the port's
+  row-blocked layout of a stream without a route (``ops/exec.device_layout``):
+  the products summed in shared memory per row block, then added into y;
 - the plain delta singles (gather + segment sum, :454-459);
 - ``frun`` fused run tables (:541-569; K1 ``rlp{W}`` or ``run{W}``) and
   the plain or paged run tables (:570-588), their partials through the
@@ -78,6 +80,7 @@ from sparsex_tpu_torch.ops.fused import (MAX_KB, L, add_products,
                                          partial_segment_e1s)
 from sparsex_tpu_torch.ops.pallas_kernels import (delta_pages_products,
                                                   delta_pages_spmv,
+                                                  delta_rowblock_acc,
                                                   dia_spmv, pad_x_pages,
                                                   page_grid,
                                                   paged_gather_grid,
@@ -153,7 +156,8 @@ def check_slice(meta) -> None:
     dense-tile ``sl`` / ``run{W}``), fused block tables (``fblk``), their
     merged plan with its ``dres`` / ``rres`` / ``bres`` residuals, DIA
     tables riding K3 or standalone (static offsets), the legacy paged delta
-    (``dpages``) with or without its scatter route (``dscatter``), a
+    (``dpages``) with or without its scatter route (``dscatter``), or laid
+    out in row blocks (``drows``, ``ops/exec.device_layout``), a
     symmetric shard's transposed one (``dpagesT``, ``dscatterT``), plain
     delta singles, and plain or paged (unit-page) run and block tables,
     scatter-added, routed through a partial segment (``fs``) or through a
@@ -162,7 +166,7 @@ def check_slice(meta) -> None:
     extras = {e[0]: e[1:] for e in meta[5:] if e}
     for key in extras:
         if key not in ("dfused", "k3dias", "fall", "dpages", "dscatter",
-                       "dpagesT", "dscatterT"):
+                       "dpagesT", "dscatterT", "drows"):
             _refuse(f"the {key!r} execution class")
     if "dfused" in extras:
         fmeta = extras["dfused"][0]
@@ -238,11 +242,13 @@ def shared_page_grid(meta, x, ncols: int):
 
 def paged_grid(meta, x, ncols: int):
     """ONE padded page grid of x shared by every legacy paged consumer (the
-    ``dpages`` delta stream and a symmetric shard's transposed ``dpagesT``,
-    each paged run or block table's unit plan), sized by their largest q
-    and npages (kernels.py:392-402); None when the plan has none."""
+    ``dpages`` delta stream or its row-blocked ``drows``, a symmetric
+    shard's transposed ``dpagesT``, each paged run or block table's unit
+    plan), sized by their largest q and npages (kernels.py:392-402); None
+    when the plan has none."""
     extras = {e[0]: e[1:] for e in meta[5:] if e}
-    sigs = [extras[k] for k in ("dpages", "dpagesT") if k in extras]
+    sigs = [extras[k][:3] for k in ("dpages", "dpagesT", "drows")
+            if k in extras]
     sigs += [e[3] for e in (*meta[2], *meta[3]) if len(e) > 3 and e[3]]
     if not sigs:
         return None
@@ -440,7 +446,7 @@ def fused_mm_ok(meta) -> bool:
         return False
     if any(_kind(e) == "fblk" for e in block_meta):
         return False
-    return "dpages" not in extras and "dscatter" not in extras
+    return not extras & {"dpages", "dscatter", "drows"}
 
 
 def fused_mm_contrib(meta, arrs, xt, *, nrows_part: int, ncols: int):
@@ -533,6 +539,12 @@ def local_contrib(meta, arrs, x, *, nrows_part: int, ncols: int,
     elif dpages is not None:   # the kernel's scatter epilogue
         acc = delta_pages_spmv(dpages, arrs["delta_pages"], x, nrows_part,
                                ncols, zeros() if acc is None else acc, x2=x2)
+    elif "drows" in extras:    # row-blocked: the sums in shared memory
+        _T, q, _np, rb = extras["drows"]
+        dr = arrs["delta_rows"]
+        acc = delta_rowblock_acc(dr["plo"], dr["sl"], dr["lrow"], dr["vals"],
+                                 x2, q, zeros() if acc is None else acc,
+                                 dr["blk_tile"], rb)
 
     d = arrs.get("delta")
     if d is not None and d["cols"].shape[0]:

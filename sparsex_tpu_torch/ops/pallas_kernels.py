@@ -6,18 +6,22 @@ kernels are the CUDA kernels of ``csrc/dia.cu`` (``_build_dia_kernel``) and
 its host planners are the port's own copies (``build_delta_pages``,
 ``build_unit_pages``, unchanged NumPy):
 
-- five kernel wrappers, ``dia``, ``delta_pages``, ``delta_pages_acc``,
-  ``gather`` and ``paged_units``, each launching its CUDA kernel on a CUDA
-  tensor and running its plain PyTorch version (``dia_plain``,
-  ``delta_pages_plain``, ``delta_pages_acc_plain``, ``gather_plain``,
-  ``paged_units_plain``) only on a CPU tensor; each launch adds one to
-  ``ops.fused.launches`` under ``dia``, ``delta_pages``,
-  ``delta_pages_acc``, ``paged_gather`` and ``paged_units``.
+- six kernel wrappers, ``dia``, ``delta_pages``, ``delta_pages_acc``,
+  ``delta_rowblock_acc``, ``gather`` and ``paged_units``, each launching
+  its CUDA kernel on a CUDA tensor and running its plain PyTorch version
+  (``dia_plain``, ``delta_pages_plain``, ``delta_pages_acc_plain``,
+  ``delta_rowblock_acc_plain``, ``gather_plain``, ``paged_units_plain``)
+  only on a CPU tensor; each launch adds one to ``ops.fused.launches``
+  under ``dia``, ``delta_pages``, ``delta_pages_acc``,
+  ``delta_rowblock_acc``, ``paged_gather`` and ``paged_units``.
   ``delta_pages_acc`` is the delta-pages product with the scatter-add
   that the reference runs in XLA after it (``delta_pages_spmv``)
-  folded into the kernel, and ``paged_units`` the unit-page gather fused
-  with the multiply and the per-unit sums that the reference's executor
-  runs in XLA around it (kernels.py:471-491, :570-588, :647-665);
+  folded into the kernel, ``delta_rowblock_acc`` the same over the port's
+  row-blocked layout of the stream (``build_row_blocks``, no counterpart
+  in the reference: the sums in shared memory), and ``paged_units`` the
+  unit-page gather fused with the multiply and the per-unit sums that the
+  reference's executor runs in XLA around it (kernels.py:471-491,
+  :570-588, :647-665);
 - the host-side functions with the reference's names: ``pad_x_pages``
   (over ``page_grid``), ``dia_spmv`` (``dia_spmv_pallas``'s ``pad_lo`` /
   ``xp_len`` framing, in ``dia_frame``), ``delta_pages_products``,
@@ -231,6 +235,98 @@ def build_unit_pages(flat_cols: np.ndarray, W: int, ncols: int,
     return unit_order, T * g, plan
 
 
+# ---------------------------------------------------------------------------
+# the row-blocked delta stream: the port's own layout of a paged delta
+# stream whose products are scatter-added (no scatter route), which the
+# reference has no counterpart of
+# ---------------------------------------------------------------------------
+
+# bytes of a thread block's row sums in delta_rowblock_acc_kernel (the
+# launcher takes rb * itemsize of shared memory; it holds no limit of
+# its own but the card's and int16's)
+RB_SMEM = 64 * 1024
+
+
+def row_block_rows(nrows_part: int, itemsize: int) -> int:
+    """The rows of a row block: as many as a thread block's RB_SMEM bytes of
+    sums hold in the value type (16,384 in float32, 8,192 in float64), or
+    the partition's rows rounded up to a power of two where fewer.  The
+    larger the block, the fewer pages a tile's window spans and the fewer
+    times the tiles read x; RB_SMEM keeps two thread blocks on each SM."""
+    return min(RB_SMEM // itemsize,
+               1 << max(0, (int(nrows_part) - 1).bit_length()))
+
+
+def row_block_layout(rows, cols, vals, nrows_part: int, npages: int,
+                     rb: int):
+    """The row-blocked layout of the elements (``rows``, ``cols`` int64,
+    ``vals``) in row blocks of ``rb`` (a power of two) rows: each block's
+    elements in the order of their x pages, cut into tiles of DELTA_TILE,
+    the block's ragged tail padded with ``vals`` 0, ``sl`` 0 and the local
+    row -1.  Returns ``{"plo" (T,) int32, "sl" (T, 8, 128) int16, "vals"
+    (T, 8, 128), "lrow" (T * 1024,) int16: each element's row less its
+    block's first, "blk_tile" (nb + 1,) int32: row block b holds the tiles
+    [blk_tile[b], blk_tile[b + 1]), "q", "rb"}``, or None when a tile's
+    window would span more than MAX_Q pages (rows too sparse for the
+    block)."""
+    shift = rb.bit_length() - 1
+    m = rows.size
+    nb = -(-nrows_part >> shift)
+    b = rows >> shift
+    # one sort, by (block, page): the order inside a page is free; each
+    # element's local row and column in its page go along in one int32
+    key = b * npages + cols // PAGE
+    order = np.argsort(key)
+    key = key[order]
+    low = (((rows - (b << shift)) << 10) | (cols % PAGE)).astype(np.int32)
+    low = low[order]
+    n_b = np.bincount(b, minlength=nb)
+    nt = -(-n_b // DELTA_TILE)
+    T = int(nt.sum())
+    start = np.cumsum(n_b) - n_b
+    tile_base = np.cumsum(nt) - nt
+    # each element's slot: its block's tiles from tile_base, in order
+    bs = key // npages
+    slot = (tile_base * DELTA_TILE - start)[bs] + np.arange(m)
+    cs = (key - bs * npages) * PAGE + (low & (PAGE - 1))
+    tb = np.repeat(np.arange(nb), nt)
+    i = np.arange(T) - tile_base[tb]
+    first = start[tb] + i * DELTA_TILE
+    last = start[tb] + np.minimum((i + 1) * DELTA_TILE, n_b[tb]) - 1
+    pmin = cs[first] // PAGE
+    q = int((cs[last] // PAGE - pmin).max(initial=0)) + 1
+    if q > MAX_Q:
+        return None
+    plo = np.minimum(pmin, max(0, npages - q)).astype(np.int32)
+    sl = np.zeros(T * DELTA_TILE, dtype=np.int16)
+    v = np.zeros(T * DELTA_TILE, dtype=vals.dtype)
+    lrow = np.full(T * DELTA_TILE, -1, dtype=np.int16)
+    sl[slot] = cs - plo[slot // DELTA_TILE].astype(np.int64) * PAGE
+    v[slot] = vals[order]
+    lrow[slot] = low >> 10
+    return {"plo": plo, "sl": sl.reshape(T, 8, 128),
+            "vals": v.reshape(T, 8, 128), "lrow": lrow,
+            "blk_tile": np.append(tile_base, T).astype(np.int32), "q": q,
+            "rb": int(rb)}
+
+
+@planner(lambda out: out is None)
+def build_row_blocks(rep, nrows_part: int, npages: int, itemsize: int):
+    """The row-blocked layout (:func:`row_block_layout`) of the elements
+    that ``build_delta_pages``'s stream ``rep`` keeps (``rows`` below
+    ``nrows_part``; its padding slots carry ``nrows_part``), in row blocks
+    of :func:`row_block_rows`; None where that layout has none, and the
+    stream keeps its own."""
+    rows = np.asarray(rep["rows"]).reshape(-1)
+    keep = rows < nrows_part
+    rows = rows[keep].astype(np.int64)
+    cols = (np.repeat(np.asarray(rep["plo"], dtype=np.int64) * PAGE,
+                      DELTA_TILE)
+            + np.asarray(rep["sl"]).reshape(-1))[keep]
+    return row_block_layout(rows, cols,
+                            np.asarray(rep["vals"]).reshape(-1)[keep],
+                            int(nrows_part), npages,
+                            row_block_rows(nrows_part, itemsize))
 
 
 # ---------------------------------------------------------------------------
@@ -406,6 +502,53 @@ def delta_pages_acc(plo, sl, vals, x2, q: int, acc, rows):
     return acc
 
 
+def _rowblock_rows(lrow, blk_tile, rb: int):
+    """Each slot's row in the matrix: its tile's row block * rb + its
+    local row, -1 for the padding slots (local row -1).  No step waits
+    for the device, so a CUDA graph can capture it."""
+    tiles = torch.arange(lrow.shape[0] // PAGE, dtype=blk_tile.dtype,
+                         device=lrow.device)
+    blk = torch.searchsorted(blk_tile, tiles, right=True).to(torch.int64) - 1
+    lr = lrow.to(torch.int64).view(blk.shape[0], -1)
+    ok = (lr >= 0) & (lr < rb)
+    return torch.where(ok, blk[:, None] * rb + lr, -1).reshape(-1)
+
+
+def delta_rowblock_acc_plain(plo, sl, lrow, vals, x2, q: int, acc,
+                             blk_tile, rb: int):
+    """``acc[rows] += delta_pages_plain(...)`` in place over a row-blocked
+    stream, each slot's row ``b * rb + lrow`` for a tile of row block b,
+    padding slots (local row -1) and rows past ``acc`` dropped; returns
+    ``acc``."""
+    return add_totals(acc, delta_pages_plain(plo, sl, vals, x2, q).reshape(-1),
+                      _rowblock_rows(lrow, blk_tile, rb))
+
+
+def delta_rowblock_acc(plo, sl, lrow, vals, x2, q: int, acc, blk_tile,
+                       rb: int):
+    """The delta-pages product over a row-blocked stream
+    (:func:`row_block_layout`), its scatter in the kernel: each thread
+    block takes an even share of the tiles, sums the products of each row
+    block's tiles among them into ``rb`` sums in shared memory, then adds
+    the sums into ``acc`` with atomic adds in no fixed order.  Returns
+    ``acc``.  On the card ``lrow`` off its vector boundary, ``rb`` past
+    32,768 (int16 local rows) or ``rb`` sums past the shared memory a
+    thread block may take raises as :func:`delta_pages`'s operands do."""
+    T = _check_delta(plo, sl, vals, x2, q)
+    dev = vals.device
+    _check("acc", acc, vals.dtype, (acc.shape[0],), dev)
+    _check("lrow", lrow, torch.int16, (T * PAGE,), dev)
+    _check("blk_tile", blk_tile, torch.int32, (blk_tile.shape[0],), dev)
+    if _route(dev) == "cpu":
+        return delta_rowblock_acc_plain(plo, sl, lrow, vals, x2, q, acc,
+                                        blk_tile, rb)
+    _launch("delta_rowblock_acc", vals.dtype, plo.data_ptr(), sl.data_ptr(),
+            lrow.data_ptr(), vals.data_ptr(), x2.data_ptr(),
+            blk_tile.data_ptr(), blk_tile.shape[0] - 1, T, acc.data_ptr(),
+            acc.shape[0], rb, q, _stream(dev))
+    return acc
+
+
 def gather(plo, sl, x2, q: int):
     """The unit-page gather over a (T, 8, 128) tile stream, ``sl`` int16 or
     int32, 1 <= q <= 16; returns (T, 8, 128) x values.  The kernel reads a
@@ -570,9 +713,12 @@ def paged_gather_grid(plan_meta, plan, x, ncols: int, x2=None):
 
 
 __all__ = [
-    "build_delta_pages", "build_unit_pages", "dia", "dia_plain",
+    "build_delta_pages", "build_row_blocks", "build_unit_pages",
+    "row_block_layout", "row_block_rows", "dia",
+    "dia_plain",
     "dia_frame", "dia_spmv", "delta_pages", "delta_pages_acc",
-    "delta_pages_acc_plain", "delta_pages_plain", "gather",
+    "delta_pages_acc_plain", "delta_pages_plain", "delta_rowblock_acc",
+    "delta_rowblock_acc_plain", "gather",
     "gather_plain", "page_grid", "pad_x_pages", "delta_pages_products",
     "delta_pages_spmv", "add_totals", "paged_gather_grid", "paged_units",
     "paged_units_plain", "window_index",

@@ -12,7 +12,8 @@ unit-page gather (1 to 16 window pages, misaligned operands refused) and
 the paged-units kernel must equal their plain versions bit for bit; K3
 must agree to 1e-6 of the largest value (both sum in the same order,
 without FMA), and so must the scatter epilogues of the delta-pages and
-paged-units kernels (atomic adds in no fixed order).  The k-batched (SpMM) variants
+paged-units kernels and the row-blocked delta-pages epilogue (atomic adds
+in no fixed order; ``-k rowblock``).  The k-batched (SpMM) variants
 of K1, T1, K2, K3 and the lane gather, at kb = 1, 3 and 8 (K2 at every
 kb from 1 to 8), must equal
 their plain versions the same way, and each column c the kb = 0 kernel on
@@ -451,6 +452,107 @@ def test_delta_pages_acc_cuda_matches_plain(dev, n_acc, dtype):
     want = tpk.delta_pages_acc_plain(plo, sl, vals, x2, q, acc0.clone(), rws)
     assert got.shape == (n_acc,)
     assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+
+
+def _rowblock_stream(dev, dtype, n, seed):
+    """A urand-like paged delta stream on the card: 32 random columns a row
+    of n, planned as a stream without a scatter route (fold sorted), and
+    its row-blocked layout: (the layout's tensors, q, rb, the fold-sorted
+    stream's (plo, sl, vals, rows), its q, x2)."""
+    from sparsex_tpu_torch.ops.route import fold_sort_key
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), 32)
+    cols = rng.integers(0, n, rows.size)
+    vals = rng.standard_normal(rows.size).astype(dtype)
+    rep, _left = tpk.build_delta_pages(cols, rows, vals, n, n,
+                                       sort_key=fold_sort_key(rows, n, cols))
+    q, npages = rep.pop("q"), rep.pop("npages")
+    lay = tpk.build_row_blocks(rep, n, npages, np.dtype(dtype).itemsize)
+    assert lay is not None and -(-n // lay["rb"]) > 1
+    t = dict(zip(("plo", "sl", "lrow", "vals", "blk_tile"),
+                 _on(dev, *(lay[k] for k in ("plo", "sl", "lrow", "vals",
+                                             "blk_tile")))))
+    old = _on(dev, rep["plo"], rep["sl"], rep["vals"],
+              rep["rows"].astype(np.int32))
+    x = torch.from_numpy(rng.standard_normal(n).astype(dtype)).to(dev)
+    x2 = tpk.pad_x_pages(x, n, max(q, lay["q"]), npages)
+    return t, lay["q"], lay["rb"], old, q, x2
+
+
+@pytest.mark.parametrize("n", [50000, 1 << 19])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_delta_rowblock_cuda_matches_plain(dev, n, dtype):
+    """The row-blocked epilogue at urand-like shapes (the benchmark's 2^19
+    rows of 32; at 50000 rows the last row block ragged) into an
+    accumulator that already holds values agrees with its plain version
+    and with ``delta_pages_acc`` on the fold-sorted stream within 1e-6 (f32)
+    and 1e-12 (f64) of the largest value: each sums a row's products in
+    no fixed order (atomic adds; the kernel first in shared memory per
+    thread block, then into acc), so the sums differ in their last bits."""
+    t, q, rb, old, q_old, x2 = _rowblock_stream(dev, dtype, n, seed=11)
+    acc0 = torch.from_numpy(np.random.default_rng(2).standard_normal(n)
+                            .astype(dtype)).to(dev)
+    got = _launched("delta_rowblock_acc", lambda: tpk.delta_rowblock_acc(
+        t["plo"], t["sl"], t["lrow"], t["vals"], x2, q, acc0.clone(),
+        t["blk_tile"], rb))
+    plain = tpk.delta_rowblock_acc_plain(t["plo"], t["sl"], t["lrow"],
+                                         t["vals"], x2, q, acc0.clone(),
+                                         t["blk_tile"], rb)
+    want = tpk.delta_pages_acc(*old[:3], x2, q_old, acc0.clone(), old[3])
+    bar = 1e-6 if dtype == np.float32 else 1e-12
+    assert (got - plain).abs().max() <= bar * plain.abs().max()
+    assert (got - want).abs().max() <= bar * want.abs().max()
+    # the plain version waits for nothing on the device, so a CUDA graph
+    # captures it (chip_smoke.py times it so)
+    acc_g = acc0.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_g = tpk.delta_rowblock_acc_plain(t["plo"], t["sl"], t["lrow"],
+                                             t["vals"], x2, q, acc_g,
+                                             t["blk_tile"], rb)
+    acc_g.copy_(acc0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert (out_g - plain).abs().max() <= bar * plain.abs().max()
+
+
+@pytest.mark.parametrize("operand", ["lrow", "sl", "vals", "rb", "q"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_delta_rowblock_cuda_refuses(dev, operand, dtype):
+    """A thread's local rows and offsets load as one vector each and its
+    values as 16 bytes, a local row is int16 and a row block's sums must
+    fit the shared memory a thread block may take: an operand one element
+    past its boundary, rb past 32,768 (f32: 2^16 rows) or its sums past
+    the card's shared memory a block (f64: 32,768 rows, 256 KB), or q = 17
+    is refused (CUDA error 1); nothing is launched."""
+    rng = np.random.default_rng(4)
+    T, q, n = 4, 2, 100
+    plo, x2, blk_tile = _on(dev, np.zeros(T, np.int32),
+                            rng.standard_normal((20, 8, L)).astype(dtype),
+                            np.array([0, T], np.int32))
+    slf, lrf, valf = _on(dev, rng.integers(0, q * 1024, T * 8 * L + 8)
+                         .astype(np.int16),
+                         rng.integers(0, n, T * 8 * L + 8).astype(np.int16),
+                         rng.standard_normal(T * 8 * L + 8).astype(dtype))
+    shape = (T, 8, L)
+    sl, lrow, vals = slf[:-8].view(shape), lrf[:-8], valf[:-8].view(shape)
+    rb = 128
+    if operand == "sl":
+        sl = slf[1:-7].view(shape)
+    elif operand == "lrow":
+        lrow = lrf[1:-7]
+    elif operand == "vals":
+        vals = valf[1:-7].view(shape)
+    elif operand == "rb":
+        rb = 1 << 16 if dtype == np.float32 else 1 << 15
+    qq = 17 if operand == "q" else q
+    if operand == "q":
+        x2 = x2.repeat(2, 1, 1)
+    acc = torch.zeros(n, dtype=vals.dtype, device=dev)
+    before = tf.launches["delta_rowblock_acc"]
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        tpk.delta_rowblock_acc(plo, sl, lrow, vals, x2, qq, acc, blk_tile, rb)
+    assert tf.launches["delta_rowblock_acc"] == before
 
 
 @pytest.mark.parametrize("operand", ["sl", "vals", "out", "rows", "q"])

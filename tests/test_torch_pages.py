@@ -379,16 +379,21 @@ def test_paged_variant_without_fused_segment(monkeypatch, dtype, bar):
                    **{"spx.preproc.sampling": "none",
                       "spx.tpu.min_fused_nnz": str(rows.size + 1)})
     meta = A.csx.executors[0].meta
-    assert meta == ref._pages_meta
-    assert set(_extras(meta)) == {"dpages"}
+    # the reference's plan, its paged delta stream laid out in row blocks
+    assert meta[:5] == ref._pages_meta[:5]
+    assert set(_extras(ref._pages_meta)) == {"dpages"}
+    assert set(_extras(meta)) == {"drows"}
+    assert _extras(meta)["drows"][2] == _extras(ref._pages_meta)["dpages"][2]
     assert [e[:3] for e in meta[4]] == [(False, (-13, -1, 0, 1, 8), 5)]
     runs = {e[2]: e for e in meta[2]}
     assert set(runs) == {4, 8} and runs[4][3] is None and runs[8][3]
     assert all(len(e) == 5 and e[4] is None for e in meta[2] + meta[3])
     (blk,) = meta[3]
     assert blk[1:3] == (4, 2) and blk[3]
-    dp = A.csx.executors[0].arrays["delta_pages"]
-    assert dp["sl"].dtype == torch.int16 and dp["rows"].dtype == torch.int32
+    arrays = A.csx.executors[0].arrays
+    dr = arrays["delta_rows"]
+    assert "delta_pages" not in arrays
+    assert dr["sl"].dtype == torch.int16 and dr["lrow"].dtype == torch.int16
     _check_path(A, ref, n, rows, cols, vals, dtype, bar)
 
 
@@ -464,7 +469,8 @@ def _sig(v):
 def _units_sig(a, at=6):
     """A paged-units call's arguments as something comparable: no trailing
     None, and the scatter epilogue's accumulator (argument ``at``; 5 for
-    the delta-pages epilogue), which holds what the SpMV added before the
+    the delta-pages epilogue, 6 for its row-blocked form), which holds what
+    the SpMV added before the
     table, by shape and dtype alone."""
     a = list(a)
     while a and a[-1] is None:
@@ -477,34 +483,47 @@ def _units_sig(a, at=6):
 def record_calls(monkeypatch, wrappers, calls):
     """Wrap each (module, function, name) of ``wrappers`` so that a call
     appends (name, its arguments as something comparable) to ``calls``;
-    ``ops.kernels`` reaches the paged-units wrapper through its own name."""
+    ``ops.kernels`` reaches the paged-units and row-blocked delta wrappers
+    through their own names."""
     for mod, fn, name in wrappers:
         def rec(*a, _f=getattr(mod, fn), _n=name):
             calls.append((_n, _units_sig(a) if _n == "paged_units"
                           else _units_sig(a, 5) if _n == "delta_pages_acc"
+                          else _units_sig(a, 6) if _n == "delta_rowblock_acc"
                           else _sig(a)))
             return _f(*a)
         monkeypatch.setattr(mod, fn, rec)
     monkeypatch.setattr(tk, "paged_units", tpk.paged_units)
+    monkeypatch.setattr(tk, "delta_rowblock_acc", tpk.delta_rowblock_acc)
 
 
-@pytest.mark.parametrize("kinds", [("hpcg",), ("headline", "blocky")])
+@pytest.mark.parametrize("kinds", [("hpcg",), ("headline", "blocky"),
+                                   ("urand",)])
 def test_chip_smoke_pages_phase_feeds_the_path_inputs(monkeypatch, kinds):
-    """chip_smoke's plan check passes on both variants, its kernel phase
-    calls each wrapper with exactly the inputs the port's SpMV gives it,
-    and the launch counts it derives from the plan are the SpMV's calls."""
+    """chip_smoke's plan check passes on both variants and on both layouts
+    of the paged delta stream, its kernel phase calls each wrapper with
+    exactly the inputs the port's SpMV gives it, and the launch counts it
+    derives from the plan are the SpMV's calls.  The combined matrix's
+    stream keeps the planner's layout, as headline and blocky 2^22's do:
+    with row blocks of 1,024 rows (RB_SMEM cut to 8 KB) its singles are too
+    sparse for them, as those streams' are for 16,384; a urand graph's is
+    laid out in row blocks."""
     _thresholds(monkeypatch, 1024, 1 << 30)
+    opts = {"spx.preproc.sampling": "none"}
     if kinds == ("hpcg",):
         n, rows, cols, vals = chip_smoke.hpcg_matrix(16)
-        opts = {"spx.preproc.sampling": "none"}
+    elif kinds == ("urand",):
+        n = 1 << 14
+        rows, cols, vals = chip_smoke.urand_matrix(n)
     else:
         n, rows, cols, vals = combined_matrix()
-        opts = {"spx.preproc.sampling": "none",
-                "spx.tpu.min_fused_nnz": str(rows.size + 1)}
+        opts["spx.tpu.min_fused_nnz"] = str(rows.size + 1)
+        monkeypatch.setattr(tpk, "RB_SMEM", 8 * 1024)
     A, _ref = _tune(n, rows, cols, vals, "float64", **opts)
     calls = []
     names = {"dia": "dia", "delta_pages": "delta_pages",
              "delta_pages_acc": "delta_pages_acc",
+             "delta_rowblock_acc": "delta_rowblock_acc",
              "gather": "paged_gather", "paged_units": "paged_units"}
     record_calls(monkeypatch, [(tpk, fn, name) for fn, name in names.items()],
                  calls)
@@ -526,7 +545,8 @@ def test_chip_smoke_pages_phase_feeds_the_path_inputs(monkeypatch, kinds):
     assert {k: want[k] for k in names.values()} == {
         k: counted[k] for k in names.values()}
     assert set(res) == set(counted) | ({"paged_gather"} if gathers else set())
-    assert want["dia"] == 1 and sum(want.values()) == len(path)
+    assert want["dia"] == (kinds != ("urand",))
+    assert sum(want.values()) == len(path)
 
 
 # ---------------------------------------------------------------------------

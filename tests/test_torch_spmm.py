@@ -451,7 +451,10 @@ def test_matmat_per_column_route(monkeypatch, dtype, variant):
     plain-table variant (the 16^3 HPCG stencil, one DIA table) and the
     legacy paged variant (nothing fuses above ``spx.tpu.min_fused_nnz``,
     nothing is routed: the paged delta stream, paged run and block tables,
-    a standalone DIA table)."""
+    a standalone DIA table).  The delta stream is too sparse for the
+    port's row blocks (its windows would span more than 8 pages there), so
+    it keeps the planner's layout; ``tests/test_torch_rowblock.py`` runs
+    the SpMM of a row-blocked one."""
     if variant == "plain":
         n, rows, cols, vals = chip_smoke.hpcg_matrix(16)
         opts = {"spx.preproc.sampling": "none"}

@@ -209,6 +209,18 @@ def test_kernel_key_names_our_kernels():
     assert cs.kernel_key("delta_pages_acc_kernel<float>") == \
         "delta_pages_acc"
     assert cs.kernel_key("void at::native::vectorized_elementwise") is None
+    # every launch key, by its demangled name (the profile) and its mangled
+    # one (a graph's kernel nodes, through the CUDA driver)
+    from sparsex_tpu_torch.ops.fused import KERNELS
+    for key in KERNELS:
+        kb = key.endswith("_kb")
+        base = key[:-3] if kb else key
+        entry = ("k1_lp" if base == "k1" else base) + ("_kb" if kb else "")
+        assert cs.kernel_key(f"void {entry}_kernel<float>(int const*)") == key
+        m = cs._MANGLED.search(f"_ZN12_GLOBAL__N_1{len(entry) + 7}{entry}"
+                               "_kernelIfEEvPKi")
+        assert m and m.group(1) + (m.group(2) or "") == (
+            "k1_lp" if base == "k1" else base) + ("_kb" if kb else "")
 
 
 # --- every tool without CUDA -------------------------------------------------

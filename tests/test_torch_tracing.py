@@ -388,7 +388,8 @@ def test_plan_bytes_count_the_uploaded_tensors():
     assert counters["plan.bytes"] == nbytes(ex.arrays) > 0
     parts = {k: v for k, v in counters.items()
              if k.startswith("plan.bytes.")}
-    assert "plan.bytes.dpages" in parts
+    # the paged delta stream, laid out in row blocks (ops/exec.device_layout)
+    assert "plan.bytes.drows" in parts and "plan.bytes.dpages" not in parts
     assert sum(parts.values()) == counters["plan.bytes"]
 
 

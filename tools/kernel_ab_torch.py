@@ -18,8 +18,9 @@ source, every tree's started together); the Python side, planners and
 wrappers included, is this tree's, so the trees must share the kernels' C
 interface.  A kernel that a tree's library lacks runs there as the
 composition it replaced (``EMULATED``: the delta-pages scatter epilogue
-``delta_pages_acc`` as the tree's delta-pages product and the torch
-scatter-add after it), both alone and inside the SpMV; such a tree's
+``delta_pages_acc``, and its row-blocked form ``delta_rowblock_acc``, as the
+tree's delta-pages product and the torch scatter-add after it), both alone
+and inside the SpMV; such a tree's
 reading of that kernel's name is the composition's.  A ``--diagnostic`` tree is timed like a variant but its
 results are not held to the plain versions: a deliberately incomplete
 kernel (one that skips its x gather or its stores, say) bounds what that
@@ -100,8 +101,20 @@ def _emulated_delta_pages_acc(plo, sl, vals, x2, q, acc, rows):
                           .reshape(-1), rows)
 
 
+def _emulated_delta_rowblock_acc(plo, sl, lrow, vals, x2, q, acc, blk_tile,
+                                 rb):
+    """The row-blocked epilogue as a library without it runs the work: the
+    tree's delta-pages product over the row-blocked stream, then the torch
+    scatter-add into each slot's row."""
+    from sparsex_tpu_torch.ops import pallas_kernels as tpk
+    return tpk.add_totals(acc, tpk.delta_pages(plo, sl, vals, x2, q)
+                          .reshape(-1), tpk._rowblock_rows(lrow, blk_tile,
+                                                           rb))
+
+
 # kernel -> what a tree whose library lacks it runs in its place
-EMULATED = {"delta_pages_acc": _emulated_delta_pages_acc}
+EMULATED = {"delta_pages_acc": _emulated_delta_pages_acc,
+            "delta_rowblock_acc": _emulated_delta_rowblock_acc}
 MISSING = {}     # library -> the kernels it lacks
 
 
